@@ -1,0 +1,71 @@
+"""1-D conv primitives for audio codecs (port of
+vox_serve_tpu/codecs/layers.py).
+
+Weights keep torch's layouts, which the JAX package already uses: Conv1d
+``(out, in/groups, k)``, ConvTranspose1d ``(in, out/groups, k)``. Activations
+are NCH (``(B, C, T)``) throughout; the JAX package's channels-last variants
+were a TPU lane-layout device and are not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def init_conv1d(generator: torch.Generator, in_ch: int, out_ch: int,
+                kernel: int, device, groups: int = 1, bias: bool = True,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Uniform(-s, s) init with s = (in/groups * k)^-1/2 (JAX init)."""
+    scale = 1.0 / math.sqrt(in_ch // groups * kernel)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        return ((u * 2.0 - 1.0) * scale).to(dtype)
+
+    p = {"w": uniform((out_ch, in_ch // groups, kernel))}
+    if bias:
+        p["b"] = uniform((out_ch,))
+    return p
+
+
+def init_conv_transpose1d(generator: torch.Generator, in_ch: int,
+                          out_ch: int, kernel: int, device, groups: int = 1,
+                          bias: bool = True,
+                          dtype: torch.dtype = torch.float32) -> dict:
+    scale = 1.0 / math.sqrt(out_ch // groups * kernel)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        return ((u * 2.0 - 1.0) * scale).to(dtype)
+
+    p = {"w": uniform((in_ch, out_ch // groups, kernel))}
+    if bias:
+        p["b"] = uniform((out_ch,))
+    return p
+
+
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding=0,
+           dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """x: (B, C_in, T) -> (B, C_out, T'). padding: int (symmetric) or
+    (left, right). Matches torch.nn.Conv1d; params set the compute dtype."""
+    x = x.to(p["w"].dtype)
+    if not isinstance(padding, int):
+        x = F.pad(x, (padding[0], padding[1]))
+        padding = 0
+    return F.conv1d(x, p["w"], p.get("b"), stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
+
+
+def conv_transpose1d(p: dict, x: torch.Tensor, stride: int = 1,
+                     padding: int = 0, output_padding: int = 0,
+                     groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Matches torch.nn.ConvTranspose1d (weight layout (in, out/groups, k))."""
+    x = x.to(p["w"].dtype)
+    return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
+                              padding=padding, output_padding=output_padding,
+                              groups=groups, dilation=dilation)

@@ -1,0 +1,118 @@
+"""CLI entry of the port: ``python -m vox_serve_tpu_torch.launch``.
+
+Serves the HTTP API of vox_serve_tpu (the same aiohttp app,
+``vox_serve_tpu.server.app.build_app``) in front of the port's scheduler
+daemon, one per data-parallel rank. The JAX launcher's serving profiles
+(``profiles.py``) are not applied: their constants were measured on a TPU.
+
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts --device cuda
+    python -m vox_serve_tpu_torch.launch --model dummy --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import tempfile
+
+from vox_serve_tpu.utils import get_logger, set_global_log_level
+
+logger = get_logger("launch")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="vox_serve_tpu_torch API server")
+    p.add_argument("--model", default="dummy")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails at start-up without CUDA) or "
+                        "cpu")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--scheduler-type", default="online",
+                   choices=["base", "online"])
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch-size", type=int, default=8)
+    p.add_argument("--max-num-pages", type=int, default=2048)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--max-prefill-tokens", type=int, default=1024)
+    p.add_argument("--max-prefill-requests", type=int, default=8)
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--min-p", type=float, default=None)
+    p.add_argument("--temperature", type=float, default=None)
+    p.add_argument("--max-tokens", type=int, default=None)
+    p.add_argument("--repetition-penalty", type=float, default=None)
+    p.add_argument("--repetition-window", type=int, default=None)
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--detokenize-interval", type=int, default=None)
+    p.add_argument("--dp-size", type=int, default=1)
+    p.add_argument("--stats-file", default=None,
+                   help="scheduler daemon writes kernel launch counts and "
+                        "phase times here when it is terminated")
+    p.add_argument("--socket-suffix", default="")
+    p.add_argument("--log-level", default="info")
+    p.add_argument("--timeout-seconds", type=float, default=600.0)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    set_global_log_level(args.log_level)
+
+    from .models import get_model_class, resolve_device
+
+    resolve_device(args.device)  # fail here, not in the daemon
+    cls = get_model_class(args.model)  # validates the name early
+    sample_rate = getattr(cls, "SAMPLE_RATE", None) or 24000
+
+    from aiohttp import web
+    from vox_serve_tpu.server.app import build_app
+
+    from .server.api import APIServer
+
+    scheduler_args = {
+        "device": args.device,
+        "seed": args.seed,
+        "max_num_pages": args.max_num_pages,
+        "page_size": args.page_size,
+        "max_prefill_tokens": args.max_prefill_tokens,
+        "max_prefill_requests": args.max_prefill_requests,
+        "top_p": args.top_p, "top_k": args.top_k, "min_p": args.min_p,
+        "temperature": args.temperature, "max_tokens": args.max_tokens,
+        "repetition_penalty": args.repetition_penalty,
+        "repetition_window": args.repetition_window,
+        "greedy": args.greedy,
+        "detokenize_interval": args.detokenize_interval,
+        "stats_file": args.stats_file,
+        "log_level": args.log_level,
+    }
+    tmp = tempfile.gettempdir()
+    server = APIServer(
+        model_name=args.model,
+        scheduler_type=args.scheduler_type,
+        output_dir=os.path.join(tmp, "vox_serve_audio"),
+        upload_dir=os.path.join(tmp, "vox_serve_uploads"),
+        max_batch_size=args.max_batch_size,
+        dp_size=args.dp_size,
+        socket_suffix=args.socket_suffix,
+        timeout_seconds=args.timeout_seconds,
+        scheduler_args=scheduler_args,
+    )
+
+    def _shutdown(signum, frame):
+        logger.info("received signal %s, shutting down", signum)
+        server.cleanup()
+        os._exit(0)
+
+    signal.signal(signal.SIGINT, _shutdown)
+    signal.signal(signal.SIGTERM, _shutdown)
+
+    app = build_app(server, sample_rate=sample_rate)
+    logger.info("serving %s on %s:%d (%s)", args.model, args.host, args.port,
+                args.device)
+    web.run_app(app, host=args.host, port=args.port, print=None)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,129 @@
+"""Scheduler daemon subprocess entry:
+``python -m vox_serve_tpu_torch.scheduler_entry`` (port of
+vox_serve_tpu/scheduler_entry.py).
+
+Builds the model on ``--device`` (default ``cuda``; asking for CUDA where
+it is unavailable fails at start-up), the port's synchronous worker and a
+scheduler, and runs the scheduler loop. On the card the CUDA kernels are
+built before the daemon reports ready, so no request pays for ``nvcc``.
+
+``--stats-file PATH``: the daemon zeroes the kernel launch counters just
+before its loop starts and, when it is terminated, writes the counts and the
+worker's per-phase wall times there as JSON (how a caller that drives the
+daemon over HTTP learns which kernels the served requests ran).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+
+from vox_serve_tpu.utils import get_logger, set_global_log_level
+
+
+def _run_scheduler_daemon(args) -> None:
+    import faulthandler
+
+    faulthandler.enable()
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    logger = get_logger("scheduler_entry")
+    logger.info("scheduler daemon starting (rank %d, model %s, device %s)",
+                args.rank, args.model, args.device)
+
+    from .models import load_model
+    from .ops import kernels
+    from .scheduler import load_scheduler
+    from .worker import ModelWorker, WorkerConfig
+
+    model = load_model(
+        args.model, device=args.device, seed=args.seed,
+        top_p=args.top_p, top_k=args.top_k, min_p=args.min_p,
+        temperature=args.temperature, max_tokens=args.max_tokens,
+        repetition_penalty=args.repetition_penalty,
+        repetition_window=args.repetition_window, greedy=args.greedy,
+        detokenize_interval=args.detokenize_interval,
+    )
+    wcfg = WorkerConfig(
+        max_batch_size=args.max_batch_size,
+        num_pages=args.max_num_pages,
+        page_size=args.page_size,
+        max_prefill_tokens=args.max_prefill_tokens,
+        max_prefill_requests=args.max_prefill_requests,
+        seed=args.seed,
+    )
+    worker = ModelWorker(model, wcfg)
+    if model.device.type == "cuda":
+        kernels.build()
+    scheduler = load_scheduler(
+        args.scheduler_type,
+        model_worker=worker,
+        max_batch_size=args.max_batch_size,
+        rank=args.rank,
+        socket_suffix=args.socket_suffix,
+    )
+    if args.stats_file:
+        from .params import tree_leaves
+
+        def _count(tree):
+            return sum(a.numel() for a in tree_leaves(tree))
+
+        param_count = {"lm": _count(model.params),
+                       "codec": _count(model.codec_params)}
+        kernels.reset_launch_counts()
+
+        def _dump(signum, frame):
+            with open(args.stats_file, "w") as f:
+                json.dump({"launches": kernels.launch_counts(),
+                           "phase_stats": worker.phase_stats,
+                           "param_count": param_count}, f)
+            os._exit(0)
+
+        signal.signal(signal.SIGTERM, _dump)
+    scheduler.run_forever()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="vox_serve_tpu_torch scheduler "
+                                            "daemon")
+    p.add_argument("--model", required=True)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--scheduler-type", default="online",
+                   choices=["base", "online"])
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--max-batch-size", type=int, default=8)
+    p.add_argument("--max-num-pages", type=int, default=2048)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--max-prefill-tokens", type=int, default=1024)
+    p.add_argument("--max-prefill-requests", type=int, default=8)
+    p.add_argument("--socket-suffix", default="")
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--min-p", type=float, default=None)
+    p.add_argument("--temperature", type=float, default=None)
+    p.add_argument("--max-tokens", type=int, default=None)
+    p.add_argument("--repetition-penalty", type=float, default=None)
+    p.add_argument("--repetition-window", type=int, default=None)
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--detokenize-interval", type=int, default=None)
+    p.add_argument("--stats-file", default=None,
+                   help="write kernel launch counts and phase times here "
+                        "as JSON when terminated")
+    p.add_argument("--log-level", default="info")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    set_global_log_level(args.log_level)
+    try:
+        _run_scheduler_daemon(args)
+    except KeyboardInterrupt:
+        sys.exit(0)
+
+
+if __name__ == "__main__":
+    main()
