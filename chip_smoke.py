@@ -7,24 +7,35 @@ Phases, each printing its own line(s); any failure raises and the script
 exits non-zero without printing a result:
 
 1. device: requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build: compiles the port's CUDA kernels (csrc/*.cu, sm_90a) with nvcc.
-3. K1 paged decode attention vs its plain PyTorch version at Qwen3-TTS-1.7B
-   talker shapes (B in {1, 8, 64}, H=16, KH=8, D=128, page 16, 28 layers,
-   4096 pages so pool offsets pass 2^31), random non-contiguous block
-   tables, seq_lens up to ~1000 and one padded row; CUDA-event times of
-   both.
+2. build: compiles the port's CUDA kernels (csrc/*.cu, sm_90a) with nvcc,
+   one process per source, in parallel.
+3. paged decode attention at Qwen3-TTS-1.7B talker shapes (B in {1, 8, 64},
+   H=16, KH=8, D=128, page 16, 28 layers, 4096 pages so pool offsets pass
+   2^31), random non-contiguous block tables, seq_lens up to ~1000 and one
+   padded row; each kernel against its plain PyTorch version on the same
+   inputs, with CUDA-event times of both: K1 over the combined bf16 pool,
+   K1q over int8 and float8 e4m3 pools (same scales on both sides), K4 over
+   the head-major bf16 pair.
 4. K3 ragged prefill attention vs its plain version at T in {64, 256, 1024}
    with 1-5 ragged segments (valid rows compared); CUDA-event times.
    Then a small-width talker backbone (prefill + 3 decode steps over the
-   paged pool) on the card through both kernels, against the same weights
-   on the CPU in float32 through the plain versions.
+   paged pool) on the card through the kernels, against the same weights
+   on the CPU in float32 through the plain versions, for the combined bf16,
+   int8 and float8 pools and the pair layout.
+   Then K2, the codec's residual-unit stack, against its plain version at
+   the four decoder-block shapes of a detokenize of 4 streams x 10 frames,
+   whole and as two streamed chunks with caches.
 5. end to end over HTTP: ``python -m vox_serve_tpu_torch.launch --model
    qwen3-tts --device cuda`` serves Qwen3-TTS-12Hz-1.7B-CustomVoice at full
    width (28x2048 talker, 5x1024 depth, default codec; random weights from a
-   seed) and 4 concurrent streaming /generate requests of ~60 frames must
-   return non-empty PCM16. The scheduler daemon zeroes its kernel launch
-   counters before its loop starts (nothing has launched a kernel in it
-   yet) and writes them out when terminated; K1 and K3 must both have run.
+   seed) under four configurations in turn: A (default: K1, K3), B
+   (``--kv-quant int8`` with ``VOX_FUSED_RESUNIT=1``: K1q, K3, K2), C
+   (``--kv-quant f8_e4m3``: K1q, K3) and D (``VOX_KV_COMBINED=0``: K4, K3).
+   Each serves 4 concurrent streaming /generate requests that must return
+   non-empty PCM16. The scheduler daemon zeroes its kernel launch counters
+   before its loop starts and writes them, with the configuration it
+   served, when terminated: each run must show its KV layout, pool dtype
+   and codec path, launch its kernels and launch none of the others.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -49,7 +60,13 @@ OUT = ROOT / "smoke_out"  # server log and stats (gitignored)
 
 K1_TOL = 2e-2  # bf16 output rounding (2^-8 relative) + f32 sum order
 K3_TOL = 2e-2
-BACKBONE_REL_TOL = 5e-2  # bf16 weights/activations vs the f32 CPU run
+# relative to max |ref|: f32 sums over 7*C + C products in another order,
+# and sinf against torch's sin
+K2_REL_TOL = 1e-4
+# bf16 weights/activations vs the f32 CPU run (quantized pools: the two
+# runs quantize K/V computed in bf16 and in f32, so a few elements round
+# to a neighbouring int8 / float8 value)
+BACKBONE_REL_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -71,12 +88,12 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def alternate_times(plain, kernel) -> tuple[float, float]:
+def alternate_times(plain, kernel, iters: int = 20) -> tuple[float, float]:
     """plain, kernel, kernel, plain; mean of the two runs of each."""
-    p1 = cuda_time_ms(plain)
-    k1 = cuda_time_ms(kernel)
-    k2 = cuda_time_ms(kernel)
-    p2 = cuda_time_ms(plain)
+    p1 = cuda_time_ms(plain, iters)
+    k1 = cuda_time_ms(kernel, iters)
+    k2 = cuda_time_ms(kernel, iters)
+    p2 = cuda_time_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -85,17 +102,65 @@ def alternate_times(plain, kernel) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
-def check_k1(kernels) -> dict:
+#: decode variants: name -> (pool element type, layout)
+DECODE_VARIANTS = {
+    "K1": ("bfloat16", "combined"),
+    "K1q int8": ("int8", "combined"),
+    "K1q f8_e4m3": ("float8_e4m3fn", "combined"),
+    "K4": ("bfloat16", "pair"),
+}
+
+
+def check_decode(kernels, variant: str) -> dict:
+    """One paged decode kernel against its plain version at the talker's
+    shapes, reading the last layer of a 4096-page pool."""
     import torch
 
     dev = torch.device("cuda")
+    dtype_name, layout = DECODE_VARIANTS[variant]
+    dtype = getattr(torch, dtype_name)
     L, P, page, H, KH, D = 28, 4096, 16, 16, 8, 128
+    layer = L - 1  # the far end of the pool: offsets past 2^31 elements
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    pool = torch.empty((L, P, page, 2 * KH, D), dtype=torch.bfloat16,
-                       device=dev)
-    pool.normal_(generator=g)
-    layer = L - 1  # the far end of the pool: offsets past 2^31 elements
+    kv_scales = None
+    if layout == "pair":
+        shape = (L, KH, P, page, D)
+        pools = [torch.empty(shape, dtype=dtype, device=dev) for _ in "kv"]
+        for pl in pools:
+            pl[layer].normal_(generator=g)
+    else:
+        pool = torch.empty((L, P, page, 2 * KH, D), dtype=dtype, device=dev)
+        if dtype == torch.int8:
+            pool[layer] = torch.randint(-127, 128, pool.shape[1:],
+                                        generator=g, device=dev,
+                                        dtype=torch.int8)
+            kv_scales = (4.0 / 127.0, 4.0 / 127.0)
+        elif dtype == torch.float8_e4m3fn:
+            pool[layer] = torch.randn(pool.shape[1:], generator=g,
+                                      device=dev).to(dtype)
+            kv_scales = (1.0, 1.0)
+        else:
+            pool[layer].normal_(generator=g)
+        pools = [pool]
+    elem = torch.empty((), dtype=dtype).element_size()
+    if layout == "pair":
+        def kernel(q, tables, seq):
+            return kernels.paged_decode_attention_pair(q, *pools, layer,
+                                                       tables, seq)
+
+        def plain(q, tables, seq):
+            return kernels.paged_decode_attention_pair_plain(
+                q, *pools, layer, tables, seq)
+    else:
+        def kernel(q, tables, seq):
+            return kernels.paged_decode_attention(q, pools[0], layer, tables,
+                                                  seq, kv_scales=kv_scales)
+
+        def plain(q, tables, seq):
+            return kernels.paged_decode_attention_plain(
+                q, pools[0], layer, tables, seq, kv_scales=kv_scales)
+
     worst, res = 0.0, {}
     rng = torch.Generator().manual_seed(2)
     for B in (1, 8, 64):
@@ -109,26 +174,25 @@ def check_k1(kernels) -> dict:
             tables[B // 2] = 0
         q = torch.randn((B, H, D), generator=rng).to(torch.bfloat16)
         q, tables, seq = q.to(dev), tables.to(dev), seq.to(torch.int32).to(dev)
-        out = kernels.paged_decode_attention(q, pool, layer, tables, seq)
-        ref = kernels.paged_decode_attention_plain(q, pool, layer, tables, seq)
+        out = kernel(q, tables, seq)
+        ref = plain(q, tables, seq)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.isfinite(out.float()).all() or err > K1_TOL:
-            raise AssertionError(f"K1 B={B}: max_abs_err {err} > {K1_TOL}")
-        ms, plain_ms = alternate_times(
-            lambda: kernels.paged_decode_attention_plain(q, pool, layer,
-                                                         tables, seq),
-            lambda: kernels.paged_decode_attention(q, pool, layer, tables,
-                                                   seq))
+            raise AssertionError(f"{variant} B={B}: max_abs_err {err} > "
+                                 f"{K1_TOL}")
+        ms, plain_ms = alternate_times(lambda: plain(q, tables, seq),
+                                       lambda: kernel(q, tables, seq))
         worst = max(worst, err)
         # bytes the kernel must read: every live token's K and V rows
-        gbs = int(seq.sum()) * 2 * KH * D * 2 / (ms * 1e-3) / 1e9
-        log(f"K1 paged_decode_attention B={B} max_seq={int(seq.max())} "
-            f"tokens={int(seq.sum())} max_abs_err={err:.3e} (tol {K1_TOL}) "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"kv_read_GB/s={gbs:.0f}")
+        gbs = int(seq.sum()) * 2 * KH * D * elem / (ms * 1e-3) / 1e9
+        log(f"{variant} {layout} {dtype_name} pool B={B} "
+            f"max_seq={int(seq.max())} tokens={int(seq.sum())} "
+            f"max_abs_err={err:.3e} (tol {K1_TOL}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} kv_read_GB/s={gbs:.0f} "
+            f"({elem} B/elem)")
         res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
-    del pool
+    del pools
     torch.cuda.empty_cache()
     return res
 
@@ -181,14 +245,17 @@ def check_k3(kernels) -> dict:
     return res
 
 
-def check_backbone() -> None:
-    """Small talker backbone: card (bf16, kernels) vs CPU (f32, plain)."""
+def check_backbone(kv: str = "combined") -> None:
+    """Small talker backbone: card (bf16, kernels) vs CPU (f32, plain), over
+    the combined full-precision pool ("combined"), an int8 or f8_e4m3 one,
+    or the head-major pair ("pair")."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
                                                      backbone_forward,
                                                      init_backbone_params)
     from vox_serve_tpu_torch.ops.attention import AttnMetadata
+    from vox_serve_tpu_torch.ops.kv_cache import KVCacheConfig, alloc_kv_pages
     from vox_serve_tpu_torch.params import tree_to_torch
 
     cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
@@ -208,7 +275,11 @@ def check_backbone() -> None:
 
         c = dataclasses.replace(cfg, dtype=dtype)
         p = tree_to_torch(params, device, dtype)
-        pool = torch.zeros((2, P, page, 4, 128), dtype=dtype, device=device)
+        kvc = KVCacheConfig(2, P, page, 2, 128, dtype=dtype,
+                            combined=kv != "pair",
+                            quant=kv if kv in ("int8", "f8_e4m3") else "none",
+                            k_amax=4.0, v_amax=4.0)
+        pools = alloc_kv_pages(kvc, device)
         seg = torch.cat([torch.full((n,), i) for i, n in enumerate(lens)])
         pos = torch.cat([torch.arange(n) for n in lens])
         pid = torch.cat([torch.tensor(pages[i])[torch.arange(n) // page]
@@ -221,7 +292,7 @@ def check_backbone() -> None:
         meta = AttnMetadata(True, t(pid), t(off), segment_ids=t(seg),
                             q_positions=t(pos))
         outs = [backbone_forward(p, c, x0.to(device, dtype), t(pos), meta,
-                                 pool)]
+                                 *pools, kvc.kv_scales)]
         for s, x in enumerate(xs):
             cur = torch.tensor([n + s for n in lens])
             meta = AttnMetadata(
@@ -230,7 +301,7 @@ def check_backbone() -> None:
                 t(cur % page), block_tables=t(torch.tensor(pages)),
                 seq_lens=t(cur + 1))
             outs.append(backbone_forward(p, c, x.to(device, dtype), t(cur),
-                                         meta, pool))
+                                         meta, *pools, kvc.kv_scales))
         return [o.float().cpu() for o in outs]
 
     ref = run("cpu", torch.float32)
@@ -239,10 +310,83 @@ def check_backbone() -> None:
     rel = max(((a - b).abs().max() / b.abs().max()).item()
               for a, b in zip(got, ref))
     if rel > BACKBONE_REL_TOL:
-        raise AssertionError(f"backbone on card vs CPU: rel err {rel}")
-    log(f"backbone (2x256, prefill {list(lens)} + 3 decode steps) card bf16 "
-        f"kernels vs CPU f32 plain: max rel err {rel:.3e} "
+        raise AssertionError(f"backbone ({kv} KV) on card vs CPU: rel err "
+                             f"{rel}")
+    log(f"backbone (2x256, prefill {list(lens)} + 3 decode steps, {kv} KV) "
+        f"card bf16 kernels vs CPU f32 plain: max rel err {rel:.3e} "
         f"(tol {BACKBONE_REL_TOL})")
+
+
+def check_k2() -> dict:
+    """K2 against its plain version (three _residual_units, float32 with
+    TF32 off) at the decoder blocks of one detokenize of 4 streams x 10
+    frames: whole (zero halos) and as two streamed chunks with caches."""
+    import torch
+
+    from vox_serve_tpu_torch.codecs.layers import init_conv1d
+    from vox_serve_tpu_torch.ops import resunit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    B = 4
+    worst_abs = worst_rel = 0.0
+    ms_sum = plain_sum = flops_sum = 0.0
+    for C, T in ((768, 320), (384, 1600), (192, 6400), (96, 19200)):
+        units = []
+        for _ in range(3):
+            def small():
+                return torch.randn((C,), generator=g, device=dev) * 0.2
+            units.append({"alpha1": small(), "beta1": small(),
+                          "conv1": init_conv1d(g, C, C, 7, dev),
+                          "alpha2": small(), "beta2": small(),
+                          "conv2": init_conv1d(g, C, C, 1, dev)})
+        x = torch.randn((B, C, T), generator=g, device=dev) * 0.5
+        caches = [torch.randn((B, C, 6 * d), generator=g, device=dev) * 0.5
+                  for d in (1, 3, 9)]
+        t1 = T // 2
+        checks = []
+        out = resunit.fused_resunit_stack(x, units, None)[0]
+        ref = resunit.fused_resunit_stack_plain(x, units, None)[0]
+        checks.append(("whole", out, ref))
+        o1, c1 = resunit.fused_resunit_stack(x[..., :t1], units, caches)
+        o2, c2 = resunit.fused_resunit_stack(x[..., t1:], units, c1)
+        r1, d1 = resunit.fused_resunit_stack_plain(x[..., :t1], units,
+                                                   caches)
+        r2, d2 = resunit.fused_resunit_stack_plain(x[..., t1:], units, d1)
+        checks += [("chunk1", o1, r1), ("chunk2", o2, r2)]
+        checks += [(f"cache{u}", a, b) for u, (a, b) in enumerate(zip(c2, d2))]
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b in checks:
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K2 C={C} T={T} {what}: not finite")
+            e = (a - b).abs().max().item()
+            rel = e / max(b.abs().max().item(), 1e-30)
+            if rel > K2_REL_TOL:
+                raise AssertionError(f"K2 C={C} T={T} {what}: rel err {rel} "
+                                     f"> {K2_REL_TOL}")
+            errs.append((e, rel))
+        ms, plain_ms = alternate_times(
+            lambda: resunit.fused_resunit_stack_plain(x, units, None),
+            lambda: resunit.fused_resunit_stack(x, units, None), iters=5)
+        # per unit: 7*C + C multiply-adds per output sample-channel
+        flops = 3 * 2 * 8 * C * C * B * T
+        e_abs = max(e for e, _ in errs)
+        e_rel = max(r for _, r in errs)
+        worst_abs, worst_rel = max(worst_abs, e_abs), max(worst_rel, e_rel)
+        ms_sum, plain_sum, flops_sum = (ms_sum + ms, plain_sum + plain_ms,
+                                        flops_sum + flops)
+        log(f"K2 fused_resunit_stack B={B} C={C} T={T} (whole + 2 streamed "
+            f"chunks, caches) max_abs_err={e_abs:.3e} max_rel_err="
+            f"{e_rel:.3e} (tol {K2_REL_TOL} rel) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} TFLOP/s={flops / (ms * 1e-3) / 1e12:.2f}"
+            f" plain_TFLOP/s={flops / (plain_ms * 1e-3) / 1e12:.2f}")
+    log(f"K2 all four blocks: kernel_ms={ms_sum:.4f} plain_ms={plain_sum:.4f}"
+        f" TFLOP/s={flops_sum / (ms_sum * 1e-3) / 1e12:.2f}")
+    return {"max_abs_err": worst_abs, "ms": ms_sum, "plain_ms": plain_sum}
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +402,27 @@ PROMPTS = [
 MAX_TOKENS = 100  # absolute positions: 42-token prompts -> ~60 frames
 SAMPLES_PER_FRAME = 1920
 SAMPLE_RATE = 24000
+
+K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
+               "paged_decode_attention_pair")
+K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
+
+#: served configurations: name -> (launch flags, environment, what the
+#: daemon must report it served, kernels that must launch). Every other
+#: kernel must not launch in that run.
+CONFIGS = {
+    "A": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False}, {K1, K3}),
+    "B": (["--kv-quant", "int8"], {"VOX_FUSED_RESUNIT": "1"},
+          {"kv_layout": "combined", "kv_pool_dtype": "int8",
+           "fused_resunit": True}, {K1Q, K3, K2}),
+    "C": (["--kv-quant", "f8_e4m3"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "float8_e4m3fn",
+           "fused_resunit": False}, {K1Q, K3}),
+    "D": ([], {"VOX_KV_COMBINED": "0"},
+          {"kv_layout": "pair", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False}, {K4, K3}),
+}
 
 
 def free_port() -> int:
@@ -303,24 +468,31 @@ def stream_generate(port: int, text: str, out: dict) -> None:
         conn.close()
 
 
-def end_to_end(card: str) -> dict:
+def end_to_end(card: str, config: str) -> dict:
+    """Serve one configuration over HTTP; returns the daemon's launch
+    counts after checking what it served and which kernels ran."""
     import numpy as np
 
+    flags, env_extra, served, must_run = CONFIGS[config]
     OUT.mkdir(exist_ok=True)
     port = free_port()
-    stats_path = OUT / "chip_smoke_server_stats.json"
+    stats_path = OUT / f"chip_smoke_server_stats_{config}.json"
     if stats_path.exists():
         stats_path.unlink()
-    server_log = open(OUT / "chip_smoke_server.log", "w")
+    log_path = OUT / f"chip_smoke_server_{config}.log"
+    server_log = open(log_path, "w")
     cmd = [sys.executable, "-m", "vox_serve_tpu_torch.launch",
            "--model", "qwen3-tts", "--device", "cuda",
            "--host", "127.0.0.1", "--port", str(port),
            "--max-batch-size", "4", "--max-num-pages", "2048",
            "--max-tokens", str(MAX_TOKENS), "--seed", "0",
            "--socket-suffix", f"_smoke{port}",
-           "--stats-file", str(stats_path)]
+           "--stats-file", str(stats_path), *flags]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VOX_FUSED_RESUNIT", "VOX_KV_COMBINED")}
+    env.update(env_extra)
     t_start = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=server_log,
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=server_log, env=env,
                             stderr=subprocess.STDOUT, start_new_session=True)
     try:
         deadline = time.monotonic() + 600
@@ -335,7 +507,9 @@ def end_to_end(card: str) -> dict:
             if time.monotonic() > deadline:
                 raise RuntimeError("server not healthy within 600 s")
             time.sleep(0.5)
-        log(f"server ready in {time.perf_counter() - t_start:.1f} s")
+        log(f"[{config}] {' '.join(flags)} "
+            f"{' '.join(f'{k}={v}' for k, v in env_extra.items())} server "
+            f"ready in {time.perf_counter() - t_start:.1f} s")
 
         results = [{} for _ in PROMPTS]
         threads = [threading.Thread(target=stream_generate,
@@ -365,13 +539,13 @@ def end_to_end(card: str) -> dict:
                 raise AssertionError(f"request {i}: non-finite PCM")
             r["frames"] = pcm.size / SAMPLES_PER_FRAME
             frames += r["frames"]
-            log(f"request {i}: {pcm.size} samples ({r['frames']:.1f} frames,"
+            log(f"[{config}] request {i}: {pcm.size} samples ({r['frames']:.1f} frames,"
                 f" {pcm.size / SAMPLE_RATE:.2f} s audio, peak "
                 f"{int(np.abs(pcm.astype(np.int32)).max())}), TTFA "
                 f"{r['ttfa_s'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s")
     except Exception:
         server_log.flush()
-        tail = (OUT / "chip_smoke_server.log").read_text().splitlines()[-80:]
+        tail = log_path.read_text().splitlines()[-80:]
         print("server log (last lines):\n" + "\n".join(tail),
               file=sys.stderr)
         raise
@@ -399,19 +573,30 @@ def end_to_end(card: str) -> dict:
     ttfa = sorted(r["ttfa_s"] for r in results)
     ph = stats["phase_stats"]
     dec_t, dec_n = ph.get("decode", (0.0, 0))
-    log(f"e2e on {card}: 4 streams, {frames:.1f} frames in {wall:.2f} s = "
-        f"{frames / wall:.1f} frames/s aggregate; TTFA min/median/max "
-        f"{ttfa[0] * 1e3:.1f}/{(ttfa[1] + ttfa[2]) / 2 * 1e3:.1f}/"
-        f"{ttfa[-1] * 1e3:.1f} ms; mean decode step "
-        f"{dec_t / max(dec_n, 1) * 1e3:.2f} ms over {dec_n} steps; "
-        f"params LM {stats['param_count']['lm'] / 1e9:.3f} B + codec "
-        f"{stats['param_count']['codec'] / 1e6:.1f} M")
-    log(f"kernel launches during the e2e run: {stats['launches']}")
-    for name, n in stats["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    return stats["launches"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    log(f"[{config}] e2e on {card}: 4 streams, {frames:.1f} frames in "
+        f"{wall:.2f} s = {frames / wall:.1f} frames/s aggregate; TTFA "
+        f"min/median/max {ttfa[0] * 1e3:.1f}/"
+        f"{(ttfa[1] + ttfa[2]) / 2 * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms; mean "
+        f"decode step {dec_t / max(dec_n, 1) * 1e3:.2f} ms over {dec_n} "
+        f"steps; mean detokenize {det_t / max(det_n, 1) * 1e3:.2f} ms over "
+        f"{det_n} calls; params LM {stats['param_count']['lm'] / 1e9:.3f} B"
+        f" + codec {stats['param_count']['codec'] / 1e6:.1f} M")
+    launches = stats["launches"]
+    log(f"[{config}] served {({k: stats[k] for k in served})}; kernel "
+        f"launches {launches}; resunit stacks {stats['resunit_stacks']}")
+    for key, want in served.items():
+        if stats[key] != want:
+            raise AssertionError(f"[{config}] served {key}={stats[key]!r}, "
+                                 f"expected {want!r}")
+    for name, n in launches.items():
+        if name in must_run and n <= 0:
+            raise AssertionError(f"[{config}] kernel {name} never launched "
+                                 "on the main path")
+        if name not in must_run and n != 0:
+            raise AssertionError(f"[{config}] kernel {name} launched {n} "
+                                 "times; this configuration must not run it")
+    return launches
 
 
 def main() -> int:
@@ -438,23 +623,45 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    k1 = check_k1(kernels)
+    decode = {v: check_decode(kernels, v) for v in DECODE_VARIANTS}
     k3 = check_k3(kernels)
-    check_backbone()
+    for kv in ("combined", "int8", "f8_e4m3", "pair"):
+        check_backbone(kv)
+    k2 = check_k2()
 
-    # the main path runs in the server's daemon, whose counters start at 0
+    # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)
-    launches = end_to_end(card)
+    runs = {c: end_to_end(card, c) for c in CONFIGS}
+    total = {name: sum(r[name] for r in runs.values())
+             for name in runs["A"]}
 
+    def quant_worst(key):
+        return max(decode["K1q int8"][key], decode["K1q f8_e4m3"][key])
+
+    k1q = {"max_abs_err": quant_worst("max_abs_err"),
+           "ms": decode["K1q int8"]["ms"],
+           "plain_ms": decode["K1q int8"]["plain_ms"]}
     print(json.dumps({"kernels": [
-        {"name": "paged_decode_attention", "route": "cuda",
+        {"name": K1, "route": "cuda",
          "source": "vox_serve_tpu_torch/csrc/paged_decode.cu",
          "replaces": "vox_serve_tpu/ops/attention.py:246",
-         "launches": launches["paged_decode_attention"], **k1},
-        {"name": "ragged_prefill_attention", "route": "cuda",
+         "launches": total[K1], **decode["K1"]},
+        {"name": K1Q, "route": "cuda",
+         "source": "vox_serve_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "vox_serve_tpu/ops/attention.py:300",
+         "launches": total[K1Q], **k1q},
+        {"name": K3, "route": "cuda",
          "source": "vox_serve_tpu_torch/csrc/ragged_prefill.cu",
          "replaces": "vox_serve_tpu/ops/pallas_prefill.py:148",
-         "launches": launches["ragged_prefill_attention"], **k3},
+         "launches": total[K3], **k3},
+        {"name": K4, "route": "cuda",
+         "source": "vox_serve_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "vox_serve_tpu/ops/pallas_attention.py:290",
+         "launches": total[K4], **decode["K4"]},
+        {"name": K2, "route": "cuda",
+         "source": "vox_serve_tpu_torch/csrc/resunit.cu",
+         "replaces": "vox_serve_tpu/ops/pallas_resunit.py:150",
+         "launches": total[K2], **k2},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

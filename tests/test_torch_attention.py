@@ -56,7 +56,7 @@ def test_plain_decode_matches_jax_combined_gather(seed, layer):
     got = tattn._combined_decode_gather(_t(q), _t(pool), layer, tmeta)
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=ATOL)
     # the dispatching entry point takes the plain path for CPU tensors
-    got2 = tattn.paged_attention_decode(_t(q), _t(pool), layer, tmeta)
+    got2 = tattn.paged_attention_decode(_t(q), _t(pool), None, layer, tmeta)
     np.testing.assert_array_equal(got2.numpy(), got.numpy())
 
 

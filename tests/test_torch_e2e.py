@@ -81,11 +81,8 @@ def test_dummy_concurrent_requests_release_resources(dummy_worker,
     assert sorted(dummy_worker._free_slots) == [0, 1, 2, 3]
 
 
-def test_qwen3_debug_size_streams_through_scheduler():
-    """Debug-size Qwen3-TTS (dual-channel prompt, depth loop, feedback,
-    streaming codec in per-slot caches): two streams complete with the
-    audio length their frame counts imply."""
-    model = Qwen3TTSLM(
+def _debug_qwen3():
+    return Qwen3TTSLM(
         dtype=torch.float32, device="cpu", detokenize_interval=4,
         debug_backbone=BackboneConfig(
             vocab_size=3072, hidden_size=64, num_layers=2, num_heads=4,
@@ -101,10 +98,11 @@ def test_qwen3_debug_size_streams_through_scheduler():
             head_dim=16, num_heads=4, num_kv_heads=4, num_layers=2,
             num_quantizers=16, sliding_window=48, upsample_rates=(4, 3),
             upsampling_ratios=(2, 2), vq_dim=16))
-    model.sampling_config = model.sampling_config.replace(max_tokens=36)
-    worker = ModelWorker(model, WorkerConfig(
-        max_batch_size=4, num_pages=1200, page_size=8,
-        max_prefill_tokens=128, max_prefill_requests=4))
+
+
+def _drive_qwen3(model, worker):
+    """Two streams through the online scheduler: each completes with the
+    audio length its frame count implies."""
     s = load_scheduler("online", model_worker=worker, max_batch_size=4,
                        connect=False)
     reqs = [Request(request_id=f"q{i}", prompt=p, is_streaming=True)
@@ -124,6 +122,44 @@ def test_qwen3_debug_size_streams_through_scheduler():
         assert x.size == expect
         assert all(t.shape == (17,) for t in r.lm_output_tokens)
     assert worker.allocator.num_free == 1199
+
+
+def test_qwen3_debug_size_streams_through_scheduler():
+    """Debug-size Qwen3-TTS (dual-channel prompt, depth loop, feedback,
+    streaming codec in per-slot caches): two streams complete with the
+    audio length their frame counts imply."""
+    model = _debug_qwen3()
+    model.sampling_config = model.sampling_config.replace(max_tokens=36)
+    worker = ModelWorker(model, WorkerConfig(
+        max_batch_size=4, num_pages=1200, page_size=8,
+        max_prefill_tokens=128, max_prefill_requests=4))
+    _drive_qwen3(model, worker)
+
+
+def test_qwen3_int8_kv_and_fused_resunit_stream_to_pcm(monkeypatch):
+    """The same two streams with an int8 KV pool and the codec's fused
+    residual-unit path (VOX_FUSED_RESUNIT=1, K1q's and K2's configuration):
+    the pool is int8 and every detokenize chunk took the fused stacks."""
+    from vox_serve_tpu_torch.codecs import qwen3_codec
+
+    monkeypatch.setenv("VOX_FUSED_RESUNIT", "1")
+    calls = []
+    real = qwen3_codec.fused_resunit_stack
+
+    def spy(x, *args):
+        calls.append(x.shape[-1])
+        return real(x, *args)
+
+    monkeypatch.setattr(qwen3_codec, "fused_resunit_stack", spy)
+    model = _debug_qwen3()
+    model.sampling_config = model.sampling_config.replace(max_tokens=36)
+    worker = ModelWorker(model, WorkerConfig(
+        max_batch_size=4, num_pages=1200, page_size=8,
+        max_prefill_tokens=128, max_prefill_requests=4, kv_quant="int8"))
+    assert worker.k_pages.dtype == torch.int8 and worker.v_pages is None
+    assert model.kv_quant_scales == (16.0 / 127.0, 16.0 / 127.0)
+    _drive_qwen3(model, worker)
+    assert calls and min(calls) > 54
 
 
 def _free_port() -> int:

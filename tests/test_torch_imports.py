@@ -24,6 +24,10 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.models.dummy",
     "vox_serve_tpu_torch.server.api",
     "vox_serve_tpu_torch.params",
+    "vox_serve_tpu_torch.ops.kv_cache",
+    "vox_serve_tpu_torch.ops.attention",
+    "vox_serve_tpu_torch.ops.resunit",
+    "vox_serve_tpu_torch.codecs.qwen3_codec",
 ]
 
 
@@ -67,6 +71,9 @@ def test_chip_smoke_process_imports_nothing_of_the_jax_package():
         "import vox_serve_tpu_torch.ops.kernels\n"
         "import vox_serve_tpu_torch.models.backbone\n"
         "import vox_serve_tpu_torch.ops.attention\n"
+        "import vox_serve_tpu_torch.ops.kv_cache\n"
+        "import vox_serve_tpu_torch.ops.resunit\n"
+        "import vox_serve_tpu_torch.codecs.layers\n"
         "import vox_serve_tpu_torch.params\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'vox_serve_tpu'))\n"

@@ -13,10 +13,12 @@ relative, plus float32 summation order).
 import pytest
 import torch
 
-from vox_serve_tpu_torch.ops import kernels
+from vox_serve_tpu_torch.codecs.layers import init_conv1d
+from vox_serve_tpu_torch.ops import kernels, resunit
 
 torch.set_num_threads(1)
 CARD_TOL = 2e-2
+K2_REL_TOL = 1e-4  # f32, relative to max |ref|: sum order, sinf vs sin
 
 
 def _decode_case(seed, B, H, KH, D, L, P, page, maxp):
@@ -33,6 +35,31 @@ def _decode_case(seed, B, H, KH, D, L, P, page, maxp):
         tables[b, :n] = perm[b * maxp:b * maxp + n]
     tables[1] = 0
     return q, pool, tables, seq
+
+
+def _quantize(pool, dtype, g):
+    """A random int8 pool, or a float8 cast of the float one."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, pool.shape, generator=g,
+                             dtype=torch.int8)
+    return pool.to(dtype)
+
+
+def _pair(pool, KH):
+    """(L, P, page, 2KH, D) combined -> the (L, KH, P, page, D) pair."""
+    k = pool[:, :, :, 0::2].permute(0, 3, 1, 2, 4).contiguous()
+    v = pool[:, :, :, 1::2].permute(0, 3, 1, 2, 4).contiguous()
+    return k, v
+
+
+def _units(g, C):
+    def small():
+        return torch.randn((C,), generator=g) * 0.2
+
+    return [{"alpha1": small(), "beta1": small(),
+             "conv1": init_conv1d(g, C, C, 7, "cpu"),
+             "alpha2": small(), "beta2": small(),
+             "conv2": init_conv1d(g, C, C, 1, "cpu")} for _ in range(3)]
 
 
 def _prefill_case(seed, T, H, KH, D, segs):
@@ -56,6 +83,43 @@ def test_kernel_wrappers_raise_for_other_devices():
         kernels.ragged_prefill_attention(q, q, q, q)
 
 
+def test_new_wrappers_raise_for_other_devices():
+    q = torch.zeros((2, 4, 16), device="meta", dtype=torch.bfloat16)
+    pool = torch.zeros((1, 4, 4, 4, 16), device="meta", dtype=torch.int8)
+    tab = torch.zeros((2, 1), device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.paged_decode_attention_quant(q, pool, 0, tab, tab[:, 0],
+                                             (1.0, 1.0))
+    with pytest.raises(ValueError):
+        kernels.paged_decode_attention_pair(q, pool, pool, 0, tab, tab[:, 0])
+    x = torch.zeros((1, 16, 64), device="meta")
+    with pytest.raises(ValueError):
+        resunit.fused_resunit_stack(x, [{}] * 3, None)
+
+
+def test_wrapper_arguments_are_checked_before_dispatch():
+    """Checks that hold on every device: a quantized pool needs its scales
+    and only K1q takes it, a bf16 pool takes none, K2 wants a chunk longer
+    than the widest halo and exactly three units."""
+    q, pool, tables, seq = _decode_case(3, 2, 8, 4, 32, 1, 10, 8, 2)
+    qpool = pool.to(torch.int8)
+    with pytest.raises(ValueError, match="kv_scales"):
+        kernels.paged_decode_attention(q, qpool, 0, tables, seq)
+    with pytest.raises(ValueError, match="kv_scales"):
+        kernels.paged_decode_attention(q, pool, 0, tables, seq,
+                                       kv_scales=(1.0, 1.0))
+    with pytest.raises(ValueError, match="K1q"):
+        kernels.paged_decode_attention_quant(q, pool, 0, tables, seq,
+                                             (1.0, 1.0))
+    g = torch.Generator().manual_seed(0)
+    units = _units(g, 8)
+    with pytest.raises(ValueError, match="halo"):
+        resunit.fused_resunit_stack(torch.zeros((1, 8, 54)), units, None)
+    with pytest.raises(ValueError, match="3-unit"):
+        resunit.fused_resunit_stack(torch.zeros((1, 8, 80)), units[:2], None,
+                                    dilations=(1, 3))
+
+
 def test_cpu_path_runs_plain_versions_without_counting_launches():
     kernels.reset_launch_counts()
     q, pool, tables, seq = _decode_case(5, 4, 8, 4, 32, 2, 30, 8, 5)
@@ -64,8 +128,7 @@ def test_cpu_path_runs_plain_versions_without_counting_launches():
         q, pool, 1, tables, seq), atol=0, rtol=0)
     q2, k2, v2, seg = _prefill_case(5, 40, 8, 4, 32, (40,))
     kernels.ragged_prefill_attention(q2, k2, v2, seg)
-    assert kernels.launch_counts() == {"paged_decode_attention": 0,
-                                       "ragged_prefill_attention": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_kernel_sources_and_build_path_are_keyed_by_content():
@@ -135,6 +198,96 @@ def test_kernels_reject_wrong_dtype_on_card(cuda_device):
         kernels.paged_decode_attention(
             q.to(cuda_device), pool.bfloat16().to(cuda_device), 0,
             tables.to(cuda_device), seq.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+def test_k1q_kernel_matches_plain_on_card(cuda_device, dtype):
+    q, pool, tables, seq = _decode_case(10, 9, 16, 8, 128, 3, 100, 16, 8)
+    g = torch.Generator().manual_seed(10)
+    qpool = _quantize(pool, dtype, g).to(cuda_device)
+    scales = (4.0 / 127.0, 3.0 / 127.0) if dtype == torch.int8 else (1.0,
+                                                                     0.5)
+    args = [q.bfloat16().to(cuda_device), qpool, 2, tables.to(cuda_device),
+            seq.to(cuda_device)]
+    before = dict(kernels.launch_counts())
+    out = kernels.paged_decode_attention(*args, kv_scales=scales)
+    ref = kernels.paged_decode_attention_plain(*args, kv_scales=scales)
+    after = kernels.launch_counts()
+    assert after["paged_decode_attention_quant"] == \
+        before["paged_decode_attention_quant"] + 1
+    assert after["paged_decode_attention"] == before["paged_decode_attention"]
+    assert (out.float() - ref.float()).abs().max().item() < CARD_TOL
+
+
+@pytest.mark.cuda
+def test_k4_kernel_matches_plain_on_card(cuda_device):
+    q, pool, tables, seq = _decode_case(11, 9, 16, 8, 128, 3, 100, 16, 8)
+    k, v = _pair(pool.bfloat16(), 8)
+    args = [q.bfloat16().to(cuda_device), k.to(cuda_device),
+            v.to(cuda_device), 1, tables.to(cuda_device), seq.to(cuda_device)]
+    before = kernels.paged_decode_attention_pair.launches
+    out = kernels.paged_decode_attention_pair(*args)
+    ref = kernels.paged_decode_attention_pair_plain(*args)
+    assert kernels.paged_decode_attention_pair.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() < CARD_TOL
+    # the same K/V in the combined layout give the same attention
+    comb = kernels.paged_decode_attention(
+        args[0], pool.bfloat16().to(cuda_device), 1, args[4], args[5])
+    assert (out.float() - comb.float()).abs().max().item() < CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T,B", [(96, 200, 2), (768, 100, 1)])
+def test_k2_kernel_matches_plain_on_card(cuda_device, C, T, B):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(C)
+    units = [{k: (v.to(cuda_device) if torch.is_tensor(v) else
+                  {kk: vv.to(cuda_device) for kk, vv in v.items()})
+              for k, v in u.items()} for u in _units(g, C)]
+    x = (torch.randn((B, C, T), generator=g) * 0.5).to(cuda_device)
+    caches = [(torch.randn((B, C, 6 * d), generator=g) * 0.5).to(cuda_device)
+              for d in (1, 3, 9)]
+    before = kernels.launch_counts()["fused_resunit_stack"]
+    for cs in (None, caches):
+        out, nc = resunit.fused_resunit_stack(x, units, cs)
+        ref, rc = resunit.fused_resunit_stack_plain(x, units, cs)
+        pairs = [(out, ref)] + ([] if cs is None else list(zip(nc, rc)))
+        for a, b in pairs:
+            rel = (a - b).abs().max().item() / b.abs().max().item()
+            assert rel < K2_REL_TOL
+    assert kernels.launch_counts()["fused_resunit_stack"] == before + 6
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_wrong_inputs_on_card(cuda_device):
+    q, pool, tables, seq = _decode_case(12, 2, 16, 8, 128, 1, 20, 16, 2)
+    qb, tb, sb = (q.bfloat16().to(cuda_device), tables.to(cuda_device),
+                  seq.to(cuda_device))
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="dtype"):  # a float16 pool
+        kernels.paged_decode_attention(qb, pool.half().to(cuda_device), 0,
+                                       tb, sb)
+    k, v = _pair(pool.to(cuda_device), 8)
+    with pytest.raises(ValueError, match="dtype"):  # a float32 pair
+        kernels.paged_decode_attention_pair(qb, k, v, 0, tb, sb)
+    with pytest.raises(ValueError, match="match"):  # a shorter V pool
+        kernels.paged_decode_attention_pair(
+            qb, k.bfloat16(), v.bfloat16()[:, :, :10].contiguous(), 0, tb,
+            sb)
+    g = torch.Generator().manual_seed(1)
+    units = _units(g, 16)
+    with pytest.raises(ValueError, match="float32"):
+        resunit.fused_resunit_stack(
+            torch.zeros((1, 16, 80), device=cuda_device,
+                        dtype=torch.bfloat16), units, None)
+    units12 = _units(g, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        resunit.fused_resunit_stack(torch.zeros((1, 12, 80),
+                                                device=cuda_device),
+                                    units12, None)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("H,KH,D,max_group,ok", [

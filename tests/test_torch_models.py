@@ -1,7 +1,8 @@
 """Port parity, models: the talker backbone (prefill + decode over the paged
-combined pool), the depth transformer, and a Qwen3-TTS ``lm_step`` with its
-15-codebook ``depth_step`` under greedy sampling — each computed by the JAX
-package and by the port from the same weights (converted with
+combined pool, a quantized int8 / float8 one, or the legacy pair), the
+depth transformer, and a Qwen3-TTS ``lm_step`` with its 15-codebook
+``depth_step`` under greedy sampling — each computed by the JAX package and
+by the port from the same weights (converted with
 ``vox_serve_tpu_torch.params``), in float32 on the CPU at small widths.
 
 Tolerances: 1e-4 absolute on hidden states of the layer stacks (float32,
@@ -21,6 +22,7 @@ from vox_serve_tpu.models import depth as jdepth
 from vox_serve_tpu.models import qwen3_tts as jqwen3_mod
 from vox_serve_tpu.models.qwen3_tts import Qwen3TTSLM as JQwen3
 from vox_serve_tpu.ops import attention as jattn
+from vox_serve_tpu.ops import kv_cache as jkv
 from vox_serve_tpu.weights import DevTokenizer
 from vox_serve_tpu_torch import params as tparams
 from vox_serve_tpu_torch.codecs.qwen3_codec import Qwen3CodecConfig
@@ -28,6 +30,7 @@ from vox_serve_tpu_torch.models import backbone as tbb
 from vox_serve_tpu_torch.models import depth as tdepth
 from vox_serve_tpu_torch.models.qwen3_tts import Qwen3TTSLM
 from vox_serve_tpu_torch.ops import attention as tattn
+from vox_serve_tpu_torch.ops import kv_cache as tkv
 
 torch.set_num_threads(1)
 ATOL = 1e-4
@@ -121,6 +124,43 @@ def test_backbone_prefill_and_decode_match_jax():
         th = tbb.backbone_forward(tp, tcfg, torch.from_numpy(x), _i(pos),
                                   tm, tpool)
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
+
+
+@pytest.mark.parametrize("kv", ["int8", "f8_e4m3", "pair"])
+def test_backbone_over_quantized_or_pair_kv_matches_jax(kv):
+    """Prefill + 3 decode steps of the debug-size talker over each pool the
+    slice adds, in both packages: hidden states agree and the pools hold
+    the same K/V (the quantized ones byte for byte)."""
+    combined = kv != "pair"
+    quant = kv if combined else "none"
+    plan = Plan()
+    args = (2, plan.P, plan.page, BB["num_kv_heads"], BB["head_dim"])
+    jc = jkv.KVCacheConfig(*args, dtype=jnp.float32, combined=combined,
+                           quant=quant, k_amax=4.0, v_amax=4.0)
+    tc = tkv.KVCacheConfig(*args, dtype=torch.float32, combined=combined,
+                           quant=quant, k_amax=4.0, v_amax=4.0)
+    jcfg = jbb.BackboneConfig(**BB, dtype=jnp.float32)
+    tcfg = tbb.BackboneConfig(**BB, dtype=torch.float32)
+    jp = jbb.init_backbone_params(jcfg, jax.random.key(2))
+    tp = tparams.tree_to_torch(_np_tree(jp), "cpu", torch.float32)
+    jk, jv = jkv.alloc_kv_pages(jc)
+    tk, tv = tkv.alloc_kv_pages(tc, "cpu")
+    rng = np.random.default_rng(2)
+    steps = [plan.prefill()[:3]] + [plan.decode() for _ in range(3)]
+    for jm, tm, pos in steps:
+        x = rng.standard_normal((len(pos), 64)).astype(np.float32)
+        jh, jk, jv = jbb.backbone_forward(jp, jcfg, jnp.asarray(x),
+                                          jnp.asarray(pos), jm, jk, jv,
+                                          kv_scales=jc.kv_scales)
+        th = tbb.backbone_forward(tp, tcfg, torch.from_numpy(x), _i(pos), tm,
+                                  tk, tv, kv_scales=tc.kv_scales)
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL)
+    if kv == "pair":
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=ATOL)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
+    else:  # the JAX pool pads head dims to 128 lanes
+        jb = np.asarray(jk).view(np.uint8)[..., :BB["head_dim"]]
+        np.testing.assert_array_equal(tk.view(torch.uint8).numpy(), jb)
 
 
 def test_depth_forward_matches_jax():
@@ -218,7 +258,7 @@ def test_qwen3_lm_step_with_depth_greedy_matches_jax(qwen3_pair):
                     None, jax.random.key(0), jnp.asarray(rep),
                     last_token_idx=jnp.asarray(last))
     to = tm.lm_step(tm.params, _i(toks), _i(pos), torch.from_numpy(feats),
-                    torch.from_numpy(masks), tmeta, tpool, None,
+                    torch.from_numpy(masks), tmeta, tpool, None, None,
                     torch.from_numpy(rep), last_token_idx=_i(last))
     np.testing.assert_array_equal(to.sampled.numpy(), np.asarray(jo.sampled))
     np.testing.assert_allclose(to.feedback.numpy(), np.asarray(jo.feedback),
@@ -235,7 +275,7 @@ def test_qwen3_lm_step_with_depth_greedy_matches_jax(qwen3_pair):
         jo = jm.lm_step(jm.params, jtok, jnp.asarray(pos), jfb, None, jmeta,
                         jpool, None, jax.random.key(1), jrep)
         to = tm.lm_step(tm.params, ttok, _i(pos), tfb, None, tmeta, tpool,
-                        None, trep)
+                        None, None, trep)
         np.testing.assert_array_equal(to.sampled.numpy(),
                                       np.asarray(jo.sampled))
         np.testing.assert_allclose(to.feedback.numpy(),

@@ -94,12 +94,14 @@ def test_kv_write_matches_jax_combined_layout():
     jmeta = jattn.AttnMetadata(True, jnp.asarray(ids), jnp.asarray(offs))
     ref, _ = jattn.write_kv_prefill(jpool, None, 1, jnp.asarray(k),
                                     jnp.asarray(v), jmeta)
-    cfg = KVCacheConfig(L, P, page, KH, D, dtype=torch.float32)
-    tpool = alloc_kv_pages(cfg, "cpu")
-    assert tuple(tpool.shape) == (L, P, page, 2 * KH, D)
+    cfg = KVCacheConfig(L, P, page, KH, D, dtype=torch.float32,
+                        combined=True)
+    tpool, none = alloc_kv_pages(cfg, "cpu")
+    assert none is None and tuple(tpool.shape) == (L, P, page, 2 * KH, D)
     tmeta = tattn.AttnMetadata(True, _t(ids), _t(offs))
-    out = tattn.write_kv_prefill(tpool, 1, _t(k), _t(v), tmeta)
-    assert out is tpool  # in place
+    before = tpool.data_ptr()
+    tattn.write_kv_prefill(tpool, None, 1, _t(k), _t(v), tmeta)
+    assert tpool.data_ptr() == before  # in place
     np.testing.assert_array_equal(tpool.numpy(), np.asarray(ref))
     # K at even, V at odd combined heads
     np.testing.assert_array_equal(tpool[1, 3, 1, 0::2].numpy(), k[5])

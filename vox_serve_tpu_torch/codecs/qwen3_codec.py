@@ -7,7 +7,10 @@ over a 72-token rolling KV ring with LayerScale -> 2x (trans-conv +
 ConvNeXt) upsampling -> causal trans-conv decoder (rates 8, 5, 4, 3) with
 SnakeBeta and dilated residual units -> waveform at 24 kHz, 1920 samples per
 12.5 Hz frame. One layout, NCH; the residual units run as plain PyTorch ops
-(the fused Pallas stack is opt-in in the JAX package and not on this path).
+(the port of the JAX package's XLA chain) unless ``VOX_FUSED_RESUNIT=1``
+routes each block whose chunk is longer than 54 samples through K2
+(``ops/resunit.py``), as the JAX package routes it through its Pallas
+stack.
 
 Streaming state is a functional dict (per-slot batched by the worker):
 causal convs carry their left context, trans-convs their last input sample,
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from ..models.backbone import _init_linear, linear
 from ..ops.kernels import NEG_INF
 from ..ops.norms import layer_norm, rms_norm
+from ..ops.resunit import fused_resunit_stack, use_fused_resunit
 from ..ops.rope import rope_frequencies
 from .layers import (conv1d, conv_transpose1d, init_conv1d,
                      init_conv_transpose1d)
@@ -397,15 +401,21 @@ def _pipeline(params: dict, cfg: Qwen3CodecConfig, codes: torch.Tensor,
     dec = params["decoder"]
     wav, c0_cache = _causal_conv(dec["conv0"], hidden, 6, c("dec_conv0"))
     new_blocks = []
+    fused = use_fused_resunit()
     for i, (b, rate) in enumerate(zip(dec["blocks"], cfg.upsample_rates)):
         wav = _snake_beta(wav, b["alpha"], b["beta"])
         wav, t_cache = _causal_transconv(b["trans"], wav, rate, 2 * rate,
                                          c("dec_blocks", i, "trans"))
-        res_caches = []
-        for j, dil in enumerate((1, 3, 9)):
-            wav, rcache = _residual_unit(b["res"][j], wav, dil,
-                                         c("dec_blocks", i, "res", j))
-            res_caches.append(rcache)
+        if fused and wav.shape[-1] > 54:
+            # K2 on the card (opt-in, as in the JAX package)
+            wav, res_caches = fused_resunit_stack(
+                wav, b["res"], c("dec_blocks", i, "res"))
+        else:
+            res_caches = []
+            for j, dil in enumerate((1, 3, 9)):
+                wav, rcache = _residual_unit(b["res"][j], wav, dil,
+                                             c("dec_blocks", i, "res", j))
+                res_caches.append(rcache)
         new_blocks.append({"trans": t_cache, "res": res_caches})
     wav = _snake_beta(wav, dec["alpha_out"], dec["beta_out"])
     wav, head_cache = _causal_conv(dec["head"], wav, 6, c("head"))

@@ -6,7 +6,12 @@ daemon, one per data-parallel rank. The JAX launcher's serving profiles
 (``profiles.py``) are not applied: their constants were measured on a TPU.
 
     python -m vox_serve_tpu_torch.launch --model qwen3-tts --device cuda
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts --kv-quant int8
     python -m vox_serve_tpu_torch.launch --model dummy --device cpu
+
+The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
+serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
+fused residual-unit stacks.
 """
 
 from __future__ import annotations
@@ -37,6 +42,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--max-prefill-tokens", type=int, default=1024)
     p.add_argument("--max-prefill-requests", type=int, default=8)
+    p.add_argument("--kv-quant", default=None,
+                   choices=["none", "f8_e4m3", "int8"],
+                   help="quantized KV pool storage (halves KV bytes; f8_e4m3 "
+                        "needs no calibration, int8 uses --kv-k-amax/"
+                        "--kv-v-amax)")
+    p.add_argument("--kv-k-amax", type=float, default=None,
+                   help="int8 KV: expected |K| absmax (scale = amax/127)")
+    p.add_argument("--kv-v-amax", type=float, default=None,
+                   help="int8 KV: expected |V| absmax (scale = amax/127)")
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--min-p", type=float, default=None)
@@ -78,6 +92,9 @@ def main(argv=None) -> None:
         "page_size": args.page_size,
         "max_prefill_tokens": args.max_prefill_tokens,
         "max_prefill_requests": args.max_prefill_requests,
+        "kv_quant": args.kv_quant,
+        "kv_k_amax": args.kv_k_amax,
+        "kv_v_amax": args.kv_v_amax,
         "top_p": args.top_p, "top_k": args.top_k, "min_p": args.min_p,
         "temperature": args.temperature, "max_tokens": args.max_tokens,
         "repetition_penalty": args.repetition_penalty,

@@ -3,10 +3,11 @@ vox_serve_tpu/models/backbone.py).
 
 Parameters are a plain dict of tensors in the JAX package's layout: layers
 stacked on a leading axis, linear weights as ``(d_in, d_out)`` so that
-``x @ w``. The layer loop is a Python loop (the JAX ``lax.scan``); the
-combined KV pool is updated in place per layer. Attention dispatches on the
-tensor's device (``ops/attention.py``): the CPU runs the plain versions,
-the card the hand-written kernels, so there is no ``use_pallas`` switch.
+``x @ w``. The layer loop is a Python loop (the JAX ``lax.scan``); the KV
+pool(s) are updated in place per layer. Attention dispatches on the
+tensor's device and the pool's layout and type (``ops/attention.py``): the
+CPU runs the plain versions, the card the hand-written kernels, so there is
+no ``use_pallas`` switch.
 """
 
 from __future__ import annotations
@@ -126,14 +127,20 @@ def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
 
 def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
                      positions: torch.Tensor, meta: AttnMetadata,
-                     kv_pool: torch.Tensor) -> torch.Tensor:
+                     k_pages: torch.Tensor,
+                     v_pages: Optional[torch.Tensor] = None,
+                     kv_scales: Optional[tuple[float, float]] = None
+                     ) -> torch.Tensor:
     """Run the decoder stack.
 
     x: (T, hidden) token embeddings; positions: (T,) absolute positions.
-    Writes this step's K/V into ``kv_pool`` in place (combined layout).
-    Prefill runs ragged causal attention over the packed buffer (K3 on the
-    card, for every bucket size); decode runs paged attention over the pool
-    (K1 on the card). Returns the final-norm hidden (T, hidden)."""
+    k_pages, v_pages: the combined pool and None, or the legacy pair.
+    kv_scales: static dequant multipliers when the pool is quantized
+    (ops/kv_cache.py KVCacheConfig.kv_scales); None = full precision.
+    Writes this step's K/V into the pool(s) in place. Prefill runs ragged
+    causal attention over the packed buffer (K3 on the card, for every
+    bucket size); decode runs paged attention over the pool (K1, K1q or K4
+    on the card). Returns the final-norm hidden (T, hidden)."""
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     inv_freq = rope_frequencies(cfg.rope_dim or hd, cfg.rope_theta,
@@ -152,13 +159,14 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
         q, k = apply_rope(q, k, positions, inv_freq, rope_dim=cfg.rope_dim)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
 
-        write_kv_prefill(kv_pool, li, k, v, meta)
+        write_kv_prefill(k_pages, v_pages, li, k, v, meta, kv_scales)
         if meta.is_prefill:
             attn_out = ragged_prefill_attention(q, k, v, meta,
                                                 scale=cfg.attn_scale)
         else:
-            attn_out = paged_attention_decode(q, kv_pool, li, meta,
-                                              scale=cfg.attn_scale)
+            attn_out = paged_attention_decode(q, k_pages, v_pages, li, meta,
+                                              scale=cfg.attn_scale,
+                                              kv_scales=kv_scales)
         h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd))
 
         xin2 = rms_norm(h, lp["post_norm"], cfg.rms_eps)

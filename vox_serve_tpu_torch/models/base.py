@@ -105,6 +105,10 @@ class BaseLM(abc.ABC):
     needs_input_masks: bool = False
     #: dim of per-slot feedback features produced each step (0 = none)
     feedback_dim: int = 0
+    #: set by the worker when the KV pool is quantized (int8/f8): static
+    #: (k_scale, v_scale) dequant multipliers threaded into the backbone
+    #: (ops/kv_cache.py KVCacheConfig.kv_scales)
+    kv_quant_scales: Optional[tuple[float, float]] = None
 
     @property
     def use_repetition_penalty(self) -> bool:
@@ -170,16 +174,19 @@ class BaseLM(abc.ABC):
         features: torch.Tensor | None,    # (T, F) or None
         masks: torch.Tensor | None,
         meta: AttnMetadata,
-        kv_pool: torch.Tensor,
+        k_pages: torch.Tensor,
+        v_pages: Optional[torch.Tensor],
         generator: Optional[torch.Generator],
         repetition_cache: torch.Tensor | None,
         last_token_idx: torch.Tensor | None = None,  # (B,) for prefill
     ) -> StepOutput:
         """One full LM step. Decode: T == B. Prefill: gather hidden at
-        ``last_token_idx`` before the head. Updates ``kv_pool`` in place."""
+        ``last_token_idx`` before the head. Updates the KV pool(s) in place
+        (``v_pages`` None for the combined pool)."""
         x = self.embed(params, token_ids, features, masks)
         h = backbone_forward(params["backbone"], self.backbone_config, x,
-                             positions, meta, kv_pool)
+                             positions, meta, k_pages, v_pages,
+                             kv_scales=self.kv_quant_scales)
         if last_token_idx is not None:
             h = h[last_token_idx.long()]  # (B, hidden)
         logits = self.adjust_logits(self.logits(params, h))

@@ -1,18 +1,26 @@
-"""Paged KV cache: one fixed-shape device pool + a host-side page allocator
+"""Paged KV cache: fixed-shape device pools + a host-side page allocator
 (port of vox_serve_tpu/ops/kv_cache.py).
 
-The pool is the combined token-major layout ``(L, P, page, 2*KH, D)`` in
-bf16, K at even and V at odd combined-head indices, so one token's write is
-one contiguous ``(2*KH, D)`` row and one page holds every head's K and V for
-``page`` tokens. Page 0 is a reserved scratch page that padded batch rows
-and page-table padding point at. The JAX package's zero-padding of sub-128
-head dims up to 128 lanes (``store_dim``) is a TPU lane artefact and is not
-carried over: rows are stored at the head dim.
+Two layouts, as in the JAX package:
+
+* combined (what the worker serves unless the layout rule or
+  ``VOX_KV_COMBINED=0`` says otherwise): one token-major pool
+  ``(L, P, page, 2*KH, D)``, K at even and V at odd combined-head indices,
+  so one token's write is one contiguous ``(2*KH, D)`` row and one page
+  holds every head's K and V for ``page`` tokens. It may be quantized (int8 with static scales, or
+  float8 e4m3) and is read by K1 / K1q.
+* pair (legacy, head-major): ``k, v: (L, KH, P, page, D)`` each, read by K4.
+
+Page 0 is a reserved scratch page that padded batch rows and page-table
+padding point at. The JAX package's zero-padding of sub-128 head dims up to
+128 lanes (``store_dim``) is a TPU lane artefact and is not carried over:
+rows are stored at the head dim.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,17 +33,78 @@ class KVCacheConfig:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
+    #: combined token-major layout (see alloc_kv_pages); the worker picks
+    #: it with combined_kv_supported
+    combined: bool = False
+    #: quantized pool storage: "none" (store at `dtype`), "f8_e4m3"
+    #: (scale-free float8: clip to +-448 and cast), or "int8" (symmetric,
+    #: static per-tensor amax via k_amax/v_amax). Combined layout only; the
+    #: fresh K/V of a step stay full precision through prefill attention,
+    #: only the pool is quantized.
+    quant: str = "none"
+    #: int8: values are stored as round(x / (amax/127)), clipped to +-127
+    k_amax: float = 16.0
+    v_amax: float = 16.0
+
+    def __post_init__(self):
+        if self.quant not in ("none", "f8_e4m3", "int8"):
+            raise ValueError(f"unknown kv quant mode {self.quant!r}")
+        if self.quant != "none" and not self.combined:
+            raise ValueError("quantized KV requires the combined layout")
 
     @property
-    def pool_shape(self) -> tuple[int, int, int, int, int]:
-        return (self.num_layers, self.num_pages, self.page_size,
-                2 * self.num_kv_heads, self.head_dim)
+    def pool_dtype(self) -> torch.dtype:
+        """Storage dtype of the page pool (quantized or `dtype`)."""
+        if self.quant == "f8_e4m3":
+            return torch.float8_e4m3fn
+        if self.quant == "int8":
+            return torch.int8
+        return self.dtype
+
+    @property
+    def kv_scales(self) -> Optional[tuple[float, float]]:
+        """(k_scale, v_scale) dequant multipliers for the decode kernel and
+        the gather path, or None when the pool is unquantized."""
+        if self.quant == "f8_e4m3":
+            return (1.0, 1.0)
+        if self.quant == "int8":
+            return (self.k_amax / 127.0, self.v_amax / 127.0)
+        return None
+
+
+def combined_kv_supported(head_dim: int, num_kv_heads: int,
+                          dtype=torch.bfloat16) -> bool:
+    """Whether (head_dim, KH) uses the combined token-major pool layout.
+
+    The JAX package's rule, unchanged, so that the same model under the
+    same flags picks the same layout in both packages. The rule is a TPU
+    tiling one (head_dim up to 128 lanes; the combined 2*KH axis tileable
+    at the KV dtype's sublane packing); K1/K1q themselves take any head
+    dim up to 128 in steps of 8."""
+    if head_dim > 128:
+        return False
+    packing = {1: 4, 2: 2, 4: 1}.get(dtype.itemsize, 1)
+    x = 2 * num_kv_heads
+    if x % packing:
+        return False
+    x //= packing
+    return x in (1, 2, 4, 8) or x % 8 == 0
 
 
 def alloc_kv_pages(cfg: KVCacheConfig, device: torch.device | str
-                   ) -> torch.Tensor:
-    """Allocate the zero-filled combined pool on ``device``."""
-    return torch.zeros(cfg.pool_shape, dtype=cfg.dtype, device=device)
+                   ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Allocate the zero-filled pool(s) on ``device``: ``(pool, None)`` for
+    the combined layout, the ``(k, v)`` pair, each ``(L, KH, P, page, D)``,
+    for the legacy one."""
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cfg.pool_dtype, device=device)
+
+    if cfg.combined:
+        return zeros((cfg.num_layers, cfg.num_pages, cfg.page_size,
+                      2 * cfg.num_kv_heads, cfg.head_dim)), None
+    shape = (cfg.num_layers, cfg.num_kv_heads, cfg.num_pages, cfg.page_size,
+             cfg.head_dim)
+    return zeros(shape), zeros(shape)
 
 
 class PageAllocatorError(RuntimeError):

@@ -8,9 +8,11 @@ scheduler, and runs the scheduler loop. On the card the CUDA kernels are
 built before the daemon reports ready, so no request pays for ``nvcc``.
 
 ``--stats-file PATH``: the daemon zeroes the kernel launch counters just
-before its loop starts and, when it is terminated, writes the counts and the
-worker's per-phase wall times there as JSON (how a caller that drives the
-daemon over HTTP learns which kernels the served requests ran).
+before its loop starts and, when it is terminated, writes the counts, the
+worker's per-phase wall times and the configuration it served (KV layout
+and pool dtype, whether the codec ran the fused residual-unit stacks)
+there as JSON: how a caller that drives the daemon over HTTP learns which
+kernels the served requests ran, and that no option fell back silently.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ def _run_scheduler_daemon(args) -> None:
 
     from .models import load_model
     from .ops import kernels
+    from .ops.resunit import fused_resunit_stack, use_fused_resunit
     from .scheduler import load_scheduler
     from .worker import ModelWorker, WorkerConfig
 
@@ -53,6 +56,12 @@ def _run_scheduler_daemon(args) -> None:
         max_prefill_tokens=args.max_prefill_tokens,
         max_prefill_requests=args.max_prefill_requests,
         seed=args.seed,
+        **({"kv_quant": args.kv_quant}
+           if args.kv_quant is not None else {}),
+        **({"kv_k_amax": args.kv_k_amax}
+           if args.kv_k_amax is not None else {}),
+        **({"kv_v_amax": args.kv_v_amax}
+           if args.kv_v_amax is not None else {}),
     )
     worker = ModelWorker(model, wcfg)
     if model.device.type == "cuda":
@@ -72,13 +81,20 @@ def _run_scheduler_daemon(args) -> None:
 
         param_count = {"lm": _count(model.params),
                        "codec": _count(model.codec_params)}
+        served = {
+            "kv_layout": "combined" if worker.kv_config.combined else "pair",
+            "kv_pool_dtype": str(worker.k_pages.dtype).removeprefix("torch."),
+            "kv_scales": worker.kv_config.kv_scales,
+            "fused_resunit": use_fused_resunit(),
+        }
         kernels.reset_launch_counts()
 
         def _dump(signum, frame):
             with open(args.stats_file, "w") as f:
                 json.dump({"launches": kernels.launch_counts(),
+                           "resunit_stacks": fused_resunit_stack.stacks,
                            "phase_stats": worker.phase_stats,
-                           "param_count": param_count}, f)
+                           "param_count": param_count, **served}, f)
             os._exit(0)
 
         signal.signal(signal.SIGTERM, _dump)
@@ -99,6 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--max-prefill-tokens", type=int, default=1024)
     p.add_argument("--max-prefill-requests", type=int, default=8)
+    p.add_argument("--kv-quant", default=None,
+                   choices=["none", "f8_e4m3", "int8"],
+                   help="quantized KV pool storage")
+    p.add_argument("--kv-k-amax", type=float, default=None)
+    p.add_argument("--kv-v-amax", type=float, default=None)
     p.add_argument("--socket-suffix", default="")
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--top-k", type=int, default=None)

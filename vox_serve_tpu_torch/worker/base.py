@@ -12,7 +12,7 @@ scatter rows by slot id on the device.
 Every step runs eagerly and reads its sampled tokens (or PCM) back before
 returning, so ``sync`` has nothing to resolve. Not ported yet: fused
 multi-step decode, cold-start chains, readback pipelining, CUDA graphs,
-bucket lattices, tensor parallelism, KV/weight quantisation, input
+bucket lattices, tensor parallelism, weight quantisation, input
 streaming and the first-chunk ramp. The scheduler probes
 ``run_lm_decode_multi``, ``poll_resolved`` and ``run_cold_start`` with
 ``getattr`` and runs without them.
@@ -30,6 +30,7 @@ float32 in the JAX reference too, and TF32 would keep ~10 mantissa bits.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -40,7 +41,7 @@ from vox_serve_tpu.utils import cdiv, get_logger
 from ..models.base import BaseLM
 from ..ops.attention import AttnMetadata
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
-                            alloc_kv_pages)
+                            alloc_kv_pages, combined_kv_supported)
 from ..params import tree_leaves, tree_map
 from ..requests import Request
 from ..sampling import init_repetition_cache
@@ -66,6 +67,12 @@ class WorkerConfig:
     max_prefill_tokens: int = 1024
     max_prefill_requests: int = 8
     seed: int = 0
+    #: quantized KV pool storage: "none", "f8_e4m3" (scale-free float8) or
+    #: "int8" (static amax via kv_k_amax/kv_v_amax). Needs the combined
+    #: layout; decode dequantizes inside K1q. See ops/kv_cache.py.
+    kv_quant: str = "none"
+    kv_k_amax: float = 16.0
+    kv_v_amax: float = 16.0
 
     # read by the scheduler; fused decode is not ported
     @property
@@ -94,11 +101,34 @@ class ModelWorker:
             torch.backends.cudnn.allow_tf32 = False
 
         bb = model.backbone_config
+        head_dim = bb.resolved_head_dim
+        combined = combined_kv_supported(head_dim, bb.num_kv_heads, bb.dtype)
+        if os.environ.get("VOX_KV_COMBINED", "") in ("0", "false"):
+            combined = False  # escape hatch: the legacy pair layout (K4)
+        kv_quant = cfg.kv_quant
+        if kv_quant != "none":
+            # quantized pools need the combined layout AND the 1-byte
+            # packing to divide the combined-head axis
+            q_dtype = (torch.int8 if kv_quant == "int8"
+                       else torch.float8_e4m3fn)
+            if not (combined and combined_kv_supported(
+                    head_dim, bb.num_kv_heads, q_dtype)):
+                self.logger.warning(
+                    "kv_quant=%s unsupported for head_dim %d / KH %d; "
+                    "serving full-precision KV", kv_quant, head_dim,
+                    bb.num_kv_heads)
+                kv_quant = "none"
+        # Not ported: the JAX worker's fold check of the legacy decode kernel
+        # (128 % head_dim, page_size % fold) and its check of prefill buckets
+        # against the Pallas prefill tiles; both are TPU tiling rules, and
+        # K4 / K3 take any page size, head dim <= 128 and token count.
         self.kv_config = KVCacheConfig(
             num_layers=bb.num_layers, num_pages=cfg.num_pages,
             page_size=cfg.page_size, num_kv_heads=bb.num_kv_heads,
-            head_dim=bb.resolved_head_dim, dtype=bb.dtype)
-        self.kv_pool = alloc_kv_pages(self.kv_config, dev)
+            head_dim=head_dim, dtype=bb.dtype, combined=combined,
+            quant=kv_quant, k_amax=cfg.kv_k_amax, v_amax=cfg.kv_v_amax)
+        model.kv_quant_scales = self.kv_config.kv_scales
+        self.k_pages, self.v_pages = alloc_kv_pages(self.kv_config, dev)
         self.allocator = PageAllocator(cfg.num_pages)
         # block-table limit per sequence: longest prompt + generation budget
         self.max_pages_per_seq = cdiv(
@@ -130,7 +160,8 @@ class ModelWorker:
         self.logger.info(
             "device %s: params %.2fG + KV pool %.2fG + codec %.2fG + slot "
             "caches %.2fG", dev, _nbytes(model.params) / 2**30,
-            _nbytes(self.kv_pool) / 2**30, _nbytes(model.codec_params) / 2**30,
+            _nbytes([self.k_pages, self.v_pages]) / 2**30,
+            _nbytes(model.codec_params) / 2**30,
             _nbytes(self.codec_cache) / 2**30)
 
     # ------------------------------------------------------------------
@@ -356,8 +387,9 @@ class ModelWorker:
         out = model.lm_step(
             model.params, self._tensor(tokens), meta.q_positions,
             None if feat is None else self._tensor(feat),
-            None if msk is None else self._tensor(msk), meta, self.kv_pool,
-            self.generator, rep_rows, last_token_idx=self._tensor(last_idx))
+            None if msk is None else self._tensor(msk), meta, self.k_pages,
+            self.v_pages, self.generator, rep_rows,
+            last_token_idx=self._tensor(last_idx))
         self._commit_step(out, slots, torch.ones_like(slots, dtype=torch.bool))
         sampled = out.sampled.cpu().numpy()
         for i, req in enumerate(requests):
@@ -421,8 +453,8 @@ class ModelWorker:
                     if self.feedback is not None and model.feedback_dim
                     else None)
         out = model.lm_step(model.params, token_ids, self._tensor(positions),
-                            features, None, meta, self.kv_pool,
-                            self.generator, rep_rows)
+                            features, None, meta, self.k_pages,
+                            self.v_pages, self.generator, rep_rows)
         self._commit_step(out, slots, keep)
         sampled = out.sampled.cpu().numpy()
         for i in stepped:
