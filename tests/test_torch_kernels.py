@@ -238,26 +238,44 @@ def test_k4_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,T,B", [(96, 200, 2), (768, 100, 1)])
-def test_k2_kernel_matches_plain_on_card(cuda_device, C, T, B):
+@pytest.mark.parametrize("C,B,t1,t2", [
+    (96, 3, 100, 137),    # T not a multiple of any time tile
+    (192, 1, 55, 55),     # chunks of 55, just above the 54-sample gate
+    (384, 3, 320, 75),
+    (768, 1, 160, 160),   # B=1 at the widest block: the narrow time tile
+    (768, 3, 55, 200),
+])
+def test_k2_kernel_matches_plain_on_card(cuda_device, C, B, t1, t2):
+    """Whole (zero halos, and from caches) and over two streamed chunks,
+    outputs and new caches within 1e-4 of max |ref| of the plain chain in
+    float32 with TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator().manual_seed(C)
+    g = torch.Generator().manual_seed(C + B)
     units = [{k: (v.to(cuda_device) if torch.is_tensor(v) else
                   {kk: vv.to(cuda_device) for kk, vv in v.items()})
               for k, v in u.items()} for u in _units(g, C)]
-    x = (torch.randn((B, C, T), generator=g) * 0.5).to(cuda_device)
+    x = (torch.randn((B, C, t1 + t2), generator=g) * 0.5).to(cuda_device)
     caches = [(torch.randn((B, C, 6 * d), generator=g) * 0.5).to(cuda_device)
               for d in (1, 3, 9)]
     before = kernels.launch_counts()["fused_resunit_stack"]
+    pairs = []
     for cs in (None, caches):
         out, nc = resunit.fused_resunit_stack(x, units, cs)
         ref, rc = resunit.fused_resunit_stack_plain(x, units, cs)
-        pairs = [(out, ref)] + ([] if cs is None else list(zip(nc, rc)))
-        for a, b in pairs:
-            rel = (a - b).abs().max().item() / b.abs().max().item()
-            assert rel < K2_REL_TOL
-    assert kernels.launch_counts()["fused_resunit_stack"] == before + 6
+        pairs += [(out, ref)] + ([] if cs is None else list(zip(nc, rc)))
+    got, kc, want, pc = [], caches, [], caches
+    for sl in (slice(0, t1), slice(t1, None)):
+        o, kc = resunit.fused_resunit_stack(x[..., sl], units, kc)
+        r, pc = resunit.fused_resunit_stack_plain(x[..., sl], units, pc)
+        pairs += [(o, r)]
+    pairs += list(zip(kc, pc))
+    for a, b in pairs:
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        assert rel < K2_REL_TOL
+    # three launches per unit, three units per stack, four stacks
+    assert kernels.launch_counts()["fused_resunit_stack"] == before + 36
 
 
 @pytest.mark.cuda

@@ -137,10 +137,8 @@ def build(verbose: bool = False) -> Path:
             lib.vox_ragged_prefill_attention.argtypes = [
                 vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
             lib.vox_ragged_prefill_attention.restype = ci
-            lib.vox_resunit.argtypes = [vp] * 12 + [ci] * 5 + [vp]
+            lib.vox_resunit.argtypes = [vp] * 14 + [ci] * 6 + [vp]
             lib.vox_resunit.restype = ci
-            lib.vox_resunit_smem_bytes.argtypes = [ci, ci, ci]
-            lib.vox_resunit_smem_bytes.restype = ctypes.c_longlong
             _lib = lib
         return path
 

@@ -3,10 +3,17 @@ hand-written kernel (port of vox_serve_tpu/ops/pallas_resunit.py).
 
 Each unit is ``x + conv1x1(snake(conv_k7,dil(snake(x))))`` with dilations
 1, 3, 9 (codecs/qwen3_codec.py ``_residual_unit``). On the card
-``fused_resunit_stack`` launches ``csrc/resunit.cu`` once per unit; on the
-CPU it runs the plain version, three ``_residual_unit`` calls. The 128-lane
-channel pad of the TPU kernel's parameter packing is a TPU artefact and is
-not carried over.
+``fused_resunit_stack`` runs each unit as three launches of
+``csrc/resunit.cu`` (snake1 into y, conv1 + snake2 into z, conv2 + the
+residual), tensor-core products in 3xTF32; on the CPU it runs the plain
+version, three ``_residual_unit`` calls. The 128-lane channel pad of the TPU
+kernel's parameter packing is a TPU artefact and is not carried over.
+
+Each unit's parameters are packed once per parameter set (``pack_unit``):
+the conv weights split into TF32 hi and lo planes, K-major as the kernel's
+wgmma reads them (``pack_weights``), the biases and the snake constants,
+kept beside the parameters until they are freed or changed in place. The
+CTA tile comes from ``plan_tiles``, a cost model of the kernel.
 
 Opt-in, as in the JAX package: ``VOX_FUSED_RESUNIT=1`` routes the codec's
 blocks whose chunk is longer than the widest halo (54 samples) here.
@@ -14,14 +21,23 @@ blocks whose chunk is longer than the widest halo (54 samples) here.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import kernels
 
 KERNEL_SIZE = 7  # all codec residual units use k=7
+#: CTA tiles the kernel is compiled for: time steps and output channels
+TILE_M = (128, 64)
+TILE_N = (64, 32)
+#: plan_tiles' price of a staged byte against a tensor-core output,
+#: fitted to the tile timings of the eight serving shapes on an H100
+STAGE_COST = 0.2
+LAUNCHES_PER_UNIT = 3
 
 
 def use_fused_resunit() -> bool:
@@ -37,6 +53,113 @@ def snake_constants(alpha: torch.Tensor, beta: torch.Tensor
     af = torch.exp(alpha.float())
     binv = 1.0 / (torch.exp(beta.float()) + 1e-9)
     return af.contiguous(), binv.contiguous()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), by integer arithmetic on the bits: the kernel's
+    ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi = tf32(x), lo = tf32(x - hi): hi + lo is x within 2^-22 relative,
+    and hi*hi + hi*lo + lo*hi is a product within ~2^-21."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """Conv weights (C_out, C_in, k) -> the kernel's K-major B operand, (2,
+    k, C_in/4, C_out, 4): the TF32 hi and lo planes, in each tap the 4
+    input channels 4c .. 4c+3 of an output channel contiguous (16 bytes)."""
+    C_out, C_in, k = w.shape
+    hi, lo = split_tf32(w.float().permute(2, 1, 0))  # (k, C_in, C_out)
+    halves = torch.stack((hi, lo)).reshape(2, k, C_in // 4, 4, C_out)
+    return halves.transpose(3, 4).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedUnit:
+    """One unit's parameters as the kernel reads them: ``w1`` (2, 7, C/4, C,
+    4) and ``w2`` (2, 1, C/4, C, 4) from ``pack_weights``; the rest (C,)
+    float32."""
+    w1: torch.Tensor
+    w2: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    af1: torch.Tensor
+    bi1: torch.Tensor
+    af2: torch.Tensor
+    bi2: torch.Tensor
+
+
+_packed = WeakIdKeyDictionary()  # conv1 weight -> (stamp, PackedUnit)
+
+
+def pack_unit(p: dict) -> PackedUnit:
+    """The unit's packing, computed at the first call for this parameter
+    set and kept (weakly, keyed by its conv1 weight) for every later call;
+    recomputed only when one of its tensors is replaced or changed in
+    place. Each computation counts in ``pack_unit.count``."""
+    w1 = p["conv1"]["w"]
+    sources = (w1, p["conv1"].get("b"), p["conv2"]["w"],
+               p["conv2"].get("b"), p["alpha1"], p["beta1"], p["alpha2"],
+               p["beta2"])
+    stamp = tuple(None if t is None else (id(t), t._version)
+                  for t in sources)
+    hit = _packed.get(w1)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    C = w1.shape[0]
+    w2 = p["conv2"]["w"]
+    if (tuple(w1.shape) != (C, C, KERNEL_SIZE)
+            or tuple(w2.shape) != (C, C, 1) or C % 8):
+        raise ValueError(f"unit weights {tuple(w1.shape)} / "
+                         f"{tuple(w2.shape)} are not (C, C, 7) / (C, C, 1) "
+                         "with C a multiple of 8")
+
+    def bias(conv):
+        b = conv.get("b")
+        return (torch.zeros((C,), dtype=torch.float32, device=w1.device)
+                if b is None else b.float().contiguous())
+
+    packed = PackedUnit(pack_weights(w1), pack_weights(w2), bias(p["conv1"]),
+                        bias(p["conv2"]),
+                        *snake_constants(p["alpha1"], p["beta1"]),
+                        *snake_constants(p["alpha2"], p["beta2"]))
+    _packed[w1] = (stamp, packed)
+    pack_unit.count += 1
+    return packed
+
+
+pack_unit.count = 0
+
+
+def plan_tiles(B: int, C: int, T: int, sms: int) -> tuple[int, int]:
+    """The CTA tile (time steps, output channels) of both GEMM passes, the
+    cheapest by a model of the kernel on the card. The grid, B *
+    ceil(T/bm) * ceil(C/bn) CTAs of bm/64 warpgroups, is dealt evenly over
+    the SMs; each warpgroup owns 64 x bn outputs, and an output costs its
+    tensor-core time plus ``STAGE_COST`` per byte staged for it in a K
+    stage. Tensor time: a m64nNk8 wgmma does N/2 clocks of math and reads
+    2048 + 32N bytes of shared memory at 128 B a clock, so N=64 runs at
+    full rate and N=32 at two thirds. Staged bytes: the stage's weights,
+    hi and lo of 7 taps x 8 channels x bn, and its activation rows, hi and
+    lo of 8 channels x (bm + 54), over the tile's bm * bn outputs. Only
+    widths that divide C are considered when one does; ties go to the
+    taller, then the wider tile."""
+    def cost(tile):
+        bm, bn = tile
+        ctas = B * -(-T // bm) * -(-C // bn)
+        warpgroups = -(-ctas // sms) * (bm // 64)
+        tensor = max(1.0, (2048 + 32 * bn) / (64 * bn))
+        staged = (448 * bn + 64 * (bm + 54)) / (bm * bn)
+        return warpgroups * 64 * bn * (tensor + STAGE_COST * staged), -bm, -bn
+
+    widths = [bn for bn in TILE_N if C % bn == 0] or list(TILE_N)
+    return min(((bm, bn) for bm in TILE_M for bn in widths), key=cost)
 
 
 def fused_resunit_stack_plain(x: torch.Tensor, units: list, caches,
@@ -62,47 +185,50 @@ def _check_stack(x: torch.Tensor, dilations) -> None:
         raise ValueError(f"chunk T={T} must exceed the widest halo {max_pad}")
 
 
-def _launch_unit(x: torch.Tensor, p: dict, cache: Optional[torch.Tensor],
-                 dil: int, tm: int) -> tuple[torch.Tensor,
-                                             Optional[torch.Tensor]]:
+def _launch_unit(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                 pk: PackedUnit, cache: Optional[torch.Tensor], dil: int,
+                 tiles: tuple[int, int]) -> tuple[torch.Tensor,
+                                                  Optional[torch.Tensor]]:
+    """One unit: the snaked input with its halo into y, conv1 into z (both
+    scratch of (hi, lo) pairs, sized by ``_scratch``), conv2 the output."""
     B, C, T = x.shape
     dev = x.device
     pad = (KERNEL_SIZE - 1) * dil
-    w1 = p["conv1"]["w"]
-    w2 = p["conv2"]["w"]
-    if tuple(w1.shape) != (C, C, KERNEL_SIZE) or tuple(w2.shape) != (C, C, 1):
-        raise ValueError(f"unit weights {tuple(w1.shape)} / "
-                         f"{tuple(w2.shape)} do not match C={C}")
-    f32 = torch.float32
-
-    def bias(conv):
-        b = conv.get("b")
-        return (torch.zeros((C,), dtype=f32, device=dev) if b is None
-                else b.to(f32).contiguous())
-
-    w1t = w1.to(f32).permute(2, 1, 0).contiguous()      # (7, C_in, C_out)
-    w2t = w2[:, :, 0].to(f32).t().contiguous()          # (C_in, C_out)
-    b1, b2 = bias(p["conv1"]), bias(p["conv2"])
-    af1, bi1 = snake_constants(p["alpha1"], p["beta1"])
-    af2, bi2 = snake_constants(p["alpha2"], p["beta2"])
+    if pk.w1.shape[-2] != C:
+        raise ValueError(f"unit weights {tuple(pk.w1.shape)} do not match "
+                         f"C={C}")
     if cache is not None:
-        kernels._check("cache", cache, f32, 3, dev)
+        kernels._check("cache", cache, torch.float32, 3, dev)
         if tuple(cache.shape) != (B, C, pad):
             raise ValueError(f"cache {tuple(cache.shape)} != {(B, C, pad)}")
     out = torch.empty_like(x)
     new_cache = (None if cache is None else
-                 torch.empty((B, C, pad), dtype=f32, device=dev))
+                 torch.empty((B, C, pad), dtype=torch.float32, device=dev))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = kernels.library().vox_resunit(
-        x.data_ptr(), ptr(cache), w1t.data_ptr(), b1.data_ptr(),
-        w2t.data_ptr(), b2.data_ptr(), af1.data_ptr(), bi1.data_ptr(),
-        af2.data_ptr(), bi2.data_ptr(), out.data_ptr(), ptr(new_cache), B,
-        C, T, dil, tm, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), ptr(cache), pk.w1.data_ptr(), pk.b1.data_ptr(),
+        pk.w2.data_ptr(), pk.b2.data_ptr(), pk.af1.data_ptr(),
+        pk.bi1.data_ptr(), pk.af2.data_ptr(), pk.bi2.data_ptr(),
+        y.data_ptr(), z.data_ptr(), out.data_ptr(), ptr(new_cache), B, C, T,
+        dil,
+        *tiles, torch.cuda.current_stream(dev).cuda_stream)
     kernels._raise_on(err, "fused_resunit_stack")
     return out, new_cache
+
+
+def _scratch(B: int, C: int, T: int, max_dil: int, device
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch, tf32 hi and lo planes of channel-minor rows: y
+    the snaked input with its halo (2, B, 6*dil + T, C), z the output of
+    conv1 (2, B, T, C)."""
+    def planes(rows):
+        return torch.empty((2, B, rows, C), dtype=torch.float32,
+                           device=device)
+
+    return planes((KERNEL_SIZE - 1) * max_dil + T), planes(T)
 
 
 def fused_resunit_stack(x: torch.Tensor, units: list, caches,
@@ -117,8 +243,8 @@ def fused_resunit_stack(x: torch.Tensor, units: list, caches,
     Returns (out (B, C, T), new_caches: a list of three, None entries when
     ``caches`` is None). Raises when T <= 54 or len(dilations) != 3.
 
-    CPU tensors: the plain version. CUDA tensors: three K2 launches (each
-    counted in ``fused_resunit_stack.launches``; whole stacks in
+    CPU tensors: the plain version. CUDA tensors: three K2 launches per
+    unit (each counted in ``fused_resunit_stack.launches``; whole stacks in
     ``.stacks``), or raise.
     """
     _check_stack(x, dilations)
@@ -135,21 +261,17 @@ def fused_resunit_stack(x: torch.Tensor, units: list, caches,
     if max(dilations) > 9:
         raise ValueError(f"dilations {dilations}: the kernel stages halos "
                          "of at most 54 samples (dilation <= 9)")
-    lib = kernels.library()
+    packed = [pack_unit(p) for p in units]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # 16-step time tiles when 32-step tiles would leave SMs idle
-    tm = 32 if B * -(-T // 32) >= sms else 16
-    limit = 227 * 1024
-    need = max(lib.vox_resunit_smem_bytes(C, d, tm) for d in dilations)
-    if need > limit:
-        raise ValueError(f"C={C} needs {need} B of shared memory > {limit}")
+    tiles = plan_tiles(B, C, T, sms)
     h = x.contiguous()
+    y, z = _scratch(B, C, T, max(dilations), x.device)
     new = []
-    for u, (p, dil) in enumerate(zip(units, dilations)):
+    for u, (pk, dil) in enumerate(zip(packed, dilations)):
         cache = None if caches is None else caches[u].contiguous()
-        h, nc = _launch_unit(h, p, cache, dil, tm)
+        h, nc = _launch_unit(h, y, z, pk, cache, dil, tiles)
         new.append(nc)
-        fused_resunit_stack.launches += 1
+        fused_resunit_stack.launches += LAUNCHES_PER_UNIT
     fused_resunit_stack.stacks += 1
     return h, new
 
