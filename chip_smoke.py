@@ -9,15 +9,20 @@ exits non-zero without printing a result:
 1. device: requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build: compiles the port's CUDA kernels (csrc/*.cu, sm_90a) with nvcc,
    one process per source, in parallel.
-3. paged decode attention at Qwen3-TTS-1.7B talker shapes (B in {1, 8, 64},
-   H=16, KH=8, D=128, page 16, 28 layers, 4096 pages so pool offsets pass
-   2^31), random non-contiguous block tables, seq_lens up to ~1000 and one
-   padded row; each kernel against its plain PyTorch version on the same
-   inputs, with CUDA-event times of both: K1 over the combined bf16 pool,
-   K1q over int8 and float8 e4m3 pools (same scales on both sides), K4 over
-   the head-major bf16 pair.
-4. K3 ragged prefill attention vs its plain version at T in {64, 256, 1024}
-   with 1-5 ragged segments (valid rows compared); CUDA-event times.
+3. paged decode attention at Qwen3-TTS-1.7B talker shapes (B in {1, 4, 8,
+   64}, H=16, KH=8, D=128, page 16, 28 layers, 4096 pages so pool offsets
+   pass 2^31), random non-contiguous block tables, seq_lens up to ~1000
+   (40-120 at B=4, the served batch) and one padded row; each kernel
+   against its plain PyTorch version on the same inputs, with CUDA-event
+   times of both: K1 over the combined bf16 pool, K1q over int8 and float8
+   e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
+4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
+   1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
+   prefill; valid rows compared); CUDA-event times of K3, its plain version
+   and its library yardstick (one ``scaled_dot_product_attention`` call
+   with the block-diagonal causal mask; the port never calls it).
+   Every kernel line also gives its bound: the larger of its bytes over
+   3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
    paged pool) on the card through the kernels, against the same weights
    on the CPU in float32 through the plain versions, for the combined bf16,
@@ -38,8 +43,15 @@ exits non-zero without printing a result:
    served, when terminated: each run must show its KV layout, pool dtype
    and codec path, launch its kernels and launch none of the others.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing each kernel (at its
+largest shape); the last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-4's attention-kernel checks only and prints no result lines.
+The script builds and times the port beside it, so a copy of it placed in
+another checkout (a parent commit unpacked with ``git archive``) times
+that checkout's kernels at this script's shapes.
 """
 
 from __future__ import annotations
@@ -75,28 +87,79 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 20) -> float:
+def cuda_time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+    """Mean ms per call of ``iters`` back-to-back calls between two CUDA
+    events. Eager calls include the host's cost per call wherever the host
+    is slower than the device; ``graph=True`` captures the calls in one CUDA
+    graph and times its replay, which is the device's time alone."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    run, reps = fn, iters
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run, reps = g.replay, 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def alternate_times(plain, kernel, iters: int = 20) -> tuple[float, float]:
+def alternate_times(plain, kernel, iters: int = 20,
+                    graph: bool = False) -> tuple[float, float]:
     """plain, kernel, kernel, plain; mean of the two runs of each."""
-    p1 = cuda_time_ms(plain, iters)
-    k1 = cuda_time_ms(kernel, iters)
-    k2 = cuda_time_ms(kernel, iters)
-    p2 = cuda_time_ms(plain, iters)
+    p1 = cuda_time_ms(plain, iters, graph)
+    k1 = cuda_time_ms(kernel, iters, graph)
+    k2 = cuda_time_ms(kernel, iters, graph)
+    p2 = cuda_time_ms(plain, iters, graph)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# NVIDIA H100 SXM peaks (data sheet, dense, at 700 W): the least time the
+# card could take for a kernel's work is the larger of its bytes (each
+# input read once, each output written once) over the memory rate and its
+# operations over the peak rate for the type they run in (tensor cores:
+# bf16, 8-bit, TF32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "8bit": 1979e12, "tf32": 495e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """bound_ms and what bounds it (bytes or operations)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes"}
+    return {"bound_ms": t_ops, "bound_by": "operations"}
+
+
+def result(err: float, ms: float, plain_ms: float, bnd: dict,
+           library_ms=None) -> dict:
+    """One kernel's entry of the result line (at one shape)."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "bound_share": bnd["bound_ms"] / ms, "library_ms": library_ms}
+
+
+def bound_text(r: dict) -> str:
+    lib = r["library_ms"]
+    return (f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bound_share="
+            f"{r['bound_share']:.3f} library_ms="
+            f"{'none' if lib is None else format(lib, '.4f')}")
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +209,13 @@ def check_decode(kernels, variant: str) -> dict:
             pool[layer].normal_(generator=g)
         pools = [pool]
     elem = torch.empty((), dtype=dtype).element_size()
+    # the split workspace for every shape below, as a worker holds one
+    scratch = kernels.DecodeScratch(dev, 64, H, KH, D, -(-1000 // page))
     if layout == "pair":
         def kernel(q, tables, seq):
             return kernels.paged_decode_attention_pair(q, *pools, layer,
-                                                       tables, seq)
+                                                       tables, seq,
+                                                       scratch=scratch)
 
         def plain(q, tables, seq):
             return kernels.paged_decode_attention_pair_plain(
@@ -157,7 +223,8 @@ def check_decode(kernels, variant: str) -> dict:
     else:
         def kernel(q, tables, seq):
             return kernels.paged_decode_attention(q, pools[0], layer, tables,
-                                                  seq, kv_scales=kv_scales)
+                                                  seq, kv_scales=kv_scales,
+                                                  scratch=scratch)
 
         def plain(q, tables, seq):
             return kernels.paged_decode_attention_plain(
@@ -165,8 +232,11 @@ def check_decode(kernels, variant: str) -> dict:
 
     worst, res = 0.0, {}
     rng = torch.Generator().manual_seed(2)
-    for B in (1, 8, 64):
-        seq = torch.randint(1, 1001, (B,), generator=rng)
+    for B in (1, 4, 8, 64):
+        if B == 4:  # the served batch: 42-token prompts, up to 100 frames
+            seq = torch.randint(40, 121, (B,), generator=rng)
+        else:
+            seq = torch.randint(1, 1001, (B,), generator=rng)
         if B > 1:
             seq[B // 2] = 1  # padded row: seq_len 1 on scratch page 0
         maxp = int((seq.max() + page - 1) // page)
@@ -184,16 +254,27 @@ def check_decode(kernels, variant: str) -> dict:
             raise AssertionError(f"{variant} B={B}: max_abs_err {err} > "
                                  f"{K1_TOL}")
         ms, plain_ms = alternate_times(lambda: plain(q, tables, seq),
-                                       lambda: kernel(q, tables, seq))
+                                       lambda: kernel(q, tables, seq),
+                                       graph=True)
+        eager_ms = cuda_time_ms(lambda: kernel(q, tables, seq))
         worst = max(worst, err)
-        # bytes the kernel must read: every live token's K and V rows
-        gbs = int(seq.sum()) * 2 * KH * D * elem / (ms * 1e-3) / 1e9
+        # bytes the kernel must move: every live token's K and V rows, q,
+        # out, the block tables and lengths; 2 flops per K and V element
+        # per query head
+        tokens = int(seq.sum())
+        kv_bytes = tokens * 2 * KH * D * elem
+        nbytes = kv_bytes + 2 * B * H * D * 2 + tables.numel() * 4 + B * 4
+        bnd = bound(nbytes, 4.0 * tokens * H * D,
+                    "bf16" if elem == 2 else "8bit")
+        r = result(worst, ms, plain_ms, bnd)
         log(f"{variant} {layout} {dtype_name} pool B={B} "
-            f"max_seq={int(seq.max())} tokens={int(seq.sum())} "
+            f"max_seq={int(seq.max())} tokens={tokens} "
             f"max_abs_err={err:.3e} (tol {K1_TOL}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} kv_read_GB/s={gbs:.0f} "
-            f"({elem} B/elem)")
-        res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            f"plain_ms={plain_ms:.4f} eager_call_ms={eager_ms:.4f} "
+            f"kv_read_GB/s="
+            f"{kv_bytes / (ms * 1e-3) / 1e9:.0f} ({elem} B/elem) "
+            f"{bound_text(r)}")
+        res = r
     del pools
     torch.cuda.empty_cache()
     return res
@@ -211,12 +292,16 @@ def check_k3(kernels) -> dict:
     H, KH, D = 16, 8, 128
     rng = torch.Generator().manual_seed(3)
     worst, res = 0.0, {}
-    for T, nseg in ((64, 1), (256, 3), (1024, 5)):
-        # nseg random positive spans, then a padded tail (seg -1)
-        valid = T - int(torch.randint(0, T // 8 + 1, (1,), generator=rng))
-        cuts = sorted((torch.randperm(valid - 1, generator=rng)[: nseg - 1]
-                       + 1).tolist())
-        lens = [b - a for a, b in zip([0] + cuts, cuts + [valid])]
+    for T, nseg in ((64, 1), (168, 4), (256, 3), (1024, 5)):
+        if T == 168:  # the served prefill: four 42-token prompts
+            lens, valid = [42] * 4, 168
+        else:
+            # nseg random positive spans, then a padded tail (seg -1)
+            valid = T - int(torch.randint(0, T // 8 + 1, (1,),
+                                          generator=rng))
+            cuts = sorted((torch.randperm(valid - 1, generator=rng)
+                           [: nseg - 1] + 1).tolist())
+            lens = [b - a for a, b in zip([0] + cuts, cuts + [valid])]
         seg = torch.full((T,), -1, dtype=torch.int32)
         c = 0
         for i, n in enumerate(lens):
@@ -235,16 +320,55 @@ def check_k3(kernels) -> dict:
             raise AssertionError(f"K3 T={T}: max_abs_err {err} > {K3_TOL}")
         ms, plain_ms = alternate_times(
             lambda: kernels.ragged_prefill_attention_plain(q, k, v, seg),
+            lambda: kernels.ragged_prefill_attention(q, k, v, seg),
+            graph=True)
+        eager_ms = cuda_time_ms(
             lambda: kernels.ragged_prefill_attention(q, k, v, seg))
+        lib_ms, lib_err = sdpa_time(q, k, v, seg, ref)
         worst = max(worst, err)
         # causal pairs x (QK^T + PV) x heads x head dim
         flops = sum(n * (n + 1) // 2 for n in lens) * 4 * H * D
+        nbytes = 2 * T * H * D * 2 + 2 * T * KH * D * 2 + T * 4
+        r = result(worst, ms, plain_ms, bound(nbytes, flops, "bf16"),
+                   lib_ms)
         log(f"K3 ragged_prefill_attention T={T} segments={lens} "
             f"valid={int(valid.sum())} max_abs_err={err:.3e} (tol {K3_TOL}) "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"TFLOP/s={flops / (ms * 1e-3) / 1e12:.2f}")
-        res = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} eager_call_ms="
+            f"{eager_ms:.4f} TFLOP/s={flops / (ms * 1e-3) / 1e12:.2f} "
+            f"{bound_text(r)} "
+            f"(sdpa max_abs_err {lib_err:.3e})")
+        res = r
     return res
+
+
+def sdpa_time(q, k, v, seg, ref) -> tuple[float, float]:
+    """The library yardstick of K3: one scaled_dot_product_attention call
+    with the block-diagonal causal boolean mask and grouped KV heads, the
+    mask and layouts made outside the timed region, timed twice as K3 is
+    (graph replay). Returns its ms and its error on the valid rows against
+    the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    T, H, _ = q.shape
+    KH = k.shape[1]
+    idx = torch.arange(T, device=q.device)
+    mask = ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0)
+            & (idx[:, None] >= idx[None, :]))
+    qh = q.transpose(0, 1).unsqueeze(0)
+    kh = k.transpose(0, 1).unsqueeze(0)
+    vh = v.transpose(0, 1).unsqueeze(0)
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
+    out = call()[0].transpose(0, 1)
+    valid = seg >= 0
+    err = (out[valid].float() - ref[valid].float()).abs().max().item()
+    t1 = cuda_time_ms(call, graph=True)
+    t2 = cuda_time_ms(call, graph=True)
+    return (t1 + t2) / 2, err
 
 
 def check_backbone(kv: str = "combined") -> None:
@@ -400,11 +524,18 @@ def check_k2() -> dict:
                 f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} TFLOP/s="
                 f"{flops / (ms * 1e-3) / 1e12:.2f} plain_TFLOP/s="
                 f"{flops / (plain_ms * 1e-3) / 1e12:.2f}")
+        # f32 in and out (x, and the output and its halo-free cache), the
+        # three units' weights once; each multiply-add runs as three TF32
+        # tensor-core products (3xTF32), at the TF32 peak
+        nbytes = sum(4 * (2 * B * C * T + 3 * (8 * C * C + 6 * C))
+                     for C, T in K2_BLOCKS)
+        r = result(worst_abs, ms_sum, plain_sum,
+                   bound(nbytes, 3 * flops_sum, "tf32"))
         log(f"K2 all four blocks B={B}: kernel_ms={ms_sum:.4f} plain_ms="
             f"{plain_sum:.4f} TFLOP/s={flops_sum / (ms_sum * 1e-3) / 1e12:.2f}"
-            f" plain_TFLOP/s={flops_sum / (plain_sum * 1e-3) / 1e12:.2f}")
-        res[B] = {"max_abs_err": worst_abs, "ms": ms_sum,
-                  "plain_ms": plain_sum}
+            f" plain_TFLOP/s={flops_sum / (plain_sum * 1e-3) / 1e12:.2f} "
+            f"{bound_text(r)}")
+        res[B] = r
     worst = max(r["max_abs_err"] for r in res.values())
     return {**res[4], "max_abs_err": worst}
 
@@ -619,9 +750,16 @@ def end_to_end(card: str, config: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="the attention kernels' checks only (no backbone, "
+                         "no K2, no server); prints no result lines")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is unavailable", file=sys.stderr)
         return 1
@@ -638,13 +776,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path = kernels.build(verbose=True)
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     decode = {v: check_decode(kernels, v) for v in DECODE_VARIANTS}
     k3 = check_k3(kernels)
+    if args.kernels_only:
+        return 0
     for kv in ("combined", "int8", "f8_e4m3", "pair"):
         check_backbone(kv)
     k2 = check_k2()
@@ -658,9 +798,7 @@ def main() -> int:
     def quant_worst(key):
         return max(decode["K1q int8"][key], decode["K1q f8_e4m3"][key])
 
-    k1q = {"max_abs_err": quant_worst("max_abs_err"),
-           "ms": decode["K1q int8"]["ms"],
-           "plain_ms": decode["K1q int8"]["plain_ms"]}
+    k1q = {**decode["K1q int8"], "max_abs_err": quant_worst("max_abs_err")}
     print(json.dumps({"kernels": [
         {"name": K1, "route": "cuda",
          "source": "vox_serve_tpu_torch/csrc/paged_decode.cu",

@@ -53,13 +53,59 @@ def test_port_sources_never_import_jax():
     offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text())]
     assert offenders == []
-    # from the JAX package only its jax-free host modules are reused
-    allowed = {"utils", "native", "server.api", "server.app"}
+    # nothing of the JAX package either: the shared host modules are copies
+    allowed = set()
     used = set()
-    for p in PKG.rglob("*.py"):
-        used |= set(re.findall(r"from vox_serve_tpu\.([\w.]+) import",
-                               p.read_text()))
+    pkg_import = re.compile(r"^\s*(?:from|import) vox_serve_tpu(?:\.([\w.]+))?"
+                            r"(?=[\s,]|$)", re.M)
+    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        used |= {m or "vox_serve_tpu"
+                 for m in pkg_import.findall(p.read_text())}
     assert used <= allowed, used - allowed
+
+
+def test_server_and_daemon_load_nothing_of_the_jax_package(tmp_path):
+    """The HTTP server (launch, the app built over an APIServer), the
+    scheduler daemon's entry and chip_smoke.py, in a fresh interpreter,
+    load no module whose top-level name is vox_serve_tpu."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('vox_serve_tpu_torch.launch',\n"
+        "          'vox_serve_tpu_torch.server.app',\n"
+        "          'vox_serve_tpu_torch.server.api',\n"
+        "          'vox_serve_tpu_torch.scheduler_entry', 'chip_smoke'):\n"
+        "    importlib.import_module(m)\n"
+        "from vox_serve_tpu_torch.server.api import APIServer\n"
+        "from vox_serve_tpu_torch.server.app import build_app\n"
+        f"d = {str(tmp_path)!r}\n"
+        "srv = APIServer(output_dir=d + '/a', upload_dir=d + '/u',\n"
+        "                spawn_schedulers=False,\n"
+        "                socket_suffix='_imports_test')\n"
+        "app = build_app(srv, sample_rate=24000)\n"
+        "assert app.router is not None\n"
+        "srv.cleanup()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'vox_serve_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("rate,channels,bits,data_len", [
+    (24000, 1, 16, None), (16000, 1, 16, 0), (44100, 2, 16, 123456),
+    (48000, 2, 24, None), (22050, 1, 8, 4096), (8000, 6, 32, 2 ** 31)])
+def test_wav_header_bytes_equal_the_jax_package(rate, channels, bits,
+                                                data_len):
+    from vox_serve_tpu.native import wav_header as jax_wav_header
+
+    from vox_serve_tpu_torch.native import wav_header
+
+    got = wav_header(rate, channels, bits, data_len)
+    assert len(got) == 44
+    assert got == jax_wav_header(rate, channels, bits, data_len)
 
 
 def test_chip_smoke_process_imports_nothing_of_the_jax_package():

@@ -308,6 +308,196 @@ def test_new_kernels_reject_wrong_inputs_on_card(cuda_device):
     assert kernels.launch_counts() == before
 
 
+#: decode variants: pool element type and layout
+_DECODE_VARIANTS = {"K1": (torch.bfloat16, "combined"),
+                    "K1q int8": (torch.int8, "combined"),
+                    "K1q f8": (torch.float8_e4m3fn, "combined"),
+                    "K4": (torch.bfloat16, "pair")}
+
+
+def _device_pool(dev, dtype, L, P, page, KH, D, seed):
+    """A random combined pool on the card, and the dequant scales of a
+    1-byte one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randn((L, P, page, 2 * KH, D), generator=g, device=dev)
+    if dtype == torch.int8:
+        return (torch.randint(-127, 128, pool.shape, generator=g, device=dev,
+                              dtype=torch.int8), (4.0 / 127.0, 3.0 / 127.0))
+    if dtype == torch.float8_e4m3fn:
+        return pool.to(dtype), (1.0, 0.5)
+    return pool.bfloat16(), None
+
+
+def _decode_fns(variant, pool, scales):
+    """(kernel, plain) of one decode variant over layer 1 of ``pool`` (a
+    combined pool; the pair variant reads its head-major copy), each called
+    as f(q, tables, seq_lens); the kernel also takes ``scratch``."""
+    if _DECODE_VARIANTS[variant][1] == "pair":
+        k, v = _pair(pool, pool.shape[3] // 2)
+
+        def kernel(q, tb, sq, scratch=None):
+            return kernels.paged_decode_attention_pair(q, k, v, 1, tb, sq,
+                                                       scratch=scratch)
+
+        def plain(q, tb, sq):
+            return kernels.paged_decode_attention_pair_plain(q, k, v, 1, tb,
+                                                             sq)
+        return kernel, plain
+
+    def kernel(q, tb, sq, scratch=None):
+        return kernels.paged_decode_attention(q, pool, 1, tb, sq,
+                                              kv_scales=scales,
+                                              scratch=scratch)
+
+    def plain(q, tb, sq):
+        return kernels.paged_decode_attention_plain(q, pool, 1, tb, sq,
+                                                    kv_scales=scales)
+    return kernel, plain
+
+
+#: (variant, B, H, KH, D): the served heads at B = 1, 4, 64, then every
+#: head group (G = 1, 2, 4, 8) and head dims below 128 at B=1 (split) and
+#: B=64; D=72 over bf16 pools only (1-byte ones need D % 16 == 0)
+_DECODE_EDGE_CASES = [
+    (variant, B, H, KH, D) for variant in _DECODE_VARIANTS
+    for B, H, KH, D in [(1, 16, 8, 128), (4, 16, 8, 128), (64, 16, 8, 128)]
+    + [(B, H, KH, D) for B in (1, 64)
+       for H, KH in ((8, 8), (16, 8), (16, 4), (16, 2))
+       for D in (64, 72, 128) if (H, KH, D) != (16, 8, 128)]
+    if D % 16 == 0 or _DECODE_VARIANTS[variant][0] == torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,B,H,KH,D", _DECODE_EDGE_CASES)
+def test_decode_kernel_edges_on_card(cuda_device, variant, B, H, KH, D):
+    """The page-parallel split-KV decode kernel against its plain version:
+    seq_len 1, exactly one page, both sides of a page boundary, sequences
+    over several splits (B=1: one CTA per KV head cannot fill the card, so
+    the planned split count is > 1), padded rows on scratch page 0; at
+    1, 2 and 4 query heads per CTA (G = 8 as two CTAs per KV head) and at
+    head dims below 128 (72: bf16 pools only, 1-byte ones need D % 16)."""
+    L, page, maxp = 2, 16, 40
+    P = B * maxp + 1
+    pool, scales = _device_pool(cuda_device, _DECODE_VARIANTS[variant][0], L,
+                                P, page, KH, D, 20 + B + D)
+    kernel, plain = _decode_fns(variant, pool, scales)
+    g = torch.Generator().manual_seed(20 + B)
+    lens = [1, 16, 17, 32, 33, 500, maxp * page]
+    if B == 1:
+        cases = [[n] for n in lens]
+    else:
+        cases = [[lens[(i + j) % len(lens)] for i in range(B)]
+                 for j in range(2)]
+    perm = torch.randperm(P - 1, generator=g).to(torch.int32) + 1
+    for seqs in cases:
+        seq = torch.tensor(seqs, dtype=torch.int32)
+        tables = perm[:B * maxp].reshape(B, maxp).clone()
+        if B > 1:
+            seq[1] = 1
+            tables[1] = 0  # a padded row: seq_len 1 on scratch page 0
+        q = torch.randn((B, H, D), generator=g).bfloat16().to(cuda_device)
+        tb, sq = tables.to(cuda_device), seq.to(cuda_device)
+        out, ref = kernel(q, tb, sq), plain(q, tb, sq)
+        assert torch.isfinite(out.float()).all()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err < CARD_TOL, (seqs, err)
+    if B == 1:
+        groups = kernels.decode_head_groups(H, KH)
+        assert kernels.plan_decode_splits(1, KH, maxp, head_groups=groups) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(_DECODE_VARIANTS))
+def test_decode_scratch_shared_across_shapes_on_card(cuda_device, variant):
+    """One ``DecodeScratch`` sized for (64 rows, 40 pages) serves launches
+    of growing and shrinking batch and table width back to back, eager and
+    replayed from a CUDA graph captured before them; one sized too small
+    raises before launching; without one, each split launch (captured
+    ones too) gets its own."""
+    H, KH, D, L, page, maxp = 16, 8, 128, 2, 16, 40
+    P = 64 * maxp + 1
+    pool, scales = _device_pool(cuda_device, _DECODE_VARIANTS[variant][0], L,
+                                P, page, KH, D, 50)
+    g = torch.Generator().manual_seed(51)
+    perm = torch.randperm(P - 1, generator=g).to(torch.int32) + 1
+
+    def case(B, width):
+        seq = torch.randint(1, width * page + 1, (B,), generator=g,
+                            dtype=torch.int32)
+        seq[0] = width * page
+        tables = perm[:B * width].reshape(B, width).contiguous()
+        q = torch.randn((B, H, D), generator=g).bfloat16()
+        return q.to(cuda_device), tables.to(cuda_device), seq.to(cuda_device)
+
+    def check(out, ref):
+        assert torch.isfinite(out.float()).all()
+        assert (out.float() - ref.float()).abs().max().item() < CARD_TOL
+
+    kernel, plain = _decode_fns(variant, pool, scales)
+    scratch = kernels.DecodeScratch(cuda_device, 64, H, KH, D, maxp)
+    cap = case(1, maxp)  # 8 splits: the most states per row
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*cap, scratch=scratch)
+        kernel(*cap)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = kernel(*cap, scratch=scratch)
+        g_own = kernel(*cap)
+    for B, width in ((1, 3), (4, 8), (64, 40), (2, 40), (1, 40), (8, 12),
+                     (4, 2), (64, 1)):
+        q, tb, sq = case(B, width)
+        ref = plain(q, tb, sq)
+        check(kernel(q, tb, sq, scratch=scratch), ref)
+        check(kernel(q, tb, sq), ref)
+    graph.replay()
+    ref = plain(*cap)
+    check(g_out, ref)
+    check(g_own, ref)
+    torch.cuda.synchronize()
+    assert int(scratch.counters.abs().sum()) == 0  # left ready
+    small = kernels.DecodeScratch(cuda_device, 1, H, KH, D, 4)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="too small"):
+        kernel(*cap, scratch=small)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH", [(8, 8), (16, 8), (16, 4), (16, 2)])
+@pytest.mark.parametrize("T,segs", [
+    (5, (5,)),                 # shorter than one query tile
+    (168, (42, 42, 42, 42)),   # the served prefill, edges inside tiles
+    (300, (100, 1, 1, 150)),   # single-token segments; T not a multiple
+    (200, (70, 60)),           # an all-padding tail of 70 rows
+    (1024, (300, 200, 250, 270)),
+])
+def test_k3_kernel_gqa_and_edges_on_card(cuda_device, H, KH, T, segs):
+    q, k, v, seg = _prefill_case(30 + T, T, H, KH, 128, segs)
+    args = [x.bfloat16().to(cuda_device) for x in (q, k, v)]
+    args.append(seg.to(cuda_device))
+    out = kernels.ragged_prefill_attention(*args)
+    ref = kernels.ragged_prefill_attention_plain(*args)
+    valid = (seg >= 0).to(cuda_device)
+    err = (out[valid].float() - ref[valid].float()).abs().max().item()
+    assert err < CARD_TOL, err
+    assert torch.isfinite(out.float()).all()
+    assert torch.count_nonzero(out[~valid]) == 0  # padding rows: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 72])
+def test_k3_kernel_narrow_heads_on_card(cuda_device, D):
+    q, k, v, seg = _prefill_case(40 + D, 150, 16, 8, D, (60, 90))
+    args = [x.bfloat16().to(cuda_device) for x in (q, k, v)]
+    args.append(seg.to(cuda_device))
+    out = kernels.ragged_prefill_attention(*args)
+    ref = kernels.ragged_prefill_attention_plain(*args)
+    assert (out.float() - ref.float()).abs().max().item() < CARD_TOL
+
+
 @pytest.mark.parametrize("H,KH,D,max_group,ok", [
     (16, 8, 128, 8, True), (16, 8, 16, 32, True), (12, 8, 128, 8, False),
     (24, 8, 128, 8, False), (16, 8, 256, 8, False), (16, 8, 100, 8, False),

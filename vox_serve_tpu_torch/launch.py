@@ -1,8 +1,8 @@
 """CLI entry of the port: ``python -m vox_serve_tpu_torch.launch``.
 
-Serves the HTTP API of vox_serve_tpu (the same aiohttp app,
-``vox_serve_tpu.server.app.build_app``) in front of the port's scheduler
-daemon, one per data-parallel rank. The JAX launcher's serving profiles
+Serves the HTTP API of vox_serve_tpu (the port's copy of its aiohttp app,
+``server/app.py`` ``build_app``) in front of the port's scheduler daemon,
+one per data-parallel rank. The JAX launcher's serving profiles
 (``profiles.py``) are not applied: their constants were measured on a TPU.
 
     python -m vox_serve_tpu_torch.launch --model qwen3-tts --device cuda
@@ -21,7 +21,7 @@ import os
 import signal
 import tempfile
 
-from vox_serve_tpu.utils import get_logger, set_global_log_level
+from .utils import get_logger, set_global_log_level
 
 logger = get_logger("launch")
 
@@ -81,9 +81,8 @@ def main(argv=None) -> None:
     sample_rate = getattr(cls, "SAMPLE_RATE", None) or 24000
 
     from aiohttp import web
-    from vox_serve_tpu.server.app import build_app
-
     from .server.api import APIServer
+    from .server.app import build_app
 
     scheduler_args = {
         "device": args.device,

@@ -98,7 +98,7 @@ def load_model(
     if greedy:
         overrides["greedy"] = True
     model.sampling_config = base.replace(**overrides) if overrides else base
-    from vox_serve_tpu.utils import get_logger
+    from ..utils import get_logger
 
     get_logger("models").info("loaded model %s on %s with sampling %s",
                               model_name, device, model.sampling_config)

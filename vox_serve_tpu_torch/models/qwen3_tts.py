@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vox_serve_tpu.utils import get_logger
+from ..utils import get_logger
 
 from ..codecs.qwen3_codec import (Qwen3CodecConfig, init_qwen3_codec,
                                   qwen3_codec_decode_chunk,

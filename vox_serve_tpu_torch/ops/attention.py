@@ -35,6 +35,8 @@ class AttnMetadata:
       block_tables: (B, max_pages) int32 — page ids per request, pad = 0
       seq_lens:     (B,) int32 — tokens in KV *including* this step's token
       kv_page_ids / kv_page_offsets: (B,) int32 — where this step's K/V goes
+      decode_scratch: the worker's ``kernels.DecodeScratch`` for split
+        decode launches on the card (None: one per launch)
 
     Prefill (ragged, T tokens total):
       segment_ids:  (T,) int32 — request index per token; padding = -1
@@ -48,6 +50,7 @@ class AttnMetadata:
     # decode
     block_tables: Optional[torch.Tensor] = None
     seq_lens: Optional[torch.Tensor] = None
+    decode_scratch: Optional[kernels.DecodeScratch] = None
     # prefill
     segment_ids: Optional[torch.Tensor] = None
     q_positions: Optional[torch.Tensor] = None
@@ -149,6 +152,7 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if v_pages is None:
         return kernels.paged_decode_attention(
             q, k_pages, layer, meta.block_tables, meta.seq_lens, scale,
-            kv_scales)
+            kv_scales, meta.decode_scratch)
     return kernels.paged_decode_attention_pair(
-        q, k_pages, v_pages, layer, meta.block_tables, meta.seq_lens, scale)
+        q, k_pages, v_pages, layer, meta.block_tables, meta.seq_lens, scale,
+        meta.decode_scratch)

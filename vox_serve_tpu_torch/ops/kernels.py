@@ -29,7 +29,12 @@ imported: the CPU tests import every module.
 Dispatch is by device: a CPU tensor goes to the plain version (that is the
 only reason the plain path runs), a CUDA tensor launches the kernel or the
 call raises. There is no fallback from the kernel to the plain version.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``. The
+launch geometry is planned on the host from shapes alone
+(``plan_decode_splits``, ``plan_prefill_tiles``), so no launch waits on
+the device. A split decode launch keeps its partial states in the
+caller's ``DecodeScratch`` (the worker sizes one at start-up), or in one
+of its own.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..utils import cdiv
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -127,15 +134,15 @@ def build(verbose: bool = False) -> Path:
             lib = ctypes.CDLL(str(path))
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.vox_paged_decode_attention.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci,
-                cf, cf, vp]
+                vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                cf, ci, cf, cf, ci, vp]
             lib.vox_paged_decode_attention.restype = ci
             lib.vox_paged_decode_attention_pair.argtypes = [
-                vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf,
-                vp]
+                vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                ci, cf, ci, vp]
             lib.vox_paged_decode_attention_pair.restype = ci
             lib.vox_ragged_prefill_attention.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
             lib.vox_ragged_prefill_attention.restype = ci
             lib.vox_resunit.argtypes = [vp] * 14 + [ci] * 6 + [vp]
             lib.vox_resunit.restype = ci
@@ -178,12 +185,145 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 # ---------------------------------------------------------------------------
 # K1, K1q and K4: paged decode attention
 # ---------------------------------------------------------------------------
 
 #: pool element type -> the kernel's pool_type code (K1 bf16, K1q the rest)
 _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+#: the decode kernel's unit of work (tokens) and warps per CTA
+DECODE_TILE = 16
+DECODE_WARPS = 4
+#: query heads one decode CTA holds (G = 8 takes two head groups)
+DECODE_MAX_HEADS = 4
+
+
+def decode_head_groups(H: int, KH: int) -> int:
+    """CTAs per KV head in the decode grid: G / min(G, 4)."""
+    G = H // KH
+    return G // min(G, DECODE_MAX_HEADS)
+
+
+def plan_decode_splits(B: int, KH: int, max_pages: int, n_sm: int = 132,
+                       page: int = 16, head_groups: int = 1) -> int:
+    """How many CTAs split each sequence's tokens in the decode kernel.
+
+    The grid is (B, KH * head_groups, splits). One split where that grid
+    already fills the SMs; otherwise enough splits to fill them, but no
+    more than gives each split one 16-token tile per warp of the table's
+    width (``max_pages`` pages), since a CTA's four warps take its tiles
+    in parallel. Pure host arithmetic: the sequence lengths stay on the
+    device."""
+    ctas = B * KH * head_groups
+    if ctas >= n_sm:
+        return 1
+    tiles = cdiv(max_pages * page, DECODE_TILE)
+    return max(1, min(cdiv(n_sm, ctas), cdiv(tiles, DECODE_WARPS)))
+
+
+def decode_split_ranges(n_tok: int, splits: int) -> list[tuple[int, int]]:
+    """The token range [start, end) each split of one sequence covers, as
+    the kernel cuts it: whole 16-token tiles, contiguous, in order."""
+    n_tiles = cdiv(n_tok, DECODE_TILE)
+    per = cdiv(n_tiles, splits)
+    out = []
+    for s in range(splits):
+        j0, j1 = s * per, min(n_tiles, (s + 1) * per)
+        out.append((min(j0 * DECODE_TILE, n_tok),
+                    min(max(j0, j1) * DECODE_TILE, n_tok)))
+    return out
+
+
+def _split_need(B: int, H: int, KH: int, D: int, max_pages: int, n_sm: int,
+                 page: int) -> tuple[int, int, int]:
+    """(splits, partial-state floats, counters) of one decode launch: the
+    (max, sum, acc) state of each query head of each CTA, and one arrival
+    counter per (sequence, head group). No scratch at one split."""
+    groups = decode_head_groups(H, KH)
+    splits = plan_decode_splits(B, KH, max_pages, n_sm, page, groups)
+    if splits == 1:
+        return 1, 0, 0
+    ctas = B * KH * groups
+    return splits, ctas * splits * (H // KH // groups) * (D + 2), ctas
+
+
+def decode_scratch_size(max_batch: int, H: int, KH: int, D: int,
+                        max_pages: int, n_sm: int = 132, page: int = 16
+                        ) -> tuple[int, int]:
+    """(floats, counters) that cover every decode launch of at most
+    ``max_batch`` rows over a block table at most ``max_pages`` wide (the
+    split count grows with the table's width, so the widest is the
+    largest)."""
+    floats = counters = 0
+    for B in range(1, max_batch + 1):
+        _, f, c = _split_need(B, H, KH, D, max_pages, n_sm, page)
+        floats, counters = max(floats, f), max(counters, c)
+    return floats, counters
+
+
+class DecodeScratch:
+    """The workspace of split decode launches: partial softmax states and
+    arrival counters, which the kernel leaves at zero. Sized once, for the
+    largest launch its owner makes (a worker: its max batch and its block
+    table limit), and never replaced, so a CUDA graph that captured a
+    launch keeps valid pointers while the scratch lives. The launches that
+    share one must run in order on one stream, as a worker's do."""
+
+    def __init__(self, device: torch.device, max_batch: int, H: int, KH: int,
+                 D: int, max_pages: int, page: int = 16):
+        device = torch.device(device)
+        n_sm = _sm_count(device) if device.type == "cuda" else 132
+        floats, counters = decode_scratch_size(max_batch, H, KH, D,
+                                               max_pages, n_sm, page)
+        self.part = torch.empty(max(floats, 1), dtype=torch.float32,
+                                device=device)
+        self.counters = torch.zeros(max(counters, 1), dtype=torch.int32,
+                                    device=device)
+
+
+def _decode_split(q: torch.Tensor, KH: int, page: int, max_pages: int,
+                  scratch: Optional[DecodeScratch]
+                  ) -> tuple[int, Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
+    """(splits, partial states, counters) of one decode launch. Without a
+    ``scratch`` a split launch gets its own, zeroed on its stream (one
+    allocation and one fill per call, inside a captured graph too); a
+    ``scratch`` too small for the launch raises."""
+    B, H, D = q.shape
+    splits, floats, counters = _split_need(B, H, KH, D, max_pages,
+                                           _sm_count(q.device), page)
+    if splits == 1:
+        return 1, None, None
+    if scratch is None:
+        return (splits, torch.empty(floats, dtype=torch.float32,
+                                    device=q.device),
+                torch.zeros(counters, dtype=torch.int32, device=q.device))
+    part, cnt = scratch.part, scratch.counters
+    if part.device != q.device:
+        raise ValueError(f"decode scratch is on {part.device}, q on "
+                         f"{q.device}")
+    if part.numel() < floats or cnt.numel() < counters:
+        raise ValueError(f"decode scratch ({part.numel()} floats, "
+                         f"{cnt.numel()} counters) too small for B={B} over "
+                         f"{max_pages} pages ({floats}, {counters})")
+    return splits, part, cnt
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _decode_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -249,7 +389,7 @@ def _check_decode(q, block_tables, seq_lens, H, KH, D, layer, L) -> None:
 
 
 def _launch_combined(q, pool, layer, block_tables, seq_lens, scale,
-                     kv_scales) -> torch.Tensor:
+                     kv_scales, scratch) -> torch.Tensor:
     if pool.dtype not in _POOL_TYPES:
         raise ValueError(f"pool dtype {pool.dtype} unsupported (bf16, int8 "
                          "or float8_e4m3fn)")
@@ -261,14 +401,20 @@ def _launch_combined(q, pool, layer, block_tables, seq_lens, scale,
         raise ValueError(f"pool {tuple(pool.shape)} does not match q "
                          f"{tuple(q.shape)}")
     _check_decode(q, block_tables, seq_lens, H, KH, D, layer, L)
+    if pool.element_size() == 1 and D % 16:
+        raise ValueError(f"head dim {D} unsupported for a 1-byte pool "
+                         "(multiple of 16)")
     ks, vs = kv_scales if kv_scales is not None else (1.0, 1.0)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    maxp = block_tables.shape[1]
+    splits, part, cnt = _decode_split(q, KH, page, maxp, scratch)
     err = library().vox_paged_decode_attention(
         q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, H, KH, D, P, page,
-        block_tables.shape[1], int(layer), float(scale),
-        _POOL_TYPES[pool.dtype], float(ks), float(vs),
+        seq_lens.data_ptr(), out.data_ptr(), _ptr(part), _ptr(cnt), B, H, KH,
+        D, P, page,
+        maxp, int(layer), float(scale), _POOL_TYPES[pool.dtype], float(ks),
+        float(vs), splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_decode_attention")
     return out
@@ -277,17 +423,20 @@ def _launch_combined(q, pool, layer, block_tables, seq_lens, scale,
 def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
                            block_tables: torch.Tensor, seq_lens: torch.Tensor,
                            scale: Optional[float] = None,
-                           kv_scales: Optional[tuple[float, float]] = None
+                           kv_scales: Optional[tuple[float, float]] = None,
+                           scratch: Optional[DecodeScratch] = None
                            ) -> torch.Tensor:
     """K1 wrapper over the combined pool. CPU tensors: the plain version.
     CUDA tensors: the kernel (bf16 q, int32 tables and lengths), or raise.
     A quantized pool (int8, float8_e4m3fn) goes to K1q, which needs
-    ``kv_scales``; a bf16 pool takes none."""
+    ``kv_scales``; a bf16 pool takes none. ``scratch``: the caller's
+    ``DecodeScratch`` for split launches (else one per call)."""
     if pool.dtype in (torch.int8, torch.float8_e4m3fn):
         if kv_scales is None:
             raise ValueError(f"a {pool.dtype} pool needs kv_scales")
         return paged_decode_attention_quant(q, pool, layer, block_tables,
-                                            seq_lens, kv_scales, scale)
+                                            seq_lens, kv_scales, scale,
+                                            scratch)
     if kv_scales is not None:
         raise ValueError(f"kv_scales given for a {pool.dtype} pool")
     if q.device.type == "cpu":
@@ -296,7 +445,7 @@ def paged_decode_attention(q: torch.Tensor, pool: torch.Tensor, layer: int,
     if q.device.type != "cuda":
         raise ValueError(f"no K1 kernel for device {q.device}")
     out = _launch_combined(q, pool, layer, block_tables, seq_lens, scale,
-                           None)
+                           None, scratch)
     paged_decode_attention.launches += 1
     return out
 
@@ -308,7 +457,8 @@ def paged_decode_attention_quant(q: torch.Tensor, pool: torch.Tensor,
                                  layer: int, block_tables: torch.Tensor,
                                  seq_lens: torch.Tensor,
                                  kv_scales: tuple[float, float],
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None,
+                                 scratch: Optional[DecodeScratch] = None
                                  ) -> torch.Tensor:
     """K1q wrapper: K1 over an int8 or float8_e4m3fn combined pool,
     dequantized in the kernel by the static (k_scale, v_scale). CPU
@@ -322,7 +472,7 @@ def paged_decode_attention_quant(q: torch.Tensor, pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no K1q kernel for device {q.device}")
     out = _launch_combined(q, pool, layer, block_tables, seq_lens, scale,
-                           kv_scales)
+                           kv_scales, scratch)
     paged_decode_attention_quant.launches += 1
     return out
 
@@ -355,7 +505,8 @@ def paged_decode_attention_pair(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, layer: int,
                                 block_tables: torch.Tensor,
                                 seq_lens: torch.Tensor,
-                                scale: Optional[float] = None
+                                scale: Optional[float] = None,
+                                scratch: Optional[DecodeScratch] = None
                                 ) -> torch.Tensor:
     """K4 wrapper over the head-major pair. CPU tensors: the plain version.
     CUDA tensors: the kernel (bf16 q and pools, int32 tables and lengths),
@@ -377,10 +528,13 @@ def paged_decode_attention_pair(q: torch.Tensor, k_pages: torch.Tensor,
     _check_decode(q, block_tables, seq_lens, H, KH, D, layer, L)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    maxp = block_tables.shape[1]
+    splits, part, cnt = _decode_split(q, KH, page, maxp, scratch)
     err = library().vox_paged_decode_attention_pair(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H,
-        KH, D, P, page, block_tables.shape[1], int(layer), float(scale),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        _ptr(part), _ptr(cnt), B, H, KH, D, P, page, maxp, int(layer),
+        float(scale), splits,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "paged_decode_attention_pair")
     paged_decode_attention_pair.launches += 1
@@ -393,6 +547,23 @@ paged_decode_attention_pair.launches = 0
 # ---------------------------------------------------------------------------
 # K3: ragged causal prefill attention
 # ---------------------------------------------------------------------------
+
+
+def plan_prefill_tiles(T: int, H: int, KH: int, n_sm: int = 132
+                       ) -> tuple[int, int, int]:
+    """K3's query tile: (warps, tokens per tile, tiles). A tile holds
+    16 * warps rows, the G = H / KH heads of a KV group over 16 * warps / G
+    tokens; the grid is (tiles, KH). Four warps where that grid fills the
+    SMs, else two (more, smaller CTAs for short prompts)."""
+    G = H // KH
+    if G < 1 or 32 % G:
+        raise ValueError(f"GQA group {G} unsupported (divisor of 32)")
+    for warps in (4, 2):
+        bq = 16 * warps // G
+        tiles = cdiv(T, bq)
+        if tiles * KH >= n_sm:
+            break
+    return warps, bq, tiles
 
 
 def ragged_prefill_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -424,7 +595,8 @@ def ragged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, segment_ids: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """K3 wrapper. CPU tensors: the plain version. CUDA tensors: the kernel
-    (bf16 q/k/v, int32 segment ids), or raise."""
+    (bf16 q/k/v, int32 segment ids; each segment a contiguous span of the
+    buffer, as the worker packs prompts), or raise."""
     if q.device.type == "cpu":
         return ragged_prefill_attention_plain(q, k, v, segment_ids, scale)
     if q.device.type != "cuda":
@@ -444,10 +616,11 @@ def ragged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     _check_heads(H, KH, D, 32)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    warps = plan_prefill_tiles(T, H, KH, _sm_count(dev))[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().vox_ragged_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-        out.data_ptr(), T, H, KH, D, float(scale), stream)
+        out.data_ptr(), T, H, KH, D, float(scale), warps, stream)
     _raise_on(err, "ragged_prefill_attention")
     ragged_prefill_attention.launches += 1
     return out

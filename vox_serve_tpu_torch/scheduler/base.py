@@ -35,7 +35,7 @@ import os
 import time
 from typing import Any, Optional
 
-from vox_serve_tpu.utils import RankLogger, get_logger
+from ..utils import RankLogger, get_logger
 
 from ..requests import Request
 

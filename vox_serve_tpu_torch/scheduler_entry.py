@@ -23,7 +23,7 @@ import os
 import signal
 import sys
 
-from vox_serve_tpu.utils import get_logger, set_global_log_level
+from .utils import get_logger, set_global_log_level
 
 
 def _run_scheduler_daemon(args) -> None:

@@ -36,10 +36,11 @@ import time
 import numpy as np
 import torch
 
-from vox_serve_tpu.utils import cdiv, get_logger
+from ..utils import cdiv, get_logger
 
 from ..models.base import BaseLM
 from ..ops.attention import AttnMetadata
+from ..ops.kernels import DecodeScratch
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
                             alloc_kv_pages, combined_kv_supported)
 from ..params import tree_leaves, tree_map
@@ -133,6 +134,13 @@ class ModelWorker:
         # block-table limit per sequence: longest prompt + generation budget
         self.max_pages_per_seq = cdiv(
             cfg.max_prefill_tokens + model.max_tokens + 8, cfg.page_size) + 1
+        # the decode kernel's split workspace, sized once for the largest
+        # decode launch (max batch over the block-table limit)
+        self.decode_scratch = None
+        if dev.type == "cuda":
+            self.decode_scratch = DecodeScratch(
+                dev, cfg.max_batch_size, bb.num_heads, bb.num_kv_heads,
+                head_dim, self.max_pages_per_seq, cfg.page_size)
 
         self._free_slots = list(range(cfg.max_batch_size - 1, -1, -1))
         self.rep_cache = None
@@ -443,7 +451,8 @@ class ModelWorker:
         meta = AttnMetadata(False, self._tensor(page_ids),
                             self._tensor(offsets),
                             block_tables=self._tensor(block_tables),
-                            seq_lens=self._tensor(seq_lens))
+                            seq_lens=self._tensor(seq_lens),
+                            decode_scratch=self.decode_scratch)
         slots = self._tensor(slot_ids)
         keep = slots < cfg.max_batch_size
         token_ids = self._slot_rows(self.last_tokens, slots)
