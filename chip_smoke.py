@@ -34,14 +34,23 @@ exits non-zero without printing a result:
 5. end to end over HTTP: ``python -m vox_serve_tpu_torch.launch --model
    qwen3-tts --device cuda`` serves Qwen3-TTS-12Hz-1.7B-CustomVoice at full
    width (28x2048 talker, 5x1024 depth, default codec; random weights from a
-   seed) under four configurations in turn: A (default: K1, K3), B
+   seed) under five configurations in turn: A (default: K1, K3), B
    (``--kv-quant int8`` with ``VOX_FUSED_RESUNIT=1``: K1q, K3, K2), C
-   (``--kv-quant f8_e4m3``: K1q, K3) and D (``VOX_KV_COMBINED=0``: K4, K3).
-   Each serves 4 concurrent streaming /generate requests that must return
-   non-empty PCM16. The scheduler daemon zeroes its kernel launch counters
-   before its loop starts and writes them, with the configuration it
-   served, when terminated: each run must show its KV layout, pool dtype
-   and codec path, launch its kernels and launch none of the others.
+   (``--kv-quant f8_e4m3``: K1q, K3), D (``VOX_KV_COMBINED=0``: K4, K3) and
+   E (A with ``--fused-decode-steps 4 --fused-decode-buckets 1,4
+   --pipeline-depth 2``: fused k-step decode graphs, pipelined readback
+   and ``poll_resolved``). Every decode step of every run is a replay of a
+   CUDA graph captured at the daemon's start-up. Each run serves 4
+   concurrent streaming /generate requests that must return non-empty
+   PCM16. The scheduler daemon zeroes its counters before its loop starts
+   and writes them, with the configuration it served, when terminated:
+   each run must show its KV layout, pool dtype, codec path and decode
+   settings, launch its kernels and none of the others, replay graphs and
+   run no decode step eagerly, launch its decode kernel 28 times per
+   decode step taken (a fused replay takes k steps), and E must replay
+   fused graphs and hold two steps in flight. Each run prints its decode
+   step's wall time, each graph's device ms per replay from the start-up
+   probe, the capture time, TTFA and aggregate frames/s.
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -561,19 +570,27 @@ K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
 #: kernel must not launch in that run.
+SINGLE = {"fused_decode_steps": 0, "pipeline_depth": 0}
 CONFIGS = {
     "A": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
-                   "fused_resunit": False}, {K1, K3}),
+                   "fused_resunit": False, **SINGLE}, {K1, K3}),
     "B": (["--kv-quant", "int8"], {"VOX_FUSED_RESUNIT": "1"},
           {"kv_layout": "combined", "kv_pool_dtype": "int8",
-           "fused_resunit": True}, {K1Q, K3, K2}),
+           "fused_resunit": True, **SINGLE}, {K1Q, K3, K2}),
     "C": (["--kv-quant", "f8_e4m3"], {},
           {"kv_layout": "combined", "kv_pool_dtype": "float8_e4m3fn",
-           "fused_resunit": False}, {K1Q, K3}),
+           "fused_resunit": False, **SINGLE}, {K1Q, K3}),
     "D": ([], {"VOX_KV_COMBINED": "0"},
           {"kv_layout": "pair", "kv_pool_dtype": "bfloat16",
-           "fused_resunit": False}, {K4, K3}),
+           "fused_resunit": False, **SINGLE}, {K4, K3}),
+    "E": (["--fused-decode-steps", "4", "--fused-decode-buckets", "1,4",
+           "--pipeline-depth", "2"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False, "fused_decode_steps": 4,
+           "pipeline_depth": 2}, {K1, K3}),
 }
+#: talker layers: each decode step launches the decode kernel once per layer
+TALKER_LAYERS = 28
 
 
 def free_port() -> int:
@@ -723,16 +740,34 @@ def end_to_end(card: str, config: str) -> dict:
     stats = json.loads(stats_path.read_text())
     ttfa = sorted(r["ttfa_s"] for r in results)
     ph = stats["phase_stats"]
-    dec_t, dec_n = ph.get("decode", (0.0, 0))
+    steps = stats["steps"]
+    n_steps = steps["decode_steps"]
+
+    def per_call(kind):
+        t = sum(ph.get(f"{kind}.{p}", (0.0, 0))[0]
+                for p in ("plan", "dispatch", "resolve"))
+        return t, ph.get(f"{kind}.dispatch", (0.0, 0))[1]
+
+    t1, n1 = per_call("decode")
+    tk, nk = per_call("decode_multi")
     det_t, det_n = ph.get("detokenize", (0.0, 0))
     log(f"[{config}] e2e on {card}: 4 streams, {frames:.1f} frames in "
         f"{wall:.2f} s = {frames / wall:.1f} frames/s aggregate; TTFA "
         f"min/median/max {ttfa[0] * 1e3:.1f}/"
-        f"{(ttfa[1] + ttfa[2]) / 2 * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms; mean "
-        f"decode step {dec_t / max(dec_n, 1) * 1e3:.2f} ms over {dec_n} "
-        f"steps; mean detokenize {det_t / max(det_n, 1) * 1e3:.2f} ms over "
-        f"{det_n} calls; params LM {stats['param_count']['lm'] / 1e9:.3f} B"
-        f" + codec {stats['param_count']['codec'] / 1e6:.1f} M")
+        f"{(ttfa[1] + ttfa[2]) / 2 * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms; "
+        f"decode step wall (plan + dispatch + resolve) "
+        f"{(t1 + tk) / max(n_steps, 1) * 1e3:.2f} ms over {n_steps} steps "
+        f"(single {t1 / max(n1, 1) * 1e3:.2f} ms x {n1} calls, fused "
+        f"{tk / max(nk, 1) * 1e3:.2f} ms x {nk} calls); mean detokenize "
+        f"{det_t / max(det_n, 1) * 1e3:.2f} ms over {det_n} calls; params "
+        f"LM {stats['param_count']['lm'] / 1e9:.3f} B + codec "
+        f"{stats['param_count']['codec'] / 1e6:.1f} M")
+    log(f"[{config}] graphs: {len(steps['graphs'])} captured in "
+        f"{steps['capture_s']:.2f} s; replays {steps['replays']}; eager "
+        f"decode steps {steps['eager_decode_steps']}; deepest pipeline "
+        f"{steps['max_pending']}, polled {steps['polled']}; device ms per "
+        f"replay (start-up probe): "
+        + ", ".join(f"{k}={v:.3f}" for k, v in steps["probe_ms"].items()))
     launches = stats["launches"]
     log(f"[{config}] served {({k: stats[k] for k in served})}; kernel "
         f"launches {launches}; resunit stacks {stats['resunit_stacks']}")
@@ -747,6 +782,24 @@ def end_to_end(card: str, config: str) -> dict:
         if name not in must_run and n != 0:
             raise AssertionError(f"[{config}] kernel {name} launched {n} "
                                  "times; this configuration must not run it")
+    # every decode step was a graph replay, and each replay counted the
+    # decode kernel once per talker layer and step
+    if sum(steps["replays"].values()) <= 0:
+        raise AssertionError(f"[{config}] no decode graph was replayed")
+    if steps["eager_decode_steps"] != 0:
+        raise AssertionError(f"[{config}] {steps['eager_decode_steps']} "
+                             "decode steps ran eagerly on the card")
+    (decode_kernel,) = must_run & {K1, K1Q, K4}
+    if launches[decode_kernel] != TALKER_LAYERS * n_steps:
+        raise AssertionError(
+            f"[{config}] {decode_kernel} launched {launches[decode_kernel]}"
+            f" times, expected {TALKER_LAYERS} x {n_steps} decode steps")
+    if served["fused_decode_steps"]:
+        if not steps["replays"].get("decode_multi"):
+            raise AssertionError(f"[{config}] no fused decode graph ran")
+        if steps["max_pending"] < served["pipeline_depth"]:
+            raise AssertionError(f"[{config}] the readback pipeline never "
+                                 f"held {served['pipeline_depth']} steps")
     return launches
 
 

@@ -20,6 +20,7 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.launch",
     "vox_serve_tpu_torch.scheduler_entry",
     "vox_serve_tpu_torch.worker.base",
+    "vox_serve_tpu_torch.worker.graphs",
     "vox_serve_tpu_torch.models.qwen3_tts",
     "vox_serve_tpu_torch.models.dummy",
     "vox_serve_tpu_torch.server.api",

@@ -8,6 +8,8 @@ one per data-parallel rank. The JAX launcher's serving profiles
     python -m vox_serve_tpu_torch.launch --model qwen3-tts --device cuda
     python -m vox_serve_tpu_torch.launch --model qwen3-tts --kv-quant int8
     python -m vox_serve_tpu_torch.launch --model dummy --device cpu
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts \
+        --fused-decode-steps 4 --fused-decode-buckets 1,4 --pipeline-depth 2
 
 The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
 serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
@@ -51,6 +53,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 KV: expected |K| absmax (scale = amax/127)")
     p.add_argument("--kv-v-amax", type=float, default=None,
                    help="int8 KV: expected |V| absmax (scale = amax/127)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="capture each decode graph at its first use, not "
+                        "at start-up")
+    p.add_argument("--pipeline-depth", type=int, default=None,
+                   help="in-flight decode steps with deferred readback")
+    p.add_argument("--fused-decode-steps", type=int, default=None,
+                   help="run N decode steps per graph replay (0 disables)")
+    p.add_argument("--fused-decode-buckets", default=None,
+                   help="comma list of batch buckets served by the fused "
+                        "k-step decode graphs (include max-batch-size to "
+                        "fuse the full decode batch)")
+    p.add_argument("--fused-k-schedule", default=None,
+                   help="comma list: fused step count per fused-decode "
+                        "bucket (values <= fused-decode-steps)")
+    p.add_argument("--fused-min-batch", type=int, default=None,
+                   help="latency/throughput regime boundary: decode batches "
+                        "below N run single-step rounds, at/above N fused "
+                        "rounds (0: always fuse when eligible)")
+    p.add_argument("--decode-buckets", default=None,
+                   help="comma list overriding the decode-batch lattice")
+    p.add_argument("--table-width-buckets", default=None,
+                   help="comma list of block-table width buckets (pages); "
+                        "each step runs at the smallest bucket covering "
+                        "the batch")
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--min-p", type=float, default=None)
@@ -94,6 +120,14 @@ def main(argv=None) -> None:
         "kv_quant": args.kv_quant,
         "kv_k_amax": args.kv_k_amax,
         "kv_v_amax": args.kv_v_amax,
+        "no_warmup": args.no_warmup,
+        "pipeline_depth": args.pipeline_depth,
+        "fused_decode_steps": args.fused_decode_steps,
+        "fused_decode_buckets": args.fused_decode_buckets,
+        "fused_k_schedule": args.fused_k_schedule,
+        "fused_min_batch": args.fused_min_batch,
+        "decode_buckets": args.decode_buckets,
+        "table_width_buckets": args.table_width_buckets,
         "top_p": args.top_p, "top_k": args.top_k, "min_p": args.min_p,
         "temperature": args.temperature, "max_tokens": args.max_tokens,
         "repetition_penalty": args.repetition_penalty,

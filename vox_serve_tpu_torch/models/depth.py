@@ -1,8 +1,9 @@
 """Depth ("code predictor") transformer over codebooks (port of
 vox_serve_tpu/models/depth.py).
 
-Runs eagerly: the depth "prefill" over [backbone hidden; embed(cb0)] and
-then one small decode per codebook. Its KV is a dense
+The depth "prefill" over [backbone hidden; embed(cb0)] and then one small
+decode per codebook, with static shapes and no host reads, so that the
+worker can capture it in its decode graphs. Its KV is a dense
 ``(L, B, max_seq, KH, D)`` tensor pair (max_seq = n_codebooks + 1 makes
 paging pointless), updated in place; no kernel of its own. The fused
 q|k|v and gate|up projections are concatenated once

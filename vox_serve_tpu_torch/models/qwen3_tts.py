@@ -4,8 +4,10 @@ vox_serve_tpu/models/qwen3_tts.py).
 Talker transformer over dual-channel tokens (16 audio codebooks + 1 text
 channel) + a 5-layer depth "code predictor". Per decode step the talker
 samples codebook 0, then the depth loop samples codebooks 1..15 one after
-another (15 sequential small forwards, run eagerly), and the sum of their
-embeddings feeds back into the next step's input features.
+another (15 sequential small forwards; on the card inside the worker's
+captured decode graphs, so nothing here reads the device or shapes by
+data), and the sum of their embeddings feeds back into the next step's
+input features.
 
 Ported: prompt construction for custom_voice (role tokens, codec think
 prefix with language id, speaker token, text over codec_pad, tts_eos,
@@ -313,6 +315,7 @@ class Qwen3TTSLM(BaseLMWithDepth):
         x0p = linear(d["proj"], x0.reshape(B * 2, H)).reshape(B, 2, -1)
         kc, vc = init_depth_kv(dcfg, B, hidden.device)
         # fused q|k|v and gate|up weights, concatenated once per params
+        # (the worker's warm-up call fills this before any graph capture)
         if self._depth_src is not d["backbone"]:
             self._depth_layers = prepare_depth_layers(d["backbone"])
             self._depth_src = d["backbone"]

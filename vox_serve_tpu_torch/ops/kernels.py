@@ -29,7 +29,9 @@ imported: the CPU tests import every module.
 Dispatch is by device: a CPU tensor goes to the plain version (that is the
 only reason the plain path runs), a CUDA tensor launches the kernel or the
 call raises. There is no fallback from the kernel to the plain version.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``. The
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a
+captured CUDA graph adds the launches its capture made on each replay
+(``worker/graphs.py``), and its capture counts none. The
 launch geometry is planned on the host from shapes alone
 (``plan_decode_splits``, ``plan_prefill_tiles``), so no launch waits on
 the device. A split decode launch keeps its partial states in the
@@ -643,6 +645,13 @@ def wrappers() -> dict:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Put the launch counters back to ``counts`` (``launch_counts()``
+    output): a graph capture runs the wrappers without launching."""
+    for name, fn in wrappers().items():
+        fn.launches = counts[name]
 
 
 def reset_launch_counts() -> None:

@@ -9,7 +9,10 @@ global plane that accumulates all generated tokens.
 
 Random draws are Gumbel-max with noise from a ``torch.Generator`` (seeded by
 the worker from ``WorkerConfig.seed``). They cannot match JAX's bits; masks
-and greedy paths match exactly.
+and greedy paths match exactly. Everything here is safe to capture in a
+CUDA graph (no host reads, no shapes that depend on data); a graph that
+samples registers the generator (``CUDAGraph.register_generator_state``,
+``worker/graphs.py``), so that each replay draws new noise.
 """
 
 from __future__ import annotations
@@ -90,7 +93,9 @@ def update_repetition_cache(cache: torch.Tensor, output_ids: torch.Tensor,
     If C_ids == 1 but C > 1, only the codebook-0 plane is touched."""
     B, W, C, V = cache.shape
     c_ids = output_ids.shape[1]
-    onehot = torch.nn.functional.one_hot(output_ids.long(), V).bool()
+    # a compare, not one_hot: no range check that could read the device
+    onehot = output_ids.long()[..., None] == torch.arange(
+        V, device=output_ids.device)
     if c_ids == 1 and C != 1:
         plane = torch.cat(
             [onehot, torch.zeros((B, C - 1, V), dtype=torch.bool,

@@ -7,12 +7,22 @@ it is unavailable fails at start-up), the port's synchronous worker and a
 scheduler, and runs the scheduler loop. On the card the CUDA kernels are
 built before the daemon reports ready, so no request pays for ``nvcc``.
 
-``--stats-file PATH``: the daemon zeroes the kernel launch counters just
-before its loop starts and, when it is terminated, writes the counts, the
-worker's per-phase wall times and the configuration it served (KV layout
-and pool dtype, whether the codec ran the fused residual-unit stacks)
-there as JSON: how a caller that drives the daemon over HTTP learns which
-kernels the served requests ran, and that no option fell back silently.
+The decode flags are the JAX daemon's: ``--no-warmup`` (capture each decode
+graph at its first use instead of at start-up), ``--pipeline-depth``,
+``--fused-decode-steps``, ``--fused-decode-buckets``, ``--fused-k-schedule``,
+``--fused-min-batch``, ``--decode-buckets`` and ``--table-width-buckets``.
+
+``--stats-file PATH``: the daemon zeroes the kernel launch counters and the
+worker's step counters just before its loop starts and, when it is
+terminated, writes the counts, the worker's per-phase wall times, its
+decode-step counters (graphs captured, replays per kind, decode steps
+taken, eager decode steps on the card, capture seconds, each graph's
+device ms per replay from the start-up probe, the deepest readback
+pipeline seen) and the configuration it served (KV layout and pool dtype,
+whether the codec ran the fused residual-unit stacks, the fused-decode and
+pipeline settings) there as JSON: how a caller that drives the daemon over
+HTTP learns which kernels the served requests ran, and that no option fell
+back silently.
 """
 
 from __future__ import annotations
@@ -56,6 +66,15 @@ def _run_scheduler_daemon(args) -> None:
         max_prefill_tokens=args.max_prefill_tokens,
         max_prefill_requests=args.max_prefill_requests,
         seed=args.seed,
+        warmup=not args.no_warmup,
+        pipeline_depth=args.pipeline_depth,
+        fused_decode_steps=args.fused_decode_steps,
+        fused_decode_buckets=(
+            _parse_buckets(args.fused_decode_buckets) or (1,)),
+        fused_k_schedule=_parse_buckets(args.fused_k_schedule) or None,
+        fused_min_batch=args.fused_min_batch or None,
+        decode_buckets_override=_parse_buckets(args.decode_buckets),
+        table_width_buckets=_parse_buckets(args.table_width_buckets),
         **({"kv_quant": args.kv_quant}
            if args.kv_quant is not None else {}),
         **({"kv_k_amax": args.kv_k_amax}
@@ -86,19 +105,30 @@ def _run_scheduler_daemon(args) -> None:
             "kv_pool_dtype": str(worker.k_pages.dtype).removeprefix("torch."),
             "kv_scales": worker.kv_config.kv_scales,
             "fused_resunit": use_fused_resunit(),
+            "fused_decode_steps": wcfg.fused_decode_steps,
+            "fused_decode_buckets": list(wcfg.fused_decode_buckets),
+            "pipeline_depth": wcfg.pipeline_depth,
         }
         kernels.reset_launch_counts()
+        worker.reset_step_stats()
 
         def _dump(signum, frame):
             with open(args.stats_file, "w") as f:
                 json.dump({"launches": kernels.launch_counts(),
                            "resunit_stacks": fused_resunit_stack.stacks,
                            "phase_stats": worker.phase_stats,
+                           "steps": worker.step_stats(),
                            "param_count": param_count, **served}, f)
             os._exit(0)
 
         signal.signal(signal.SIGTERM, _dump)
     scheduler.run_forever()
+
+
+def _parse_buckets(spec):
+    if not spec:
+        return None
+    return tuple(int(x) for x in str(spec).split(",") if x)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,6 +151,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-k-amax", type=float, default=None)
     p.add_argument("--kv-v-amax", type=float, default=None)
     p.add_argument("--socket-suffix", default="")
+    p.add_argument("--no-warmup", action="store_true")
+    p.add_argument("--pipeline-depth", type=int, default=0)
+    p.add_argument("--fused-decode-steps", type=int, default=0)
+    p.add_argument("--fused-k-schedule", default="")
+    p.add_argument("--fused-min-batch", type=int, default=0)
+    p.add_argument("--fused-decode-buckets", default=None,
+                   help="comma list of batch buckets served by the fused "
+                        "k-step decode graphs (include max-batch-size "
+                        "to fuse the full decode batch)")
+    p.add_argument("--decode-buckets", default=None,
+                   help="comma list overriding the decode-batch lattice")
+    p.add_argument("--table-width-buckets", default=None,
+                   help="comma list of block-table width buckets (pages)")
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--min-p", type=float, default=None)
