@@ -34,23 +34,35 @@ exits non-zero without printing a result:
 5. end to end over HTTP: ``python -m vox_serve_tpu_torch.launch --model
    qwen3-tts --device cuda`` serves Qwen3-TTS-12Hz-1.7B-CustomVoice at full
    width (28x2048 talker, 5x1024 depth, default codec; random weights from a
-   seed) under five configurations in turn: A (default: K1, K3), B
+   seed) under six configurations in turn: A (default: K1, K3), B
    (``--kv-quant int8`` with ``VOX_FUSED_RESUNIT=1``: K1q, K3, K2), C
-   (``--kv-quant f8_e4m3``: K1q, K3), D (``VOX_KV_COMBINED=0``: K4, K3) and
-   E (A with ``--fused-decode-steps 4 --fused-decode-buckets 1,4
+   (``--kv-quant f8_e4m3``: K1q, K3), D (``VOX_KV_COMBINED=0``: K4, K3), E
+   (A with ``--fused-decode-steps 4 --fused-decode-buckets 1,4
    --pipeline-depth 2``: fused k-step decode graphs, pipelined readback
-   and ``poll_resolved``). Every decode step of every run is a replay of a
-   CUDA graph captured at the daemon's start-up. Each run serves 4
-   concurrent streaming /generate requests that must return non-empty
-   PCM16. The scheduler daemon zeroes its counters before its loop starts
-   and writes them, with the configuration it served, when terminated:
-   each run must show its KV layout, pool dtype, codec path and decode
-   settings, launch its kernels and none of the others, replay graphs and
-   run no decode step eagerly, launch its decode kernel 28 times per
-   decode step taken (a fused replay takes k steps), and E must replay
-   fused graphs and hold two steps in flight. Each run prints its decode
-   step's wall time, each graph's device ms per replay from the start-up
-   probe, the capture time, TTFA and aggregate frames/s.
+   and ``poll_resolved``) and F (A with ``--first-chunk-frames 3
+   --fused-decode-steps 4 --fused-decode-buckets 1,4 --pipeline-depth 2
+   --detok-pipeline-depth 2``: the cold-start chain, the first-chunk ramp's
+   mini detokenize windows, detokenize two deep). Every prefill, decode
+   step, detokenize, chained first-chunk decode and cold chain of every
+   run is a replay of a CUDA graph captured at the daemon's start-up. Each
+   run serves 4 concurrent streaming /generate requests that must return
+   non-empty PCM16; F first serves one stream alone (the scheduler then
+   takes the cold chain) and prints its TTFA beside A's median. The
+   scheduler daemon zeroes its counters before its loop starts and writes
+   them, with the configuration it served, when terminated: each run must
+   show its KV layout, pool dtype, codec path and decode settings, launch
+   its kernels and none of the others, replay prefill, decode and
+   detokenize graphs and call no step body eagerly, launch K3 28 times per
+   prefill or cold-chain replay and its decode kernel 28 times per decode
+   step taken (a fused, chained or cold-chain replay takes k steps), and
+   launch every kernel exactly as often as its graphs' replays times what
+   their captures counted (B: K2's stacks too). E must replay fused graphs
+   and hold two steps in flight, and is compared with A (within 20% of A's
+   frames/s, a miss printed, not fatal); F must replay a cold chain and
+   3- and 6-frame detokenize graphs and hold two detokenize batches in
+   flight. Each run prints its decode step's and detokenize's wall time,
+   each graph's device ms per replay from the start-up probe, the capture
+   time and graph pool size, TTFA and aggregate frames/s.
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -570,7 +582,10 @@ K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
 #: kernel must not launch in that run.
-SINGLE = {"fused_decode_steps": 0, "pipeline_depth": 0}
+SINGLE = {"fused_decode_steps": 0, "pipeline_depth": 0,
+          "first_chunk_frames": 0}
+FUSED = ["--fused-decode-steps", "4", "--fused-decode-buckets", "1,4",
+         "--pipeline-depth", "2"]
 CONFIGS = {
     "A": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
                    "fused_resunit": False, **SINGLE}, {K1, K3}),
@@ -583,12 +598,20 @@ CONFIGS = {
     "D": ([], {"VOX_KV_COMBINED": "0"},
           {"kv_layout": "pair", "kv_pool_dtype": "bfloat16",
            "fused_resunit": False, **SINGLE}, {K4, K3}),
-    "E": (["--fused-decode-steps", "4", "--fused-decode-buckets", "1,4",
-           "--pipeline-depth", "2"], {},
+    "E": (FUSED, {},
           {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
            "fused_resunit": False, "fused_decode_steps": 4,
-           "pipeline_depth": 2}, {K1, K3}),
+           "pipeline_depth": 2, "first_chunk_frames": 0}, {K1, K3}),
+    "F": (["--first-chunk-frames", "3", *FUSED, "--detok-pipeline-depth",
+           "2"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False, "fused_decode_steps": 4,
+           "pipeline_depth": 2, "first_chunk_frames": 3,
+           "detok_pipeline_depth": 2}, {K1, K3}),
 }
+#: the waves of concurrent requests a run serves, in turn (F's solo stream
+#: first: alone, the online scheduler takes the cold-start chain)
+WAVES = {"F": (1, 4)}
 #: talker layers: each decode step launches the decode kernel once per layer
 TALKER_LAYERS = 28
 
@@ -636,11 +659,51 @@ def stream_generate(port: int, text: str, out: dict) -> None:
         conn.close()
 
 
-def end_to_end(card: str, config: str) -> dict:
-    """Serve one configuration over HTTP; returns the daemon's launch
-    counts after checking what it served and which kernels ran."""
+def serve_wave(config: str, port: int, prompts: list[str]) -> tuple:
+    """Stream ``prompts`` concurrently; check every response's PCM and
+    return (results, frames, wall seconds)."""
     import numpy as np
 
+    results = [{} for _ in prompts]
+    threads = [threading.Thread(target=stream_generate, args=(port, p, r))
+               for p, r in zip(prompts, results)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    frames = 0.0
+    for i, r in enumerate(results):
+        if "error" in r or r.get("status") != 200:
+            raise RuntimeError(f"request {i} failed: {r.get('error')} "
+                               f"status {r.get('status')}")
+        body = r["body"]
+        if body[:4] != b"RIFF":
+            raise AssertionError(f"request {i}: no WAV header")
+        pcm = np.frombuffer(body[44:], dtype=np.int16)
+        if pcm.size == 0 or (len(body) - 44) % 2:
+            raise AssertionError(f"request {i}: empty or odd PCM")
+        if pcm.size > MAX_TOKENS * SAMPLES_PER_FRAME:
+            raise AssertionError(f"request {i}: {pcm.size} samples > "
+                                 "the frame budget")
+        if not np.isfinite(pcm.astype(np.float32)).all():
+            raise AssertionError(f"request {i}: non-finite PCM")
+        r["frames"] = pcm.size / SAMPLES_PER_FRAME
+        frames += r["frames"]
+        log(f"[{config}] {len(prompts)}-stream wave, request {i}: "
+            f"{pcm.size} samples ({r['frames']:.1f} frames, "
+            f"{pcm.size / SAMPLE_RATE:.2f} s audio, peak "
+            f"{int(np.abs(pcm.astype(np.int32)).max())}), TTFA "
+            f"{r['ttfa_s'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s")
+    return results, frames, wall
+
+
+def end_to_end(card: str, config: str) -> dict:
+    """Serve one configuration over HTTP; returns the daemon's launch
+    counts, the 4-stream wave's frames/s and TTFA median, and the solo
+    stream's TTFA (F), after checking what it served and which kernels and
+    graphs ran."""
     flags, env_extra, served, must_run = CONFIGS[config]
     OUT.mkdir(exist_ok=True)
     port = free_port()
@@ -662,6 +725,7 @@ def end_to_end(card: str, config: str) -> dict:
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=server_log, env=env,
                             stderr=subprocess.STDOUT, start_new_session=True)
+    out: dict = {}
     try:
         deadline = time.monotonic() + 600
         while True:
@@ -678,39 +742,15 @@ def end_to_end(card: str, config: str) -> dict:
         log(f"[{config}] {' '.join(flags)} "
             f"{' '.join(f'{k}={v}' for k, v in env_extra.items())} server "
             f"ready in {time.perf_counter() - t_start:.1f} s")
-
-        results = [{} for _ in PROMPTS]
-        threads = [threading.Thread(target=stream_generate,
-                                    args=(port, p, r))
-                   for p, r in zip(PROMPTS, results)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
-        frames = 0
-        for i, r in enumerate(results):
-            if "error" in r or r.get("status") != 200:
-                raise RuntimeError(f"request {i} failed: {r.get('error')} "
-                                   f"status {r.get('status')}")
-            body = r["body"]
-            if body[:4] != b"RIFF":
-                raise AssertionError(f"request {i}: no WAV header")
-            pcm = np.frombuffer(body[44:], dtype=np.int16)
-            if pcm.size == 0 or (len(body) - 44) % 2:
-                raise AssertionError(f"request {i}: empty or odd PCM")
-            if pcm.size > MAX_TOKENS * SAMPLES_PER_FRAME:
-                raise AssertionError(f"request {i}: {pcm.size} samples > "
-                                     "the frame budget")
-            if not np.isfinite(pcm.astype(np.float32)).all():
-                raise AssertionError(f"request {i}: non-finite PCM")
-            r["frames"] = pcm.size / SAMPLES_PER_FRAME
-            frames += r["frames"]
-            log(f"[{config}] request {i}: {pcm.size} samples ({r['frames']:.1f} frames,"
-                f" {pcm.size / SAMPLE_RATE:.2f} s audio, peak "
-                f"{int(np.abs(pcm.astype(np.int32)).max())}), TTFA "
-                f"{r['ttfa_s'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s")
+        for n in WAVES.get(config, (len(PROMPTS),)):
+            results, frames, wall = serve_wave(config, port, PROMPTS[:n])
+            ttfa = sorted(r["ttfa_s"] for r in results)
+            if n == 1:
+                out["solo_ttfa_s"] = ttfa[0]
+                continue
+            out.update(frames=frames, wall=wall,
+                       frames_per_s=frames / wall, ttfa=ttfa,
+                       ttfa_median_s=(ttfa[(n - 1) // 2] + ttfa[n // 2]) / 2)
     except Exception:
         server_log.flush()
         tail = log_path.read_text().splitlines()[-80:]
@@ -738,10 +778,21 @@ def end_to_end(card: str, config: str) -> dict:
             break
         time.sleep(0.1)
     stats = json.loads(stats_path.read_text())
-    ttfa = sorted(r["ttfa_s"] for r in results)
+    out["launches"] = launches = stats["launches"]
+    check_run(config, card, stats, out)
+    return out
+
+
+def check_run(config: str, card: str, stats: dict, out: dict) -> None:
+    """Print a served run's numbers and hold its stats file to what the
+    configuration must have run (see the module docstring)."""
+    _flags, _env, served, must_run = CONFIGS[config]
     ph = stats["phase_stats"]
     steps = stats["steps"]
     n_steps = steps["decode_steps"]
+    replays = steps["replays"]
+    captured = steps["captured"]
+    launches = stats["launches"]
 
     def per_call(kind):
         t = sum(ph.get(f"{kind}.{p}", (0.0, 0))[0]
@@ -751,24 +802,32 @@ def end_to_end(card: str, config: str) -> dict:
     t1, n1 = per_call("decode")
     tk, nk = per_call("decode_multi")
     det_t, det_n = ph.get("detokenize", (0.0, 0))
-    log(f"[{config}] e2e on {card}: 4 streams, {frames:.1f} frames in "
-        f"{wall:.2f} s = {frames / wall:.1f} frames/s aggregate; TTFA "
-        f"min/median/max {ttfa[0] * 1e3:.1f}/"
-        f"{(ttfa[1] + ttfa[2]) / 2 * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms; "
+    pre_t, pre_n = ph.get("prefill", (0.0, 0))
+    wins, batches = ph.get("detok.windows", (0.0, 0))
+    ttfa = out["ttfa"]
+    solo = (f"; solo stream TTFA {out['solo_ttfa_s'] * 1e3:.1f} ms"
+            if "solo_ttfa_s" in out else "")
+    log(f"[{config}] e2e on {card}: 4 streams, {out['frames']:.1f} frames "
+        f"in {out['wall']:.2f} s = {out['frames_per_s']:.1f} frames/s "
+        f"aggregate; TTFA min/median/max {ttfa[0] * 1e3:.1f}/"
+        f"{out['ttfa_median_s'] * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms{solo}; "
         f"decode step wall (plan + dispatch + resolve) "
         f"{(t1 + tk) / max(n_steps, 1) * 1e3:.2f} ms over {n_steps} steps "
         f"(single {t1 / max(n1, 1) * 1e3:.2f} ms x {n1} calls, fused "
-        f"{tk / max(nk, 1) * 1e3:.2f} ms x {nk} calls); mean detokenize "
-        f"{det_t / max(det_n, 1) * 1e3:.2f} ms over {det_n} calls; params "
-        f"LM {stats['param_count']['lm'] / 1e9:.3f} B + codec "
+        f"{tk / max(nk, 1) * 1e3:.2f} ms x {nk} calls); detokenize wall "
+        f"{det_t / max(det_n, 1) * 1e3:.2f} ms per call over {det_n} calls "
+        f"({batches} batches of {wins / max(batches, 1):.2f} windows); "
+        f"prefill wall {pre_t / max(pre_n, 1) * 1e3:.2f} ms x {pre_n}; "
+        f"cold starts {steps['cold_starts']}; params LM "
+        f"{stats['param_count']['lm'] / 1e9:.3f} B + codec "
         f"{stats['param_count']['codec'] / 1e6:.1f} M")
     log(f"[{config}] graphs: {len(steps['graphs'])} captured in "
-        f"{steps['capture_s']:.2f} s; replays {steps['replays']}; eager "
-        f"decode steps {steps['eager_decode_steps']}; deepest pipeline "
-        f"{steps['max_pending']}, polled {steps['polled']}; device ms per "
-        f"replay (start-up probe): "
+        f"{steps['capture_s']:.2f} s, pool {steps['pool_mib']:.1f} MiB; "
+        f"replays {replays}; eager calls {steps['eager_calls']}; deepest "
+        f"pipelines: decode {steps['max_pending']}, detokenize "
+        f"{steps['max_pending_detok']}; polled {steps['polled']}; device "
+        f"ms per replay (start-up probe): "
         + ", ".join(f"{k}={v:.3f}" for k, v in steps["probe_ms"].items()))
-    launches = stats["launches"]
     log(f"[{config}] served {({k: stats[k] for k in served})}; kernel "
         f"launches {launches}; resunit stacks {stats['resunit_stacks']}")
     for key, want in served.items():
@@ -782,25 +841,62 @@ def end_to_end(card: str, config: str) -> dict:
         if name not in must_run and n != 0:
             raise AssertionError(f"[{config}] kernel {name} launched {n} "
                                  "times; this configuration must not run it")
-    # every decode step was a graph replay, and each replay counted the
-    # decode kernel once per talker layer and step
-    if sum(steps["replays"].values()) <= 0:
+    # every step was a graph replay: no step body ran eagerly, and every
+    # kind the run needs was replayed
+    if any(steps["eager_calls"].values()):
+        raise AssertionError(f"[{config}] step bodies ran eagerly on the "
+                             f"card: {steps['eager_calls']}")
+    for kind in ("prefill", "detok"):
+        if not replays.get(kind):
+            raise AssertionError(f"[{config}] no {kind} graph was replayed")
+    if not (replays.get("decode") or replays.get("decode_multi")):
         raise AssertionError(f"[{config}] no decode graph was replayed")
-    if steps["eager_decode_steps"] != 0:
-        raise AssertionError(f"[{config}] {steps['eager_decode_steps']} "
-                             "decode steps ran eagerly on the card")
+    # each replay counted the kernels its capture launched: K3 once per
+    # talker layer and prefill, the decode kernel once per layer and step
+    prefills = replays.get("prefill", 0) + replays.get("cold_chain", 0)
+    if launches[K3] != TALKER_LAYERS * prefills:
+        raise AssertionError(
+            f"[{config}] {K3} launched {launches[K3]} times, expected "
+            f"{TALKER_LAYERS} x {prefills} prefill and cold-chain replays")
     (decode_kernel,) = must_run & {K1, K1Q, K4}
     if launches[decode_kernel] != TALKER_LAYERS * n_steps:
         raise AssertionError(
             f"[{config}] {decode_kernel} launched {launches[decode_kernel]}"
             f" times, expected {TALKER_LAYERS} x {n_steps} decode steps")
+    # and every counter is the sum over graphs of replays x captured counts
+    want = {name: 0 for name in launches}
+    stacks = 0
+    for c in captured.values():
+        for name in want:
+            want[name] += c["replays"] * c.get(f"{name}.launches", 0)
+        stacks += c["replays"] * c.get(f"{K2}.stacks", 0)
+    if want != launches or stacks != stats["resunit_stacks"]:
+        raise AssertionError(
+            f"[{config}] launches {launches} / stacks "
+            f"{stats['resunit_stacks']} differ from the graphs' replays x "
+            f"captured counts {want} / {stacks}")
+    if served["fused_resunit"] and stacks <= 0:
+        raise AssertionError(f"[{config}] no K2 stack ran in a graph")
     if served["fused_decode_steps"]:
-        if not steps["replays"].get("decode_multi"):
+        if not replays.get("decode_multi"):
             raise AssertionError(f"[{config}] no fused decode graph ran")
         if steps["max_pending"] < served["pipeline_depth"]:
             raise AssertionError(f"[{config}] the readback pipeline never "
                                  f"held {served['pipeline_depth']} steps")
-    return launches
+    if served["first_chunk_frames"]:
+        if not replays.get("cold_chain"):
+            raise AssertionError(f"[{config}] no cold chain was replayed")
+        minis = {int(k.split()[2]) for k, c in captured.items()
+                 if k.startswith("detok ") and c["replays"]}
+        F = served["first_chunk_frames"]
+        if not {F, 2 * F} <= minis:
+            raise AssertionError(f"[{config}] detokenize lengths replayed "
+                                 f"{sorted(minis)}, expected {F} and {2 * F}"
+                                 " among them")
+        if steps["max_pending_detok"] < served["detok_pipeline_depth"]:
+            raise AssertionError(
+                f"[{config}] the detokenize pipeline never held "
+                f"{served['detok_pipeline_depth']} batches")
 
 
 def main(argv=None) -> int:
@@ -845,8 +941,15 @@ def main(argv=None) -> int:
     # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)
     runs = {c: end_to_end(card, c) for c in CONFIGS}
-    total = {name: sum(r[name] for r in runs.values())
-             for name in runs["A"]}
+    total = {name: sum(r["launches"][name] for r in runs.values())
+             for name in runs["A"]["launches"]}
+    a, e = runs["A"], runs["E"]
+    ratio = e["frames_per_s"] / a["frames_per_s"]
+    log(f"E vs A: {e['frames_per_s']:.1f} / {a['frames_per_s']:.1f} frames/s"
+        f" = {ratio:.3f} ({'within' if ratio >= 0.8 else 'NOT within'} 20% "
+        f"of A; recorded, not a failure)")
+    log(f"F solo-stream TTFA {runs['F']['solo_ttfa_s'] * 1e3:.1f} ms vs A's "
+        f"4-stream TTFA median {a['ttfa_median_s'] * 1e3:.1f} ms")
 
     def quant_worst(key):
         return max(decode["K1q int8"][key], decode["K1q f8_e4m3"][key])

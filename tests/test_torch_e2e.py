@@ -53,7 +53,7 @@ def audio_of(msgs, rid):
 def dummy_worker():
     model = DummyLM(max_tokens=12, device="cpu")
     cfg = WorkerConfig(max_batch_size=4, num_pages=64, page_size=8,
-                       max_prefill_tokens=64, max_prefill_requests=4)
+                       prefill_token_buckets=(64,), max_prefill_requests=4)
     return ModelWorker(model, cfg)
 
 
@@ -132,7 +132,7 @@ def test_qwen3_debug_size_streams_through_scheduler():
     model.sampling_config = model.sampling_config.replace(max_tokens=36)
     worker = ModelWorker(model, WorkerConfig(
         max_batch_size=4, num_pages=1200, page_size=8,
-        max_prefill_tokens=128, max_prefill_requests=4))
+        prefill_token_buckets=(128,), max_prefill_requests=4))
     _drive_qwen3(model, worker)
 
 
@@ -155,7 +155,8 @@ def test_qwen3_int8_kv_and_fused_resunit_stream_to_pcm(monkeypatch):
     model.sampling_config = model.sampling_config.replace(max_tokens=36)
     worker = ModelWorker(model, WorkerConfig(
         max_batch_size=4, num_pages=1200, page_size=8,
-        max_prefill_tokens=128, max_prefill_requests=4, kv_quant="int8"))
+        prefill_token_buckets=(128,), max_prefill_requests=4,
+        kv_quant="int8"))
     assert worker.k_pages.dtype == torch.int8 and worker.v_pages is None
     assert model.kv_quant_scales == (16.0 / 127.0, 16.0 / 127.0)
     _drive_qwen3(model, worker)
@@ -177,7 +178,7 @@ def test_http_round_trip_through_launch():
          "--model", "dummy", "--device", "cpu", "--port", str(port),
          "--host", "127.0.0.1", "--max-batch-size", "4",
          "--max-num-pages", "64", "--page-size", "8",
-         "--max-prefill-tokens", "64", "--socket-suffix", f"_torch{port}"],
+         "--prefill-buckets", "64", "--socket-suffix", f"_torch{port}"],
         cwd=ROOT)
     base = f"http://127.0.0.1:{port}"
     try:

@@ -71,7 +71,7 @@ def _serve(name, sched_type, n_req=2, **kw):
     worker."""
     w = ModelWorker(_model(name), WorkerConfig(
         max_batch_size=4, num_pages=1200, page_size=8,
-        max_prefill_tokens=128, max_prefill_requests=4, **kw))
+        prefill_token_buckets=(128,), max_prefill_requests=4, **kw))
     s = load_scheduler(sched_type, model_worker=w, max_batch_size=4,
                        connect=False)
     reqs = [Request(request_id=f"s{i}", prompt=f"stream number {i}",
@@ -177,7 +177,7 @@ def test_port_worker_matches_jax_worker_fused_pipelined():
               fused_decode_buckets=(2,), pipeline_depth=2)
     jw = JWorker(jm, JWorkerConfig(prefill_token_buckets=(128,),
                                    warmup=False, **kw))
-    tw = ModelWorker(tm, WorkerConfig(max_prefill_tokens=128, **kw))
+    tw = ModelWorker(tm, WorkerConfig(prefill_token_buckets=(128,), **kw))
     prompts = ("hi", "hello!")
     jreqs = [JRequest(request_id=f"j{i}", prompt=p)
              for i, p in enumerate(prompts)]

@@ -310,7 +310,7 @@ def test_daemon_stats_file_records_what_it_served(tmp_path):
          "--model", "dummy", "--device", "cpu", "--port", str(port),
          "--host", "127.0.0.1", "--max-batch-size", "2",
          "--max-num-pages", "32", "--page-size", "8",
-         "--max-prefill-tokens", "64", "--socket-suffix", f"_kvq{port}",
+         "--prefill-buckets", "64", "--socket-suffix", f"_kvq{port}",
          "--kv-quant", "int8", "--kv-k-amax", "12.7", "--kv-v-amax", "2.54",
          "--stats-file", str(stats)], cwd=ROOT, env=env)
     try:

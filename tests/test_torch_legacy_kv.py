@@ -102,7 +102,7 @@ def test_worker_with_kv_combined_off_allocates_the_pair(monkeypatch):
     monkeypatch.setenv("VOX_KV_COMBINED", "0")
     model = DummyLM()
     w = ModelWorker(model, WorkerConfig(max_batch_size=2, num_pages=32,
-                                        page_size=8, max_prefill_tokens=64,
+                                        page_size=8, prefill_token_buckets=(64,),
                                         kv_quant="int8"))
     # quantized KV needs the combined layout: it falls back to full precision
     assert not w.kv_config.combined and w.kv_config.quant == "none"

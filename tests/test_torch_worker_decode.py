@@ -64,19 +64,17 @@ def debug_qwen3(**kw):
 
 def _pair_workers(**kw):
     """The port's and the JAX package's workers over DummyLM, one config
-    (JAX's largest prefill bucket = the port's max_prefill_tokens)."""
-    prefill = kw.pop("max_prefill_tokens", 64)
-    tw = ModelWorker(DummyLM(), WorkerConfig(max_prefill_tokens=prefill,
-                                             **kw))
-    jw = JWorker(JDummyLM(), JWorkerConfig(prefill_token_buckets=(prefill,),
-                                           warmup=False, **kw))
+    (the same prefill buckets)."""
+    kw.setdefault("prefill_token_buckets", (64,))
+    tw = ModelWorker(DummyLM(), WorkerConfig(**kw))
+    jw = JWorker(JDummyLM(), JWorkerConfig(warmup=False, **kw))
     return tw, jw
 
 
 @pytest.mark.parametrize("kw", [
     dict(max_batch_size=4, num_pages=64, page_size=8),
     dict(max_batch_size=4, num_pages=64, page_size=16,
-         max_prefill_tokens=1024, fused_decode_steps=4,
+         prefill_token_buckets=(1024,), fused_decode_steps=4,
          fused_decode_buckets=(1, 4)),
     dict(max_batch_size=2, num_pages=64, page_size=8,
          table_width_buckets=(1, 40, 300)),
@@ -171,7 +169,7 @@ def test_fused_k_schedule_selects_per_bucket_k():
     """As tests/test_fused_decode.py holds the JAX worker: the schedule
     maps a batch to its bucket's k, and the scheduler dispatches it."""
     base = dict(max_batch_size=8, num_pages=64, page_size=8,
-                max_prefill_tokens=64, max_prefill_requests=4,
+                prefill_token_buckets=(64,), max_prefill_requests=4,
                 fused_decode_steps=4, fused_decode_buckets=(1, 4, 8),
                 fused_k_schedule=(4, 2, 4))
     w = ModelWorker(_greedy_dummy(), WorkerConfig(**base))
@@ -196,7 +194,7 @@ def test_fused_k_schedule_selects_per_bucket_k():
 
 def test_fused_k_schedule_validation():
     base = dict(max_batch_size=4, num_pages=64, page_size=8,
-                max_prefill_tokens=64, fused_decode_steps=3,
+                prefill_token_buckets=(64,), fused_decode_steps=3,
                 fused_decode_buckets=(1, 4))
     with pytest.raises(ValueError, match="one .*k per fused bucket"):
         ModelWorker(_greedy_dummy(), WorkerConfig(**base,
@@ -208,7 +206,8 @@ def test_fused_k_schedule_validation():
 
 def test_fused_decode_respects_block_table_limit():
     w = ModelWorker(_greedy_dummy(), WorkerConfig(
-        max_batch_size=2, num_pages=64, page_size=8, max_prefill_tokens=64,
+        max_batch_size=2, num_pages=64, page_size=8,
+        prefill_token_buckets=(64,),
         max_prefill_requests=2, fused_decode_steps=4,
         fused_decode_buckets=(2,)))
     req = Request(request_id="lim", prompt="x")
@@ -225,13 +224,18 @@ def test_fused_decode_respects_block_table_limit():
 
 def test_warmup_keys_cover_buckets_and_widths():
     w = ModelWorker(_greedy_dummy(max_tokens=200), WorkerConfig(
-        max_batch_size=4, num_pages=64, page_size=8, max_prefill_tokens=64,
+        max_batch_size=4, num_pages=64, page_size=8,
+        prefill_token_buckets=(64,),
         fused_decode_steps=4, fused_decode_buckets=(1, 4)))
     widths = w.table_width_buckets
     assert widths == (16, 32, 48)
+    # the JAX warmup's order: prefill buckets, decode, fused decode, then
+    # detokenize at the interval (4) and the catch-up windows (16, 8)
     assert w.warmup_keys() == (
-        [("decode", B, W) for B in (1, 2, 4) for W in widths]
-        + [("decode_multi", B, 4, W) for B in (1, 4) for W in widths])
+        [("prefill", 64, 8)]
+        + [("decode", B, W) for B in (1, 2, 4) for W in widths]
+        + [("decode_multi", B, 4, W) for B in (1, 4) for W in widths]
+        + [("detok", B, L) for L in (4, 16, 8) for B in (1, 2, 4)])
 
 
 def _state(w):
@@ -246,7 +250,8 @@ def test_padded_rows_leave_slot_state_untouched():
     model = debug_qwen3()
     model.sampling_config = model.sampling_config.replace(max_tokens=40)
     w = ModelWorker(model, WorkerConfig(
-        max_batch_size=2, num_pages=64, page_size=8, max_prefill_tokens=64,
+        max_batch_size=2, num_pages=64, page_size=8,
+        prefill_token_buckets=(64,),
         fused_decode_steps=2, fused_decode_buckets=(2,)))
     reqs = [Request(request_id=f"p{i}", prompt=p)
             for i, p in enumerate(("ab", "cde"))]
@@ -274,7 +279,8 @@ def _run_to_block_limit(depth):
     m = _NoStopDummy(max_tokens=16)
     m.sampling_config = SamplingConfig(greedy=True)
     w = ModelWorker(m, WorkerConfig(
-        max_batch_size=1, num_pages=64, page_size=8, max_prefill_tokens=16,
+        max_batch_size=1, num_pages=64, page_size=8,
+        prefill_token_buckets=(16,),
         pipeline_depth=depth))
     req = Request(request_id="hs", prompt="hard stop",
                   sampling_config=SamplingConfig(greedy=True,

@@ -31,6 +31,7 @@ from vox_serve_tpu_torch.models.depth import DepthConfig
 from vox_serve_tpu_torch.models.dummy import DummyLM
 from vox_serve_tpu_torch.models.qwen3_tts import Qwen3TTSLM
 from vox_serve_tpu_torch.ops import kernels
+from vox_serve_tpu_torch.params import tree_leaves
 from vox_serve_tpu_torch.requests import Request
 from vox_serve_tpu_torch.sampling import SamplingConfig
 from vox_serve_tpu_torch.worker import ModelWorker, WorkerConfig
@@ -45,7 +46,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qwen3(device):
+def _qwen3(device, decoder_dim=64):
     bf16 = torch.bfloat16
     m = Qwen3TTSLM(
         dtype=bf16, device=device, detokenize_interval=4,
@@ -59,7 +60,7 @@ def _qwen3(device):
             dtype=bf16),
         debug_codec=Qwen3CodecConfig(
             codebook_dim=32, codebook_size=2048, latent_dim=48,
-            decoder_dim=64, hidden_size=32, intermediate_size=64,
+            decoder_dim=decoder_dim, hidden_size=32, intermediate_size=64,
             head_dim=16, num_heads=4, num_kv_heads=4, num_layers=2,
             num_quantizers=16, sliding_window=48, upsample_rates=(4, 3),
             upsampling_ratios=(2, 2), vq_dim=16))
@@ -75,7 +76,8 @@ def _prefilled(device, kv, monkeypatch, **kw):
     else:
         monkeypatch.delenv("VOX_KV_COMBINED", raising=False)
     w = ModelWorker(_qwen3(device), WorkerConfig(
-        max_batch_size=4, num_pages=64, page_size=8, max_prefill_tokens=64,
+        max_batch_size=4, num_pages=64, page_size=8,
+        prefill_token_buckets=(64,),
         warmup=False, kv_quant="int8" if kv == "int8" else "none", **kw))
     assert (w.v_pages is not None) == (kv == "pair")
     reqs = [Request(request_id=f"r{i}", prompt="ab" * (i + 1))
@@ -144,10 +146,10 @@ def test_single_step_graph_matches_eager_on_card(cuda_device, monkeypatch,
     assert not hard
     got = w._steps.run(key, pack).clone()
     after = [t.clone() for t in _state(w)]
-    assert w.eager_decode_steps == 0
+    assert w.eager_calls["decode"] == 0
     _restore(w, reqs, snap)
     ref = _eager(w, key, pack)
-    assert w.eager_decode_steps == 1
+    assert w.eager_calls["decode"] == 1
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     for a, b in zip(after, _state(w)):
@@ -202,7 +204,7 @@ def test_replays_draw_new_noise_with_eager_distribution_on_card(
     m = DummyLM(dtype=torch.bfloat16, device=cuda_device)
     m.sampling_config = SamplingConfig(top_k=20, temperature=2.0)
     w = ModelWorker(m, WorkerConfig(max_batch_size=4, num_pages=8,
-                                    page_size=8, max_prefill_tokens=16,
+                                    page_size=8, prefill_token_buckets=(16,),
                                     warmup=False))
     W = w.table_width_buckets[0]
     key = ("decode", 4, W)
@@ -227,8 +229,8 @@ def test_replay_counts_captured_launches_on_card(cuda_device, monkeypatch):
     before = kernels.launch_counts()
     step = w._steps.get(("decode", 4, W))
     assert kernels.launch_counts() == before  # capture counts nothing
-    assert [(fn.__name__, n) for fn, n in step.launches] == [
-        ("paged_decode_attention", L)]
+    assert [(fn.__name__, field, n) for fn, field, n in step.counts] == [
+        ("paged_decode_attention", "launches", L)]
     for _ in range(3):
         pack, _ = w._plan_decode(reqs, 4, W)
         w._steps.run(("decode", 4, W), pack)
@@ -238,5 +240,211 @@ def test_replay_counts_captured_launches_on_card(cuda_device, monkeypatch):
     assert {k: after[k] - before[k] for k in after
             if k != "paged_decode_attention"} == {
         k: 0 for k in after if k != "paged_decode_attention"}
-    assert w.eager_decode_steps == 0
+    assert w.eager_calls["decode"] == 0
     assert w.step_stats()["decode_steps"] == 3
+
+
+# -- prefill, detokenize, chained first-chunk decode and the cold chain ----
+
+
+def _full_state(w):
+    """Every tensor a step may write: the pools, the slot state and the
+    codec-cache leaves."""
+    return _state(w) + tree_leaves(w.codec_cache)
+
+
+def _graph_vs_eager(w, key, inputs):
+    """Replay key's graph on inputs, then run its eager body from the same
+    state: outputs and every state tensor must match bit for bit."""
+    w._steps.get(key)  # capture first: its warm-up touches only padding
+    saved = [t.clone() for t in _full_state(w)]
+    got = w._steps.run(key, *inputs)
+    got = tuple(t.clone() for t in (got if isinstance(got, tuple)
+                                    else (got,)))
+    after = [t.clone() for t in _full_state(w)]
+    for t, s in zip(_full_state(w), saved):
+        t.copy_(s)
+    body, _ = w._build_step(key)
+    ref = body(*(torch.from_numpy(a).to(w.device) for a in inputs))
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    assert w.eager_calls[key[0]] == 1  # the test's own eager call only
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), key
+    for a, b in zip(after, _full_state(w)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), key
+    return got
+
+
+def _first_chunk_worker(device, model=None, **kw):
+    return ModelWorker(model or _qwen3(device), WorkerConfig(
+        max_batch_size=4, num_pages=64, page_size=8,
+        prefill_token_buckets=(64, 128), max_prefill_requests=4,
+        warmup=False, first_chunk_frames=2, fused_decode_steps=2,
+        fused_decode_buckets=(1, 4), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_req", [1, 3])
+def test_prefill_graph_matches_eager_on_card(cuda_device, n_req):
+    """A padded bucket (64 tokens, 4 rows) over 1 or 3 prompts."""
+    w = _first_chunk_worker(cuda_device)
+    reqs = [Request(request_id=f"p{i}", prompt="ab" * (i + 2))
+            for i in range(n_req)]
+    reqs = w._admit_prefills(reqs)
+    arr = w._prefill_host_arrays(reqs)
+    assert arr["T"] == 64 and sum(r.input_length for r in reqs) < 64
+    out = _graph_vs_eager(w, ("prefill", 64, 4), w._prefill_inputs(arr))
+    assert out[0].shape == (4, w.model.n_codebooks)
+
+
+@pytest.mark.cuda
+def test_detokenize_graph_matches_eager_on_card(cuda_device):
+    w = _first_chunk_worker(cuda_device)
+    rng = np.random.default_rng(0)
+    C, B, L = w.model.n_codebooks, 4, 4
+    pack = np.zeros((B * L * C + B,), np.int32)
+    toks, slots = w._detok_pack_views(pack, B, L, C)
+    toks[:3] = rng.integers(0, 2048, (3, L, C))
+    slots[:] = [2, 0, 1, w.config.max_batch_size]  # a padded row
+    for leaf in tree_leaves(w.codec_cache):  # non-zero streaming state
+        if leaf.is_floating_point():
+            leaf.normal_()
+    out = _graph_vs_eager(w, ("detok", B, L), (pack,))
+    assert out[0].dtype == torch.int16 and out[0].shape[0] == B
+
+
+@pytest.mark.cuda
+def test_chained_first_chunk_graphs_match_eager_on_card(cuda_device):
+    """decode_multi_detok after a prefill, and the cold chain over the two
+    packs staged as one buffer."""
+    w = _first_chunk_worker(cuda_device)
+    W0 = w.table_width_buckets[0]
+    req = Request(request_id="m", prompt="abcd")
+    w.run_lm_prefill([req])
+    w.sync()
+    pack, hard = w._plan_decode_multi([req], 2, 1, W0)
+    assert not hard
+    sampled, pcm = _graph_vs_eager(w, ("decode_multi_detok", 1, 2, W0),
+                                   (pack,))
+    assert sampled.shape == (2, 1, w.model.n_codebooks)
+    assert pcm.dtype == torch.int16
+
+    cold = Request(request_id="c", prompt="abc")
+    (cold,) = w._admit_prefills([cold])
+    parr = w._prefill_host_arrays([cold])
+    cold.extras["inflight"] = 1
+    dpack, hard = w._plan_decode_multi([cold], 2, 1, W0)
+    assert not hard
+    inputs = (np.concatenate([parr["pack"], dpack]),
+              *w._prefill_inputs(parr)[1:])
+    sampled, pcm = _graph_vs_eager(w, ("cold_chain", 64, 2), inputs)
+    assert sampled.shape == (3, 1, w.model.n_codebooks)
+
+
+@pytest.mark.cuda
+def test_two_in_flight_detokenize_replays_keep_both_results(cuda_device):
+    """Two batches of one (B, L) key in flight at detokenize depth 2: each
+    pending entry owns its PCM (a copy made right after its replay), so
+    the second replay does not overwrite the first's."""
+    w = _first_chunk_worker(cuda_device, pipeline_depth=2,
+                            detok_pipeline_depth=2)
+    rng = np.random.default_rng(1)
+    reqs = [Request(request_id=f"d{i}") for i in range(2)]
+    for r in reqs:
+        w.admit(r)
+    wins = [rng.integers(0, 2048, (4, w.model.n_codebooks)).astype(np.int32)
+            for _ in reqs]
+    saved = [t.clone() for t in tree_leaves(w.codec_cache)]
+    for r, win in zip(reqs, wins):
+        w._dispatch_detok([win], [r.slot], 4, [(r, 0, 4, 4)], [])
+    assert len(w._pending_detok) == 2 and w.max_pending_detok == 2
+    w.flush_detokenize()
+    piped = [r.output_audio.get() for r in reqs]
+    for t, s in zip(tree_leaves(w.codec_cache), saved):
+        t.copy_(s)
+    for r, win in zip(reqs, wins):  # one at a time, each read at once
+        out = w._steps.run(("detok", 1, 4), np.concatenate(
+            [win.ravel(), [r.slot]]).astype(np.int32))
+        assert out[0].cpu().numpy().tobytes() == piped.pop(0)
+
+
+@pytest.mark.cuda
+def test_resunit_stacks_count_per_replay_on_card(cuda_device, monkeypatch):
+    """K2 inside a detokenize graph: the capture counts nothing, and each
+    replay adds the stacks and launches its capture made (here the two
+    decoder blocks longer than 54 samples, 128 and 64 channels: 2 stacks,
+    18 launches)."""
+    monkeypatch.setenv("VOX_FUSED_RESUNIT", "1")
+    w = _first_chunk_worker(cuda_device, _qwen3(cuda_device, 256))
+    k2 = kernels.wrappers()["fused_resunit_stack"]
+    before = kernels.counters()
+    step = w._steps.get(("detok", 1, 4))
+    assert kernels.counters() == before
+    counts = {(fn.__name__, field): n for fn, field, n in step.counts}
+    assert counts == {("fused_resunit_stack", "stacks"): 2,
+                      ("fused_resunit_stack", "launches"): 18}
+    pack = np.zeros((4 * w.model.n_codebooks + 1,), np.int32)
+    for _ in range(3):
+        w._steps.run(("detok", 1, 4), pack)
+    assert k2.stacks == before["fused_resunit_stack", "stacks"] + 6
+    assert k2.launches == before["fused_resunit_stack", "launches"] + 54
+    assert w.step_stats()["captured"]["detok 1 4"] == {
+        "replays": 3, "fused_resunit_stack.launches": 18,
+        "fused_resunit_stack.stacks": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lens", [(128, (41,)), (128, (20, 33, 9)),
+                                    (1024, (42, 42, 42, 42)),
+                                    (1024, (300, 5, 77, 1, 211))])
+def test_k3_at_a_padded_bucket_matches_plain_on_card(cuda_device, T, lens):
+    """K3 as the prefill graphs run it: a token bucket holding 1-5 prompts
+    and a padded tail (segment -1); valid rows against the plain
+    version."""
+    g = torch.Generator().manual_seed(T + len(lens))
+    H, KH, D = 16, 8, 128
+    seg = torch.full((T,), -1, dtype=torch.int32)
+    c = 0
+    for i, n in enumerate(lens):
+        seg[c:c + n] = i
+        c += n
+    q, k, v = (torch.randn((T, h, D), generator=g).to(torch.bfloat16)
+               .to(cuda_device) for h in (H, KH, KH))
+    seg = seg.to(cuda_device)
+    out = kernels.ragged_prefill_attention(q, k, v, seg)
+    ref = kernels.ragged_prefill_attention_plain(q, k, v, seg)
+    valid = seg >= 0
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cold_chain_replays_draw_new_noise_with_eager_distribution_on_card(
+        cuda_device):
+    """The cold chain draws its prefill's and its k steps' noise from the
+    one registered generator: replays of fixed (padded) inputs sample anew
+    each time, with the eager body's distribution."""
+    m = DummyLM(dtype=torch.bfloat16, device=cuda_device)
+    m.sampling_config = SamplingConfig(top_k=20, temperature=2.0)
+    w = ModelWorker(m, WorkerConfig(
+        max_batch_size=2, num_pages=16, page_size=8,
+        prefill_token_buckets=(16,), max_prefill_requests=2, warmup=False,
+        fused_decode_steps=2, fused_decode_buckets=(1,),
+        first_chunk_frames=2))
+    key = ("cold_chain", 16, 2)
+    assert key in w.warmup_keys()
+    body, inputs = w._build_step(key)
+    graph = [w._steps.run(key, *inputs)[0].clone() for _ in range(800)]
+    dev = [torch.from_numpy(a).to(cuda_device) for a in inputs]
+    eager = [body(*dev)[0].clone() for _ in range(800)]
+    graph = torch.stack(graph).cpu().numpy()  # (n, k + 1, 1, C)
+    eager = torch.stack(eager).cpu().numpy()
+    assert graph.shape[1:] == (3, 1, 1)
+    for step in range(3):  # the prefill's sample and the two steps'
+        assert len(set(graph[:, step].ravel().tolist())) > 1
+    # the three draws of all replays pooled (2400 samples a side)
+    p = np.bincount(graph.ravel(), minlength=64) / graph.size
+    q = np.bincount(eager.ravel(), minlength=64) / eager.size
+    assert 0.5 * np.abs(p - q).sum() < TV_TOL

@@ -10,6 +10,10 @@ one per data-parallel rank. The JAX launcher's serving profiles
     python -m vox_serve_tpu_torch.launch --model dummy --device cpu
     python -m vox_serve_tpu_torch.launch --model qwen3-tts \
         --fused-decode-steps 4 --fused-decode-buckets 1,4 --pipeline-depth 2
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts \
+        --first-chunk-frames 3 --fused-decode-steps 4 \
+        --fused-decode-buckets 1,4 --pipeline-depth 2 \
+        --detok-pipeline-depth 2
 
 The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
 serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
@@ -42,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--max-num-pages", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=16)
-    p.add_argument("--max-prefill-tokens", type=int, default=1024)
-    p.add_argument("--max-prefill-requests", type=int, default=8)
+    p.add_argument("--prefill-buckets", default=None,
+                   help="comma list of prefill token buckets (default "
+                        "128,1024)")
+    p.add_argument("--max-prefill-requests", type=int, default=None,
+                   help="rows of one prefill (default 8)")
     p.add_argument("--kv-quant", default=None,
                    choices=["none", "f8_e4m3", "int8"],
                    help="quantized KV pool storage (halves KV bytes; f8_e4m3 "
@@ -58,6 +65,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "at start-up")
     p.add_argument("--pipeline-depth", type=int, default=None,
                    help="in-flight decode steps with deferred readback")
+    p.add_argument("--detok-pipeline-depth", type=int, default=None,
+                   help="in-flight detokenize batches with deferred audio "
+                        "readback (default 1; 0 when --pipeline-depth is 0)")
+    p.add_argument("--first-chunk-frames", type=int, default=None,
+                   help="emit a stream's first chunk after N frames (TTFA)")
+    p.add_argument("--ramp-frames", type=int, default=None,
+                   help="extend the mini-chunk ramp to N frames before "
+                        "regular detokenize windows (0: one interval)")
+    p.add_argument("--detok-buckets", default=None,
+                   help="comma list overriding the detokenize-batch "
+                        "lattice (last may be below max-batch-size)")
+    p.add_argument("--detok-frame-budget", type=int, default=None,
+                   help="cap on batch*length frames per detokenize graph "
+                        "(0 disables)")
     p.add_argument("--fused-decode-steps", type=int, default=None,
                    help="run N decode steps per graph replay (0 disables)")
     p.add_argument("--fused-decode-buckets", default=None,
@@ -115,13 +136,18 @@ def main(argv=None) -> None:
         "seed": args.seed,
         "max_num_pages": args.max_num_pages,
         "page_size": args.page_size,
-        "max_prefill_tokens": args.max_prefill_tokens,
+        "prefill_buckets": args.prefill_buckets,
         "max_prefill_requests": args.max_prefill_requests,
         "kv_quant": args.kv_quant,
         "kv_k_amax": args.kv_k_amax,
         "kv_v_amax": args.kv_v_amax,
         "no_warmup": args.no_warmup,
         "pipeline_depth": args.pipeline_depth,
+        "detok_pipeline_depth": args.detok_pipeline_depth,
+        "first_chunk_frames": args.first_chunk_frames,
+        "ramp_frames": args.ramp_frames,
+        "detok_buckets": args.detok_buckets,
+        "detok_frame_budget": args.detok_frame_budget,
         "fused_decode_steps": args.fused_decode_steps,
         "fused_decode_buckets": args.fused_decode_buckets,
         "fused_k_schedule": args.fused_k_schedule,

@@ -105,6 +105,9 @@ class BaseLM(abc.ABC):
     needs_input_masks: bool = False
     #: dim of per-slot feedback features produced each step (0 = none)
     feedback_dim: int = 0
+    #: the sampled rows ARE audio-token rows, so a fused decode can feed its
+    #: frames straight into the codec (the cold-start chain)
+    supports_chained_detok: bool = False
     #: set by the worker when the KV pool is quantized (int8/f8): static
     #: (k_scale, v_scale) dequant multipliers threaded into the backbone
     #: (ops/kv_cache.py KVCacheConfig.kv_scales)

@@ -26,6 +26,7 @@ class DummyLM(BaseLM):
     #: class attr so launch's WAV-header rate resolution sees it without
     #: instantiating the model
     SAMPLE_RATE = 16000
+    supports_chained_detok = True
 
     def __init__(self, model_name: str = "dummy",
                  dtype: torch.dtype = torch.float32,

@@ -85,6 +85,7 @@ class Qwen3TTSLM(BaseLMWithDepth):
     SAMPLE_RATE = 24000
     needs_input_features = True
     needs_input_masks = True
+    supports_chained_detok = True  # sampled rows are audio-token rows
     assets_available = False
 
     def __init__(self, model_name: str = "Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",

@@ -29,9 +29,10 @@ imported: the CPU tests import every module.
 Dispatch is by device: a CPU tensor goes to the plain version (that is the
 only reason the plain path runs), a CUDA tensor launches the kernel or the
 call raises. There is no fallback from the kernel to the plain version.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``; a
-captured CUDA graph adds the launches its capture made on each replay
-(``worker/graphs.py``), and its capture counts none. The
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` (K2
+also its whole stacks in ``.stacks``); a captured CUDA graph adds the
+counts its capture made on each replay (``worker/graphs.py``), and its
+capture counts none. The
 launch geometry is planned on the host from shapes alone
 (``plan_decode_splits``, ``plan_prefill_tiles``), so no launch waits on
 the device. A split decode launch keeps its partial states in the
@@ -643,18 +644,28 @@ def wrappers() -> dict:
     }
 
 
+#: the counters a wrapper keeps beside ``launches`` (K2 also counts stacks)
+_EXTRA_COUNTERS = {"fused_resunit_stack": ("stacks",)}
+
+
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def set_launch_counts(counts: dict[str, int]) -> None:
-    """Put the launch counters back to ``counts`` (``launch_counts()``
-    output): a graph capture runs the wrappers without launching."""
-    for name, fn in wrappers().items():
-        fn.launches = counts[name]
+def counters() -> dict[tuple[str, str], int]:
+    """Every counter of every wrapper, by (wrapper name, counter)."""
+    return {(name, field): getattr(fn, field)
+            for name, fn in wrappers().items()
+            for field in ("launches", *_EXTRA_COUNTERS.get(name, ()))}
+
+
+def set_counters(values: dict[tuple[str, str], int]) -> None:
+    """Put the counters back to ``values`` (``counters()`` output): a graph
+    capture runs the wrappers without launching."""
+    fns = wrappers()
+    for (name, field), n in values.items():
+        setattr(fns[name], field, n)
 
 
 def reset_launch_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
-    wrappers()["fused_resunit_stack"].stacks = 0
+    set_counters({k: 0 for k in counters()})

@@ -7,20 +7,24 @@ it is unavailable fails at start-up), the port's synchronous worker and a
 scheduler, and runs the scheduler loop. On the card the CUDA kernels are
 built before the daemon reports ready, so no request pays for ``nvcc``.
 
-The decode flags are the JAX daemon's: ``--no-warmup`` (capture each decode
-graph at its first use instead of at start-up), ``--pipeline-depth``,
+The worker flags are the JAX daemon's: ``--no-warmup`` (capture each
+graph at its first use instead of at start-up), ``--prefill-buckets``,
+``--max-prefill-requests``, ``--pipeline-depth``,
+``--detok-pipeline-depth``, ``--first-chunk-frames``, ``--ramp-frames``,
 ``--fused-decode-steps``, ``--fused-decode-buckets``, ``--fused-k-schedule``,
-``--fused-min-batch``, ``--decode-buckets`` and ``--table-width-buckets``.
+``--fused-min-batch``, ``--decode-buckets``, ``--table-width-buckets``,
+``--detok-buckets`` and ``--detok-frame-budget``.
 
 ``--stats-file PATH``: the daemon zeroes the kernel launch counters and the
 worker's step counters just before its loop starts and, when it is
 terminated, writes the counts, the worker's per-phase wall times, its
-decode-step counters (graphs captured, replays per kind, decode steps
-taken, eager decode steps on the card, capture seconds, each graph's
-device ms per replay from the start-up probe, the deepest readback
-pipeline seen) and the configuration it served (KV layout and pool dtype,
-whether the codec ran the fused residual-unit stacks, the fused-decode and
-pipeline settings) there as JSON: how a caller that drives the daemon over
+step counters (graphs captured, replays per kind, decode steps taken,
+eager step calls on the card per kind, the kernel counts one replay of
+each graph adds, capture seconds, each graph's device ms per replay from
+the start-up probe, the deepest readback pipelines seen, cold starts by
+path, the graph pool's size) and the configuration it served (KV layout
+and pool dtype, whether the codec ran the fused residual-unit stacks, the
+fused-decode, pipeline, first-chunk and bucket settings) there as JSON: how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
 """
@@ -63,11 +67,13 @@ def _run_scheduler_daemon(args) -> None:
         max_batch_size=args.max_batch_size,
         num_pages=args.max_num_pages,
         page_size=args.page_size,
-        max_prefill_tokens=args.max_prefill_tokens,
         max_prefill_requests=args.max_prefill_requests,
         seed=args.seed,
         warmup=not args.no_warmup,
         pipeline_depth=args.pipeline_depth,
+        detok_pipeline_depth=args.detok_pipeline_depth,
+        first_chunk_frames=args.first_chunk_frames,
+        ramp_frames=args.ramp_frames,
         fused_decode_steps=args.fused_decode_steps,
         fused_decode_buckets=(
             _parse_buckets(args.fused_decode_buckets) or (1,)),
@@ -75,6 +81,11 @@ def _run_scheduler_daemon(args) -> None:
         fused_min_batch=args.fused_min_batch or None,
         decode_buckets_override=_parse_buckets(args.decode_buckets),
         table_width_buckets=_parse_buckets(args.table_width_buckets),
+        detok_buckets_override=_parse_buckets(args.detok_buckets),
+        **({"detok_frame_budget": args.detok_frame_budget}
+           if args.detok_frame_budget is not None else {}),
+        **({"prefill_token_buckets": _parse_buckets(args.prefill_buckets)}
+           if args.prefill_buckets else {}),
         **({"kv_quant": args.kv_quant}
            if args.kv_quant is not None else {}),
         **({"kv_k_amax": args.kv_k_amax}
@@ -108,6 +119,10 @@ def _run_scheduler_daemon(args) -> None:
             "fused_decode_steps": wcfg.fused_decode_steps,
             "fused_decode_buckets": list(wcfg.fused_decode_buckets),
             "pipeline_depth": wcfg.pipeline_depth,
+            "detok_pipeline_depth": wcfg.detok_pipeline_depth,
+            "first_chunk_frames": worker.first_chunk_frames,
+            "prefill_token_buckets": list(wcfg.prefill_token_buckets),
+            "detok_buckets": list(wcfg.detok_buckets),
         }
         kernels.reset_launch_counts()
         worker.reset_step_stats()
@@ -143,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--max-num-pages", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=16)
-    p.add_argument("--max-prefill-tokens", type=int, default=1024)
+    p.add_argument("--prefill-buckets", default=None,
+                   help="comma list of prefill token buckets")
     p.add_argument("--max-prefill-requests", type=int, default=8)
     p.add_argument("--kv-quant", default=None,
                    choices=["none", "f8_e4m3", "int8"],
@@ -153,6 +169,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--socket-suffix", default="")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--pipeline-depth", type=int, default=0)
+    p.add_argument("--detok-pipeline-depth", type=int, default=1,
+                   help="in-flight detokenize batches with deferred audio "
+                        "readback")
+    p.add_argument("--first-chunk-frames", type=int, default=0)
+    p.add_argument("--ramp-frames", type=int, default=0)
+    p.add_argument("--detok-buckets", default=None,
+                   help="comma list overriding the detokenize-batch lattice "
+                        "(last entry may be below max-batch-size: wider "
+                        "batches split)")
+    p.add_argument("--detok-frame-budget", type=int, default=None,
+                   help="cap on batch*length frames per detokenize graph "
+                        "(0 disables)")
     p.add_argument("--fused-decode-steps", type=int, default=0)
     p.add_argument("--fused-k-schedule", default="")
     p.add_argument("--fused-min-batch", type=int, default=0)

@@ -1,45 +1,75 @@
-"""Captured decode steps: the port's counterpart of the JAX worker's
-executable cache (vox_serve_tpu/worker/base.py ``_lm_fns``).
+"""Captured worker steps: the port's counterpart of the JAX worker's
+executable caches (vox_serve_tpu/worker/base.py ``_lm_fns`` and
+``_detok_fns``).
 
-A decode step is a function of ONE packed int32 buffer on the device (the
-pack layouts of the JAX worker's ``_build_lm_decode_fn`` and
-``_unpack_multi``); it reads and writes the worker's persistent state in
-place and returns its sampled tokens. ``StepCache`` holds one step per key
-(``("decode", B, W)`` or ``("decode_multi", B, K, W)``), built at its first
-use, as JAX compiles at first use, or at start-up by the worker's warmup.
+A step is a function of a few host arrays, the first always ONE packed
+int32 buffer (the pack layouts of the JAX worker's ``_unpack_prefill``,
+``_build_lm_decode_fn``, ``_unpack_multi`` and the detokenize upload);
+prefill and the cold chain add the model's float feature and bool mask
+planes. A step reads and writes the worker's persistent state in place and
+returns a tensor or a tuple of tensors (sampled tokens, int16 PCM).
+``StepCache`` holds one step per key, built at its first use, as JAX
+compiles at first use, or at start-up by the worker's warmup. The keys:
+``("prefill", T, B)``, ``("decode", B, W)``, ``("decode_multi", B, K,
+W)``, ``("decode_multi_detok", B, K, W)``, ``("cold_chain", T, K)`` and
+``("detok", B, L)``.
 
 On the card a key's step is a ``StepGraph``: a CUDA graph captured on the
 cache's side stream after one warm-up call there, into the memory pool that
-every graph of the cache shares, and replayed on the caller's stream. Its
+every graph of the cache shares, and replayed on the caller's stream. Each
 input is a static device buffer, filled before each replay by one
 asynchronous copy from a ring of pinned host buffers (a pageable or
 captured host-to-device copy would synchronise or fail). Graphs that share
-the pool and the worker's decode scratch replay in order on one stream;
-their outputs are read (copied to the host) on that stream before the next
-replay can reuse the pool. A failed capture raises: no step runs eagerly on
-the card. On the CPU, which the tests use, a key's step is an
-``EagerStep`` that runs the same body on every call.
+the pool and the worker's decode scratch replay in order on one stream. A
+graph's outputs are static buffers that its next replay overwrites: the
+caller copies them to the host on the stream right after the replay. A
+failed capture raises: no step runs eagerly on the card. On the CPU, which
+the tests use, a key's step is an ``EagerStep`` that runs the same body on
+every call.
 
-Kernel launch counters (``ops/kernels.py``) are Python increments in the
-wrappers, so a replay would not move them: a graph records the launches
-its capture made (and takes them, and its warm-up call's, back off the
-counters), then adds them on every replay.
+Kernel counters (``ops/kernels.py``: every wrapper's ``launches``, K2's
+``stacks``) are Python increments in the wrappers, so a replay would not
+move them: a graph records what its capture counted (and takes that, and
+its warm-up call's counts, back off the counters), then adds it on every
+replay.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Union
 
 import numpy as np
 import torch
 
 from ..ops import kernels
 
-#: a step body: packed int32 device buffer -> sampled tokens (device)
-Body = Callable[[torch.Tensor], torch.Tensor]
-#: key -> (body, a fully padded pack of the key's shape)
-Builder = Callable[[tuple], tuple[Body, np.ndarray]]
+Output = Union[torch.Tensor, tuple]
+#: a step body: its device inputs -> its outputs (device)
+Body = Callable[..., Output]
+#: key -> (body, fully padded inputs of the key's shapes)
+Builder = Callable[[tuple], tuple[Body, tuple[np.ndarray, ...]]]
+
+#: decode steps one replay takes, by step kind (key[2] holds k)
+_DECODE_STEPS = {"decode": lambda key: 1,
+                 "decode_multi": lambda key: key[2],
+                 "decode_multi_detok": lambda key: key[2],
+                 "cold_chain": lambda key: key[2]}
+
+
+def increments(before: dict, after: dict) -> list:
+    """(wrapper, counter, increment) for every kernel counter that moved
+    between two ``kernels.counters()`` readings."""
+    wrappers = kernels.wrappers()
+    return [(wrappers[name], field, after[name, field] - before[name, field])
+            for name, field in after
+            if after[name, field] != before[name, field]]
+
+
+def add_counts(counts: list) -> None:
+    """Add ``increments`` output to the counters (one replay's worth)."""
+    for fn, field, n in counts:
+        setattr(fn, field, getattr(fn, field) + n)
 
 
 class EagerStep:
@@ -50,70 +80,70 @@ class EagerStep:
         self.body = body
         self.device = device
         self.replays = 0
+        self.counts: list = []
 
-    def __call__(self, pack: np.ndarray) -> torch.Tensor:
+    def __call__(self, *inputs: np.ndarray) -> Output:
         self.replays += 1
-        return self.body(torch.from_numpy(pack).to(self.device))
+        return self.body(*(torch.from_numpy(a).to(self.device)
+                           for a in inputs))
 
 
 class StepGraph:
     """One captured step on the card (see the module docstring)."""
 
-    def __init__(self, body: Body, warm_pack: np.ndarray,
+    def __init__(self, body: Body, warm_inputs: tuple[np.ndarray, ...],
                  device: torch.device, pool, capture_stream: torch.cuda.Stream,
                  generator: torch.Generator, n_staging: int):
         self.device = device
-        self.static_in = torch.from_numpy(warm_pack).to(device)
-        self._staging = [torch.empty(warm_pack.shape, dtype=torch.int32,
-                                     pin_memory=True)
+        self.static_in = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in warm_inputs]
+        self._staging = [[torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in self.static_in]
                          for _ in range(max(n_staging, 1))]
         self._staged: list = [None] * len(self._staging)
         self._next = 0
         self.replays = 0
 
         stream = torch.cuda.current_stream(device)
-        counts0 = kernels.launch_counts()
+        counts0 = kernels.counters()
         # warm-up on the capture stream: fills the caches a first call
         # fills (cuBLAS workspaces, prepared weights) outside the graph
         capture_stream.wait_stream(stream)
         with torch.cuda.stream(capture_stream):
-            body(self.static_in)
-        before = kernels.launch_counts()
+            body(*self.static_in)
+        before = kernels.counters()
         self.graph = torch.cuda.CUDAGraph()
         # each replay advances the generator by the draws the step makes
         # (without this a replay would repeat the captured noise)
         self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, pool=pool, stream=capture_stream):
-            self.output = body(self.static_in)
+            self.output = body(*self.static_in)
         stream.wait_stream(capture_stream)
-        after = kernels.launch_counts()
-        wrappers = kernels.wrappers()
-        #: (wrapper, launches) of one replay
-        self.launches = [(wrappers[n], after[n] - before[n]) for n in after
-                         if after[n] != before[n]]
-        kernels.set_launch_counts(counts0)
+        #: (wrapper, counter, increment) of one replay
+        self.counts = increments(before, kernels.counters())
+        kernels.set_counters(counts0)
 
-    def __call__(self, pack: np.ndarray) -> torch.Tensor:
+    def __call__(self, *inputs: np.ndarray) -> Output:
         i = self._next
         self._next = (i + 1) % len(self._staging)
         if self._staged[i] is not None:
-            # the copy that last read this staging buffer must be done
-            # before it is overwritten (the host may run steps ahead)
+            # the copies that last read these staging buffers must be done
+            # before they are overwritten (the host may run steps ahead)
             self._staged[i].synchronize()
-        self._staging[i].numpy()[...] = pack
-        self.static_in.copy_(self._staging[i], non_blocking=True)
+        for buf, a, dst in zip(self._staging[i], inputs, self.static_in):
+            buf.numpy()[...] = a
+            dst.copy_(buf, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
         self._staged[i] = ev
         self.graph.replay()
-        for fn, n in self.launches:
-            fn.launches += n
+        add_counts(self.counts)
         self.replays += 1
         return self.output
 
     def probe_ms(self, n: int = 5) -> float:
         """Mean device ms per replay over n replays of the padded warm-up
-        pack, after one discarded replay (the JAX warmup's probe). Probe
+        inputs, after one discarded replay (the JAX warmup's probe). Probe
         replays are start-up measurements: no launch or replay is
         counted."""
         self.graph.replay()
@@ -153,24 +183,24 @@ class StepCache:
     def get(self, key: tuple) -> EagerStep | StepGraph:
         step = self.steps.get(key)
         if step is None:
-            body, warm_pack = self._build(key)
+            body, warm_inputs = self._build(key)
             if self.device.type != "cuda":
                 step = EagerStep(body, self.device)
             else:
                 t0 = time.perf_counter()
                 self.capturing = True
                 try:
-                    step = StepGraph(body, warm_pack, self.device, self.pool,
-                                     self._capture_stream, self._generator,
-                                     self._n_staging)
+                    step = StepGraph(body, warm_inputs, self.device,
+                                     self.pool, self._capture_stream,
+                                     self._generator, self._n_staging)
                 finally:
                     self.capturing = False
                 self.capture_s += time.perf_counter() - t0
             self.steps[key] = step
         return step
 
-    def run(self, key: tuple, pack: np.ndarray) -> torch.Tensor:
-        return self.get(key)(pack)
+    def run(self, key: tuple, *inputs: np.ndarray) -> Output:
+        return self.get(key)(*inputs)
 
     def probe(self, key: tuple) -> float:
         """Capture ``key`` if needed and time its replay (card only)."""
@@ -186,10 +216,19 @@ class StepCache:
         return out
 
     def decode_steps(self) -> int:
-        """Decode steps taken: one per single-step replay, k per fused
-        replay."""
-        return sum(step.replays * (key[2] if key[0] == "decode_multi" else 1)
-                   for key, step in self.steps.items())
+        """Decode steps taken: one per single-step replay, k per fused,
+        chained or cold-chain replay."""
+        return sum(step.replays * _DECODE_STEPS[key[0]](key)
+                   for key, step in self.steps.items()
+                   if key[0] in _DECODE_STEPS)
+
+    def captured_counts(self) -> dict[str, dict[str, int]]:
+        """Per key (space-joined): its replays and the kernel counters one
+        replay adds (``name.counter``; none on the CPU)."""
+        return {" ".join(map(str, key)): {
+            "replays": step.replays,
+            **{f"{fn.__name__}.{field}": n for fn, field, n in step.counts}}
+            for key, step in self.steps.items()}
 
     def reset_counts(self) -> None:
         for step in self.steps.values():
