@@ -30,11 +30,14 @@ exits non-zero without printing a result:
    Then K2, the codec's residual-unit stack, against its plain version at
    the four decoder-block shapes of a detokenize of 4 streams x 10 frames
    and of one stream (B=4 and B=1), whole and as two streamed chunks with
-   caches, with CUDA-event times and TFLOP/s per block and summed.
+   caches, with CUDA-event times and TFLOP/s per block and summed: in
+   float32 (3xTF32) and in bf16 (the codec served at ``--codec-dtype
+   bfloat16``; against the bf16 plain version, the Pallas kernel's
+   rounding points).
 5. end to end over HTTP: ``python -m vox_serve_tpu_torch.launch --model
    qwen3-tts --device cuda`` serves Qwen3-TTS-12Hz-1.7B-CustomVoice at full
    width (28x2048 talker, 5x1024 depth, default codec; random weights from a
-   seed) under six configurations in turn: A (default: K1, K3), B
+   seed) under eight configurations in turn: A (default: K1, K3), B
    (``--kv-quant int8`` with ``VOX_FUSED_RESUNIT=1``: K1q, K3, K2), C
    (``--kv-quant f8_e4m3``: K1q, K3), D (``VOX_KV_COMBINED=0``: K4, K3), E
    (A with ``--fused-decode-steps 4 --fused-decode-buckets 1,4
@@ -42,7 +45,14 @@ exits non-zero without printing a result:
    and ``poll_resolved``) and F (A with ``--first-chunk-frames 3
    --fused-decode-steps 4 --fused-decode-buckets 1,4 --pipeline-depth 2
    --detok-pipeline-depth 2``: the cold-start chain, the first-chunk ramp's
-   mini detokenize windows, detokenize two deep). Every prefill, decode
+   mini detokenize windows, detokenize two deep), G (A with ``--codec-dtype
+   bfloat16 --scheduler-type input_streaming --kv-reserve-fraction 0.05``
+   and ``VOX_FUSED_RESUNIT=1``: K1, K3 and K2 in bf16; two of its four
+   streams send their text in three pieces ~150 ms apart through
+   /generate/stream/start, /text, /end and read /audio) and H (A with
+   ``--scheduler-type offline --codec-dtype bfloat16``: the unfused bf16
+   codec; every detokenize replay must come after the last LM step).
+   Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
    run serves 4 concurrent streaming /generate requests that must return
@@ -56,13 +66,16 @@ exits non-zero without printing a result:
    prefill or cold-chain replay and its decode kernel 28 times per decode
    step taken (a fused, chained or cold-chain replay takes k steps), and
    launch every kernel exactly as often as its graphs' replays times what
-   their captures counted (B: K2's stacks too). E must replay fused graphs
+   their captures counted (B and G: K2's stacks too; the codec's tensors
+   are read back as bf16 in G and H). E must replay fused graphs
    and hold two steps in flight, and is compared with A (within 20% of A's
    frames/s, a miss printed, not fatal); F must replay a cold chain and
    3- and 6-frame detokenize graphs and hold two detokenize batches in
    flight. Each run prints its decode step's and detokenize's wall time,
    each graph's device ms per replay from the start-up probe, the capture
-   time and graph pool size, TTFA and aggregate frames/s.
+   time and graph pool size, TTFA and aggregate frames/s; G prints its text
+   streams' TTFA (first piece to first PCM byte) beside its /generate
+   streams'.
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -98,6 +111,11 @@ K3_TOL = 2e-2
 # each product in 3xTF32 (hi*hi + hi*lo + lo*hi, ~2^-21 relative), and sinf
 # against torch's sin
 K2_REL_TOL = 1e-4
+# K2 in bf16 against its bf16 plain version, relative to max |ref|: both
+# round y, z and the output to bf16 at the same points, so another f32 sum
+# order flips a rounding by one bf16 step (2^-7 of the top binade), and a
+# flip carried through the chained units can add one more: 2^-6
+K2_BF16_REL_TOL = 2.0 ** -6
 # bf16 weights/activations vs the f32 CPU run (quantized pools: the two
 # runs quantize K/V computed in bf16 and in f32, so a few elements round
 # to a neighbouring int8 / float8 value)
@@ -468,11 +486,14 @@ def check_backbone(kv: str = "combined") -> None:
 K2_BLOCKS = ((768, 320), (384, 1600), (192, 6400), (96, 19200))
 
 
-def check_k2() -> dict:
-    """K2 against its plain version (three _residual_units, float32 with
-    TF32 off) at the decoder blocks of one detokenize of 4 streams x 10
-    frames and of one stream: whole (zero halos) and as two streamed chunks
-    with caches. Returns the B=4 errors and four-block times."""
+def check_k2(dtype_name: str = "float32") -> dict:
+    """K2 against its plain version at the decoder blocks of one detokenize
+    of 4 streams x 10 frames and of one stream: whole (zero halos) and as
+    two streamed chunks with caches. float32: the plain chain of three
+    _residual_units with TF32 off, each multiply-add on the card three TF32
+    products; bfloat16: the Pallas kernel's bf16 rounding points, bf16
+    parameters as the codec serves them at codec_dtype bfloat16, one bf16
+    product per multiply-add. Returns the B=4 errors and four-block times."""
     import torch
 
     from vox_serve_tpu_torch.codecs.layers import init_conv1d
@@ -480,6 +501,9 @@ def check_k2() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    name, tol = ("K2-bf16", K2_BF16_REL_TOL) if bf16 else ("K2", K2_REL_TOL)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev)
@@ -492,14 +516,18 @@ def check_k2() -> dict:
             units = []
             for _ in range(3):
                 def small():
-                    return torch.randn((C,), generator=g, device=dev) * 0.2
+                    return (torch.randn((C,), generator=g, device=dev)
+                            * 0.2).to(dtype)
                 units.append({"alpha1": small(), "beta1": small(),
-                              "conv1": init_conv1d(g, C, C, 7, dev),
+                              "conv1": init_conv1d(g, C, C, 7, dev,
+                                                   dtype=dtype),
                               "alpha2": small(), "beta2": small(),
-                              "conv2": init_conv1d(g, C, C, 1, dev)})
-            x = torch.randn((B, C, T), generator=g, device=dev) * 0.5
-            caches = [torch.randn((B, C, 6 * d), generator=g, device=dev)
-                      * 0.5 for d in (1, 3, 9)]
+                              "conv2": init_conv1d(g, C, C, 1, dev,
+                                                   dtype=dtype)})
+            x = (torch.randn((B, C, T), generator=g, device=dev)
+                 * 0.5).to(dtype)
+            caches = [(torch.randn((B, C, 6 * d), generator=g, device=dev)
+                       * 0.5).to(dtype) for d in (1, 3, 9)]
             t1 = T // 2
             checks = []
             out = resunit.fused_resunit_stack(x, units, None)[0]
@@ -517,14 +545,18 @@ def check_k2() -> dict:
             torch.cuda.synchronize()
             errs = []
             for what, a, b in checks:
+                if a.dtype != dtype or b.dtype != dtype:
+                    raise AssertionError(f"{name} B={B} C={C} T={T} {what}: "
+                                         f"{a.dtype} / {b.dtype}")
+                a, b = a.float(), b.float()
                 if not torch.isfinite(a).all():
-                    raise AssertionError(f"K2 B={B} C={C} T={T} {what}: "
+                    raise AssertionError(f"{name} B={B} C={C} T={T} {what}: "
                                          "not finite")
                 e = (a - b).abs().max().item()
                 rel = e / max(b.abs().max().item(), 1e-30)
-                if rel > K2_REL_TOL:
-                    raise AssertionError(f"K2 B={B} C={C} T={T} {what}: rel "
-                                         f"err {rel} > {K2_REL_TOL}")
+                if rel > tol:
+                    raise AssertionError(f"{name} B={B} C={C} T={T} {what}: "
+                                         f"rel err {rel} > {tol}")
                 errs.append((e, rel))
             ms, plain_ms = alternate_times(
                 lambda: resunit.fused_resunit_stack_plain(x, units, None),
@@ -539,26 +571,32 @@ def check_k2() -> dict:
             ms_sum, plain_sum, flops_sum = (ms_sum + ms, plain_sum + plain_ms,
                                             flops_sum + flops)
             bm, bn = resunit.plan_tiles(B, C, T, sms)
-            log(f"K2 fused_resunit_stack B={B} C={C} T={T} tile {bm}x{bn} "
-                f"(whole + 2 streamed chunks, caches) max_abs_err="
-                f"{e_abs:.3e} max_rel_err={e_rel:.3e} (tol {K2_REL_TOL} rel)"
+            log(f"{name} fused_resunit_stack B={B} C={C} T={T} tile {bm}x{bn}"
+                f" (whole + 2 streamed chunks, caches) max_abs_err="
+                f"{e_abs:.3e} max_rel_err={e_rel:.3e} (tol {tol} rel)"
                 f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} TFLOP/s="
                 f"{flops / (ms * 1e-3) / 1e12:.2f} plain_TFLOP/s="
                 f"{flops / (plain_ms * 1e-3) / 1e12:.2f}")
-        # f32 in and out (x, and the output and its halo-free cache), the
-        # three units' weights once; each multiply-add runs as three TF32
-        # tensor-core products (3xTF32), at the TF32 peak
-        nbytes = sum(4 * (2 * B * C * T + 3 * (8 * C * C + 6 * C))
+        # x in and out (and no caches: the timed call is whole), the three
+        # units' weights once (conv weights in the kernel's type, biases and
+        # snake constants float32); float32 runs each multiply-add as three
+        # TF32 tensor-core products (3xTF32) at the TF32 peak, bf16 as one
+        # bf16 product at the bf16 peak
+        elem = 2 if bf16 else 4
+        nbytes = sum(elem * 2 * B * C * T + 3 * (elem * 8 * C * C + 4 * 6 * C)
                      for C, T in K2_BLOCKS)
-        r = result(worst_abs, ms_sum, plain_sum,
-                   bound(nbytes, 3 * flops_sum, "tf32"))
-        log(f"K2 all four blocks B={B}: kernel_ms={ms_sum:.4f} plain_ms="
+        bnd = (bound(nbytes, flops_sum, "bf16") if bf16
+               else bound(nbytes, 3 * flops_sum, "tf32"))
+        r = result(worst_abs, ms_sum, plain_sum, bnd)
+        r["max_rel_err"] = worst_rel
+        log(f"{name} all four blocks B={B}: kernel_ms={ms_sum:.4f} plain_ms="
             f"{plain_sum:.4f} TFLOP/s={flops_sum / (ms_sum * 1e-3) / 1e12:.2f}"
             f" plain_TFLOP/s={flops_sum / (plain_sum * 1e-3) / 1e12:.2f} "
-            f"{bound_text(r)}")
+            f"max_rel_err={worst_rel:.3e} (tol {tol}) {bound_text(r)}")
         res[B] = r
     worst = max(r["max_abs_err"] for r in res.values())
-    return {**res[4], "max_abs_err": worst}
+    return {**res[4], "max_abs_err": worst,
+            "max_rel_err": max(r["max_rel_err"] for r in res.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -578,40 +616,65 @@ SAMPLE_RATE = 24000
 K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
                "paged_decode_attention_pair")
 K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
+K2H = "fused_resunit_stack_bf16"
 
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
 #: kernel must not launch in that run.
 SINGLE = {"fused_decode_steps": 0, "pipeline_depth": 0,
           "first_chunk_frames": 0}
+#: what A-F serve besides: the online scheduler, the codec in float32 and
+#: the whole generation budget reserved at admission
+ONLINE_F32 = {"scheduler_type": "online", "codec_dtypes": ["float32"],
+              "kv_reserve_fraction": 1.0}
+BF16_CODEC = ["--codec-dtype", "bfloat16"]
 FUSED = ["--fused-decode-steps", "4", "--fused-decode-buckets", "1,4",
          "--pipeline-depth", "2"]
 CONFIGS = {
     "A": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
-                   "fused_resunit": False, **SINGLE}, {K1, K3}),
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32},
+          {K1, K3}),
     "B": (["--kv-quant", "int8"], {"VOX_FUSED_RESUNIT": "1"},
           {"kv_layout": "combined", "kv_pool_dtype": "int8",
-           "fused_resunit": True, **SINGLE}, {K1Q, K3, K2}),
+           "fused_resunit": True, **SINGLE, **ONLINE_F32}, {K1Q, K3, K2}),
     "C": (["--kv-quant", "f8_e4m3"], {},
           {"kv_layout": "combined", "kv_pool_dtype": "float8_e4m3fn",
-           "fused_resunit": False, **SINGLE}, {K1Q, K3}),
+           "fused_resunit": False, **SINGLE, **ONLINE_F32}, {K1Q, K3}),
     "D": ([], {"VOX_KV_COMBINED": "0"},
           {"kv_layout": "pair", "kv_pool_dtype": "bfloat16",
-           "fused_resunit": False, **SINGLE}, {K4, K3}),
+           "fused_resunit": False, **SINGLE, **ONLINE_F32}, {K4, K3}),
     "E": (FUSED, {},
           {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
            "fused_resunit": False, "fused_decode_steps": 4,
-           "pipeline_depth": 2, "first_chunk_frames": 0}, {K1, K3}),
+           "pipeline_depth": 2, "first_chunk_frames": 0, **ONLINE_F32},
+          {K1, K3}),
     "F": (["--first-chunk-frames", "3", *FUSED, "--detok-pipeline-depth",
            "2"], {},
           {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
            "fused_resunit": False, "fused_decode_steps": 4,
            "pipeline_depth": 2, "first_chunk_frames": 3,
-           "detok_pipeline_depth": 2}, {K1, K3}),
+           "detok_pipeline_depth": 2, **ONLINE_F32}, {K1, K3}),
+    "G": ([*BF16_CODEC, "--scheduler-type", "input_streaming",
+           "--kv-reserve-fraction", "0.05"], {"VOX_FUSED_RESUNIT": "1"},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": True, **SINGLE,
+           "scheduler_type": "input_streaming", "codec_dtypes": ["bfloat16"],
+           "kv_reserve_fraction": 0.05}, {K1, K3, K2H}),
+    "H": ([*BF16_CODEC, "--scheduler-type", "offline"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False, **SINGLE, "scheduler_type": "offline",
+           "codec_dtypes": ["bfloat16"], "kv_reserve_fraction": 1.0},
+          {K1, K3}),
 }
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4)}
+#: the requests of a wave that use the text-stream protocol (G: 2 of 4; the
+#: rest POST /generate)
+TEXT_STREAMS = {"G": 2}
+#: the step kinds that run the LM (H: every detokenize replay after them)
+LM_KINDS = ("prefill", "decode", "decode_multi", "decode_multi_detok",
+            "cold_chain")
 #: talker layers: each decode step launches the decode kernel once per layer
 TALKER_LAYERS = 28
 
@@ -659,14 +722,90 @@ def stream_generate(port: int, text: str, out: dict) -> None:
         conn.close()
 
 
-def serve_wave(config: str, port: int, prompts: list[str]) -> tuple:
-    """Stream ``prompts`` concurrently; check every response's PCM and
+def _post_form(port: int, path: str, fields: dict) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", path, body=urllib.parse.urlencode(fields),
+                     headers={"Content-Type":
+                              "application/x-www-form-urlencoded"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def stream_text_input(port: int, text: str, out: dict) -> None:
+    """The text-stream protocol: start a session, read its audio stream
+    while three pieces of the text are sent ~150 ms apart (the first one
+    past the scheduler's 20-character buffer), then end it. TTFA runs from
+    the first piece to the first PCM byte."""
+    cut = text.index(" ", 20)
+    mid = (cut + len(text)) // 2
+    pieces = [text[:cut], text[cut:mid], text[mid:]]
+    reader: dict = {}
+    try:
+        status, body = _post_form(port, "/generate/stream/start",
+                                  {"speaker": "ryan", "language": "english"})
+        if status != 200:
+            raise RuntimeError(f"stream start: status {status}")
+        rid = json.loads(body)["request_id"]
+
+        def read_audio():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                conn.request("GET", f"/generate/stream/{rid}/audio")
+                resp = conn.getresponse()
+                reader["status"] = resp.status
+                data = b""
+                while True:
+                    chunk = resp.read1(65536)
+                    if not chunk:
+                        break
+                    data += chunk
+                    if "t_first" not in reader and len(data) > 44:
+                        reader["t_first"] = time.perf_counter()
+                reader["body"] = data
+                reader["t_end"] = time.perf_counter()
+            except Exception as e:
+                reader["error"] = repr(e)
+            finally:
+                conn.close()
+
+        th = threading.Thread(target=read_audio)
+        th.start()
+        t0 = time.perf_counter()
+        for i, piece in enumerate(pieces):
+            if i:
+                time.sleep(0.15)
+            status, _ = _post_form(port, f"/generate/stream/{rid}/text",
+                                   {"text": piece})
+            if status != 200:
+                raise RuntimeError(f"stream text: status {status}")
+        status, _ = _post_form(port, f"/generate/stream/{rid}/end", {})
+        if status != 200:
+            raise RuntimeError(f"stream end: status {status}")
+        th.join(timeout=900)
+        if "error" in reader or "t_first" not in reader:
+            raise RuntimeError(f"audio stream: {reader.get('error')} status "
+                               f"{reader.get('status')}")
+        out.update(status=reader["status"], body=reader["body"],
+                   ttfa_s=reader["t_first"] - t0,
+                   wall_s=reader["t_end"] - t0, text_stream=True)
+    except Exception as e:  # recorded and raised by the caller
+        out["error"] = repr(e)
+
+
+def serve_wave(config: str, port: int, prompts: list[str],
+               text_streams: int = 0) -> tuple:
+    """Stream ``prompts`` concurrently, the first ``text_streams`` of them
+    through the text-stream protocol; check every response's PCM and
     return (results, frames, wall seconds)."""
     import numpy as np
 
     results = [{} for _ in prompts]
-    threads = [threading.Thread(target=stream_generate, args=(port, p, r))
-               for p, r in zip(prompts, results)]
+    threads = [threading.Thread(
+        target=stream_text_input if i < text_streams else stream_generate,
+        args=(port, p, r)) for i, (p, r) in enumerate(zip(prompts, results))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -691,7 +830,8 @@ def serve_wave(config: str, port: int, prompts: list[str]) -> tuple:
             raise AssertionError(f"request {i}: non-finite PCM")
         r["frames"] = pcm.size / SAMPLES_PER_FRAME
         frames += r["frames"]
-        log(f"[{config}] {len(prompts)}-stream wave, request {i}: "
+        how = "text stream" if r.get("text_stream") else "/generate"
+        log(f"[{config}] {len(prompts)}-stream wave, request {i} ({how}): "
             f"{pcm.size} samples ({r['frames']:.1f} frames, "
             f"{pcm.size / SAMPLE_RATE:.2f} s audio, peak "
             f"{int(np.abs(pcm.astype(np.int32)).max())}), TTFA "
@@ -743,7 +883,8 @@ def end_to_end(card: str, config: str) -> dict:
             f"{' '.join(f'{k}={v}' for k, v in env_extra.items())} server "
             f"ready in {time.perf_counter() - t_start:.1f} s")
         for n in WAVES.get(config, (len(PROMPTS),)):
-            results, frames, wall = serve_wave(config, port, PROMPTS[:n])
+            results, frames, wall = serve_wave(
+                config, port, PROMPTS[:n], TEXT_STREAMS.get(config, 0))
             ttfa = sorted(r["ttfa_s"] for r in results)
             if n == 1:
                 out["solo_ttfa_s"] = ttfa[0]
@@ -751,6 +892,11 @@ def end_to_end(card: str, config: str) -> dict:
             out.update(frames=frames, wall=wall,
                        frames_per_s=frames / wall, ttfa=ttfa,
                        ttfa_median_s=(ttfa[(n - 1) // 2] + ttfa[n // 2]) / 2)
+            if TEXT_STREAMS.get(config):
+                out["text_stream_ttfa"] = [r["ttfa_s"] for r in results
+                                           if r.get("text_stream")]
+                out["generate_ttfa"] = [r["ttfa_s"] for r in results
+                                        if not r.get("text_stream")]
     except Exception:
         server_log.flush()
         tail = log_path.read_text().splitlines()[-80:]
@@ -829,7 +975,15 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
         f"ms per replay (start-up probe): "
         + ", ".join(f"{k}={v:.3f}" for k, v in steps["probe_ms"].items()))
     log(f"[{config}] served {({k: stats[k] for k in served})}; kernel "
-        f"launches {launches}; resunit stacks {stats['resunit_stacks']}")
+        f"launches {launches}; resunit stacks {stats['resunit_stacks']} "
+        f"(bf16 {stats['resunit_bf16_stacks']}); replay order "
+        f"{steps['replay_spans']}")
+    if "text_stream_ttfa" in out:
+        log(f"[{config}] TTFA of the text streams (first piece to first PCM "
+            "byte) " + ", ".join(f"{t * 1e3:.1f}" for t in
+                                 out["text_stream_ttfa"])
+            + " ms; of the /generate streams " + ", ".join(
+                f"{t * 1e3:.1f}" for t in out["generate_ttfa"]) + " ms")
     for key, want in served.items():
         if stats[key] != want:
             raise AssertionError(f"[{config}] served {key}={stats[key]!r}, "
@@ -865,18 +1019,28 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
             f" times, expected {TALKER_LAYERS} x {n_steps} decode steps")
     # and every counter is the sum over graphs of replays x captured counts
     want = {name: 0 for name in launches}
-    stacks = 0
+    stacks = {K2: 0, K2H: 0}
     for c in captured.values():
         for name in want:
             want[name] += c["replays"] * c.get(f"{name}.launches", 0)
-        stacks += c["replays"] * c.get(f"{K2}.stacks", 0)
-    if want != launches or stacks != stats["resunit_stacks"]:
+        for name in stacks:
+            stacks[name] += c["replays"] * c.get(f"{name}.stacks", 0)
+    got_stacks = {K2: stats["resunit_stacks"],
+                  K2H: stats["resunit_bf16_stacks"]}
+    if want != launches or stacks != got_stacks:
         raise AssertionError(
-            f"[{config}] launches {launches} / stacks "
-            f"{stats['resunit_stacks']} differ from the graphs' replays x "
-            f"captured counts {want} / {stacks}")
-    if served["fused_resunit"] and stacks <= 0:
-        raise AssertionError(f"[{config}] no K2 stack ran in a graph")
+            f"[{config}] launches {launches} / stacks {got_stacks} differ "
+            f"from the graphs' replays x captured counts {want} / {stacks}")
+    k2 = K2H if served["codec_dtypes"] == ["bfloat16"] else K2
+    if served["fused_resunit"] and stacks[k2] <= 0:
+        raise AssertionError(f"[{config}] no {k2} stack ran in a graph")
+    if served["scheduler_type"] == "offline":
+        spans = steps["replay_spans"]
+        last_lm = max(spans[k][1] for k in LM_KINDS if k in spans)
+        if spans["detok"][0] <= last_lm:
+            raise AssertionError(
+                f"[{config}] a detokenize replay ({spans['detok']}) was "
+                f"issued before the last LM step ({last_lm})")
     if served["fused_decode_steps"]:
         if not replays.get("decode_multi"):
             raise AssertionError(f"[{config}] no fused decode graph ran")
@@ -937,6 +1101,7 @@ def main(argv=None) -> int:
     for kv in ("combined", "int8", "f8_e4m3", "pair"):
         check_backbone(kv)
     k2 = check_k2()
+    k2h = check_k2("bfloat16")
 
     # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)
@@ -950,6 +1115,10 @@ def main(argv=None) -> int:
         f"of A; recorded, not a failure)")
     log(f"F solo-stream TTFA {runs['F']['solo_ttfa_s'] * 1e3:.1f} ms vs A's "
         f"4-stream TTFA median {a['ttfa_median_s'] * 1e3:.1f} ms")
+    g = runs["G"]
+    log(f"G text-stream TTFA {max(g['text_stream_ttfa']) * 1e3:.1f} ms (the "
+        f"later of two) vs its /generate streams' "
+        f"{max(g['generate_ttfa']) * 1e3:.1f} ms")
 
     def quant_worst(key):
         return max(decode["K1q int8"][key], decode["K1q f8_e4m3"][key])
@@ -976,6 +1145,10 @@ def main(argv=None) -> int:
          "source": "vox_serve_tpu_torch/csrc/resunit.cu",
          "replaces": "vox_serve_tpu/ops/pallas_resunit.py:150",
          "launches": total[K2], **k2},
+        {"name": K2H, "route": "cuda",
+         "source": "vox_serve_tpu_torch/csrc/resunit.cu",
+         "replaces": "vox_serve_tpu/ops/pallas_resunit.py:150",
+         "launches": total[K2H], **k2h},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

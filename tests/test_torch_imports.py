@@ -29,6 +29,8 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.ops.attention",
     "vox_serve_tpu_torch.ops.resunit",
     "vox_serve_tpu_torch.codecs.qwen3_codec",
+    "vox_serve_tpu_torch.scheduler.input_streaming",
+    "vox_serve_tpu_torch.scheduler.offline",
 ]
 
 

@@ -19,6 +19,11 @@ from vox_serve_tpu_torch.ops import kernels, resunit
 torch.set_num_threads(1)
 CARD_TOL = 2e-2
 K2_REL_TOL = 1e-4  # f32, relative to max |ref|: sum order, sinf vs sin
+# bf16, relative to max |ref|: kernel and plain version round y, z and the
+# output to bf16 at the same points; another f32 sum order flips a rounding
+# by one bf16 step (2^-7 of the top binade), and a flip carried through the
+# chained units can add one more
+K2_BF16_REL_TOL = 2.0 ** -6
 
 
 def _decode_case(seed, B, H, KH, D, L, P, page, maxp):
@@ -278,6 +283,97 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, C, B, t1, t2):
     assert kernels.launch_counts()["fused_resunit_stack"] == before + 36
 
 
+def _k2_bf16_case(dev, C, B, T, seed):
+    """bf16 units (as the codec serves them at codec_dtype bfloat16), x and
+    caches on the card."""
+    g = torch.Generator().manual_seed(seed)
+    units = [{k: (v.to(dev, torch.bfloat16) if torch.is_tensor(v) else
+                  {kk: vv.to(dev, torch.bfloat16) for kk, vv in v.items()})
+              for k, v in u.items()} for u in _units(g, C)]
+    x = (torch.randn((B, C, T), generator=g) * 0.5).to(dev, torch.bfloat16)
+    caches = [(torch.randn((B, C, 6 * d), generator=g) * 0.5).to(
+        dev, torch.bfloat16) for d in (1, 3, 9)]
+    return units, x, caches
+
+
+def _assert_k2_bf16_close(pairs):
+    for a, b in pairs:
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        rel = ((a.float() - b.float()).abs().max().item()
+               / b.float().abs().max().item())
+        assert rel < K2_BF16_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("C,t1,t2", [
+    (768, 160, 160),   # the four decoder blocks of a 10-frame detokenize
+    (384, 800, 800),
+    (192, 3200, 3200),
+    (96, 9600, 9600),
+    (96, 55, 82),      # a chunk just above the 54-sample gate, odd T
+])
+def test_k2_bf16_kernel_matches_plain_on_card(cuda_device, B, C, t1, t2):
+    """K2 in bf16 against its bf16 plain version (the Pallas kernel's
+    rounding points): whole with zero halos and from caches, then over two
+    streamed chunks, outputs and new caches within 2^-6 of max |ref|; the
+    launches counted under the bf16 counter only."""
+    units, x, caches = _k2_bf16_case(cuda_device, C, B, t1 + t2, C + B)
+    before = kernels.launch_counts()
+    pairs = []
+    for cs in (None, caches):
+        out, nc = resunit.fused_resunit_stack(x, units, cs)
+        ref, rc = resunit.fused_resunit_stack_plain(x, units, cs)
+        pairs += [(out, ref)] + ([] if cs is None else list(zip(nc, rc)))
+    kc = pc = caches
+    for sl in (slice(0, t1), slice(t1, None)):
+        o, kc = resunit.fused_resunit_stack(x[..., sl], units, kc)
+        r, pc = resunit.fused_resunit_stack_plain(x[..., sl], units, pc)
+        pairs += [(o, r)]
+    pairs += list(zip(kc, pc))
+    torch.cuda.synchronize()
+    _assert_k2_bf16_close(pairs)
+    after = kernels.launch_counts()
+    assert after["fused_resunit_stack_bf16"] == (
+        before["fused_resunit_stack_bf16"] + 36)
+    assert after["fused_resunit_stack"] == before["fused_resunit_stack"]
+
+
+@pytest.mark.cuda
+def test_k2_bf16_kernel_in_a_captured_graph(cuda_device):
+    """A captured graph of two streamed bf16 stacks replays what the eager
+    launches compute, over inputs refilled in place between replays."""
+    C, B, T = 192, 2, 160
+    units, x, caches = _k2_bf16_case(cuda_device, C, B, T, 31)
+    static_x = x.clone()
+    static_c = [c.clone() for c in caches]
+
+    def body():
+        o, nc = resunit.fused_resunit_stack(static_x, units, static_c)
+        return resunit.fused_resunit_stack(o, units, nc)
+
+    body()  # packs the weights before capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_caches = body()
+    for seed in (1, 2):
+        _, x2, c2 = _k2_bf16_case(cuda_device, C, B, T, 31 + seed)
+        static_x.copy_(x2)
+        for s, c in zip(static_c, c2):
+            s.copy_(c)
+        graph.replay()
+        o, nc = resunit.fused_resunit_stack_plain(x2, units, c2)
+        ref, rc = resunit.fused_resunit_stack_plain(o, units, nc)
+        torch.cuda.synchronize()
+        _assert_k2_bf16_close([(g_out, ref), *zip(g_caches, rc)])
+
+
 @pytest.mark.cuda
 def test_new_kernels_reject_wrong_inputs_on_card(cuda_device):
     q, pool, tables, seq = _decode_case(12, 2, 16, 8, 128, 1, 20, 16, 2)
@@ -296,10 +392,10 @@ def test_new_kernels_reject_wrong_inputs_on_card(cuda_device):
             sb)
     g = torch.Generator().manual_seed(1)
     units = _units(g, 16)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32"):  # float16: no kernel
         resunit.fused_resunit_stack(
             torch.zeros((1, 16, 80), device=cuda_device,
-                        dtype=torch.bfloat16), units, None)
+                        dtype=torch.float16), units, None)
     units12 = _units(g, 12)
     with pytest.raises(ValueError, match="multiple of 8"):
         resunit.fused_resunit_stack(torch.zeros((1, 12, 80),

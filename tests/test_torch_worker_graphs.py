@@ -315,6 +315,41 @@ def test_detokenize_graph_matches_eager_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_bf16_codec_detokenize_graph_matches_eager_on_card(cuda_device,
+                                                          monkeypatch):
+    """codec_dtype bfloat16 with the fused stacks: every codec tensor is
+    bf16 before anything is captured, the detokenize graph replays its
+    eager body bit for bit, and each replay launches K2's bf16 entry (the
+    two decoder blocks longer than 54 samples: 2 stacks, 18 launches) and
+    never the float32 one."""
+    monkeypatch.setenv("VOX_FUSED_RESUNIT", "1")
+    w = _first_chunk_worker(cuda_device, _qwen3(cuda_device, 256),
+                            codec_dtype="bfloat16")
+    assert w.codec_dtypes() == ["bfloat16"]
+    rng = np.random.default_rng(2)
+    C, B, L = w.model.n_codebooks, 4, 4
+    pack = np.zeros((B * L * C + B,), np.int32)
+    toks, slots = w._detok_pack_views(pack, B, L, C)
+    toks[:3] = rng.integers(0, 2048, (3, L, C))
+    slots[:] = [2, 0, 1, w.config.max_batch_size]
+    for leaf in tree_leaves(w.codec_cache):
+        if leaf.is_floating_point():
+            leaf.normal_()
+    before = kernels.launch_counts()
+    out = _graph_vs_eager(w, ("detok", B, L), (pack,))
+    assert out[0].dtype == torch.int16 and out[0].shape[0] == B
+    step = w._steps.get(("detok", B, L))
+    counts = {(fn.__name__, field): n for fn, field, n in step.counts}
+    assert counts == {("fused_resunit_stack_bf16", "stacks"): 2,
+                      ("fused_resunit_stack_bf16", "launches"): 18}
+    after = kernels.launch_counts()
+    # one replay and the test's own eager call
+    assert after["fused_resunit_stack_bf16"] == (
+        before["fused_resunit_stack_bf16"] + 36)
+    assert after["fused_resunit_stack"] == before["fused_resunit_stack"]
+
+
+@pytest.mark.cuda
 def test_chained_first_chunk_graphs_match_eager_on_card(cuda_device):
     """decode_multi_detok after a prefill, and the cold chain over the two
     packs staged as one buffer."""

@@ -26,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..models.backbone import _init_linear, linear
+from ..models.backbone import _init_linear, linear, promoted
 from ..ops.kernels import NEG_INF
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.resunit import fused_resunit_stack, use_fused_resunit
@@ -346,11 +346,12 @@ def _transformer(params: dict, cfg: Qwen3CodecConfig, x: torch.Tensor,
             new_v.append(v_all)
         k_r = k_all.repeat_interleave(rep, dim=2) if rep > 1 else k_all
         v_r = v_all.repeat_interleave(rep, dim=2) if rep > 1 else v_all
-        scores = torch.einsum("bthd,bshd->bhts", q * scale, k_r)
+        scores = torch.einsum("bthd,bshd->bhts", *promoted(q * scale, k_r))
         scores = torch.where(mask[:, None], scores,
                              torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bhts,bshd->bthd", probs, v_r).reshape(B, T, H * hd)
+        attn = torch.einsum("bhts,bshd->bthd",
+                            *promoted(probs, v_r)).reshape(B, T, H * hd)
         h = h + lp["ls_attn"] * linear(lp["o"], attn)
         xin2 = rms_norm(h, lp["post_norm"], cfg.rms_eps)
         mlp = linear(lp["down"], F.silu(linear(lp["gate"], xin2))

@@ -55,7 +55,22 @@
 // per 16 clocks of math (a 64-wide one 4 KB per 32); and at C=96 the y and
 // z round trips through L2 and HBM. The snake pass is under 10% of a unit.
 // sinf, not __sinf: snake arguments are not small. No fast-math.
+//
+// The bf16 stack (`vox_resunit_bf16`, the codec served at codec_dtype
+// bfloat16) keeps the same three launches and implicit-GEMM shape with
+// bf16 operands: the rounding points of the Pallas kernel in its serving
+// dtype (pallas_resunit.py:80-101): snake1 in f32, rounded to one bf16
+// plane y (which is also the new cache); both convs accumulate bf16
+// products in f32 (wgmma m64nNk16.f32.bf16.bf16, one product where 3xTF32
+// takes three, at the 989 TFLOP/s bf16 peak); conv1's epilogue adds b1
+// and applies snake2 in f32, rounded to a bf16 plane z; conv2's adds b2
+// and the residual in f32 and rounds the output to bf16. A 16-byte row
+// holds 8 channels, so a conv1 stage stages 16 channels (one k16 step per
+// tap) and a tap's shift by j*dil rows is still whole 16-byte rows. One
+// accumulator sums the whole K: the tensor core's truncation (~1e-5) is
+// far below bf16's rounding (2^-9), so no per-stage partial sums.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,7 +109,7 @@ __device__ __forceinline__ float2 split(float v) {
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills when
 // !pred (the source is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -102,9 +117,9 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 }
 
 // shared-memory matrix descriptor of a K-major tile without swizzle: rows
-// of 16 bytes (4 tf32 along K), 8-row core matrices 128 bytes apart, the
-// next 4 K at `kstride` bytes
-__device__ __forceinline__ uint64_t desc(const float* p, int kstride) {
+// of 16 bytes (4 tf32 or 8 bf16 along K), 8-row core matrices 128 bytes
+// apart, the next 16 bytes of K at `kstride` bytes
+__device__ __forceinline__ uint64_t desc(const void* p, int kstride) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   return (uint64_t)((a >> 4) & 0x3FFF) |
          ((uint64_t)((kstride >> 4) & 0x3FFF) << 16) |
@@ -358,6 +373,240 @@ int launch_tiles(const Args& a, int bm, int bn, cudaStream_t st) {
   return -1;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the same unit with bf16 operands and f32 accumulation and snake
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+struct ArgsH {
+  const bf16* act;   // conv1: y, conv2: z; (B, act_len, C), one plane
+  int act_len;       // time rows of act per batch row
+  const bf16* w;     // (taps, C/8, C, 8), K-major
+  const float* bias;  // (C,)
+  const float* af2;   // snake2 constants (C,); conv1
+  const float* bi2;
+  const bf16* res;   // residual x (B, C, T); conv2
+  bf16* dst;         // conv1: z (B, T, C); conv2: out (B, C, T)
+  int B, C, T, dil;
+};
+
+// D (64 x N, f32, in registers) = A (64 x 16) * B (N x 16)^T (+ D if acc),
+// both operands bf16, K-major, in shared memory; one warpgroup
+template <int N>
+__device__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db,
+                           int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// y = (halo, bf16(snake1(x))) transposed to channel-minor rows, (B, pad +
+// T, C); the new cache is the last pad rounded samples. A 32 x 32
+// (channel, sample) tile per block of 32 x 8.
+__global__ void __launch_bounds__(256)
+    resunit_snake_bf16(const bf16* __restrict__ x,
+                       const bf16* __restrict__ cache,
+                       bf16* __restrict__ ncache, const float* __restrict__ af,
+                       const float* __restrict__ bi, bf16* __restrict__ y,
+                       int B, int C, int T, int pad) {
+  __shared__ unsigned short tile[32][34];  // bf16 bits
+  const int ylen = pad + T;
+  const int u0 = blockIdx.x * 32, c0 = blockIdx.y * 32, b = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty + 8 * i, u = u0 + tx;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (c < C && u < ylen) {
+      const int64_t row = (int64_t)b * C + c;
+      if (u < pad) {
+        if (cache) v = cache[row * pad + u];
+      } else {
+        const int s = u - pad;
+        v = __float2bfloat16_rn(
+            snake(__bfloat162float(x[row * T + s]), af[c], bi[c]));
+        if (ncache && s >= T - pad) ncache[row * pad + s - (T - pad)] = v;
+      }
+    }
+    tile[ty + 8 * i][tx] = __bfloat16_as_ushort(v);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = u0 + ty + 8 * i, c = c0 + tx;
+    if (c < C && u < ylen)
+      y[((int64_t)b * ylen + u) * C + c] =
+          __ushort_as_bfloat16(tile[tx][ty + 8 * i]);
+  }
+}
+
+template <int BM, int BN, bool kConv1>
+struct GemmH {
+  static constexpr int stages = 2;
+  static constexpr int threads = 2 * BM;          // a warpgroup per 64 rows
+  static constexpr int KC = kConv1 ? 16 : 32;     // input channels per stage
+  static constexpr int KC8 = KC / 8;              // 16-byte chunks of K
+  static constexpr int taps = kConv1 ? 7 : 1;
+  static constexpr int steps = kConv1 ? 7 : KC / 16;  // k16 steps per stage
+  static constexpr int wstage = taps * KC * BN;   // bf16 of weights
+  __host__ __device__ static constexpr int rows(int dil) {
+    return BM + (kConv1 ? 6 * dil : 0);
+  }
+  static constexpr size_t smem(int dil) {
+    return stages * sizeof(bf16) * (wstage + KC * rows(dil));
+  }
+};
+
+template <int BM, int BN, bool kConv1>
+__global__ void __launch_bounds__(2 * BM) resunit_gemm_bf16(const ArgsH a) {
+  using G = GemmH<BM, BN, kConv1>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int C = a.C, T = a.T;
+  const int R = G::rows(a.dil);
+  constexpr int S = G::stages;
+  bf16* ws = smem;                   // [S][tap][KC8][BN][8]
+  bf16* as = smem + S * G::wstage;   // [S][KC8][R][8]
+  const int aslot = G::KC * R;
+
+  const int t0 = blockIdx.x * BM, n0 = blockIdx.y * BN, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const bf16* act = a.act + (int64_t)b * a.act_len * C;
+
+  // stage k: runs (tap, chunk) of BN weight rows, and runs (chunk) of R
+  // activation rows from row t0 (y's rows count the halo)
+  auto load_stage = [&](int slot, int k) {
+    bf16* wd = ws + slot * G::wstage;
+    for (int v = tid; v < G::taps * G::KC8 * BN; v += G::threads) {
+      const int run = v / BN, n = v - run * BN;
+      const int tap = run / G::KC8, c8 = k * G::KC8 + run % G::KC8;
+      const bool ok = n0 + n < C && 8 * c8 < C;
+      const bf16* s = a.w + (((int64_t)tap * (C / 8) + c8) * C + n0 + n) * 8;
+      cp_async16(wd + 8 * v, ok ? s : a.w, ok);
+    }
+    bf16* ad = as + slot * aslot;
+    for (int v = tid; v < G::KC8 * R; v += G::threads) {
+      const int run = v / R, r = v - run * R;
+      const int ci = G::KC * k + 8 * run;
+      const bool ok = t0 + r < a.act_len && ci < C;
+      const bf16* s = act + (int64_t)(t0 + r) * C + ci;
+      cp_async16(ad + 8 * v, ok ? s : a.act, ok);
+    }
+  };
+
+  constexpr int NA = BN / 2;  // accumulator floats per thread
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+
+  const int nk = (C + G::KC - 1) / G::KC;
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {
+    if (k < nk) load_stage(k, k);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int k = 0; k < nk; ++k) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 2));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // stage k landed; every warpgroup is done with k-1
+    if (k + S - 1 < nk) load_stage((k + S - 1) % S, k + S - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const bf16* wst = ws + (k % S) * G::wstage;
+    const bf16* a0 = as + (k % S) * aslot + 64 * 8 * wg;
+    fence_operands(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < G::steps; ++s) {
+      // conv1: step s is tap s, its rows shifted by s*dil; conv2: step s is
+      // chunks 2s, 2s+1. Either way the weights are chunks 2s, 2s+1.
+      const bf16* ap = a0 + (kConv1 ? s * a.dil : 2 * s * R) * 8;
+      const bf16* wp = wst + 2 * s * BN * 8;
+      wgmma_bf16<BN>(acc, desc(ap, R * 16), desc(wp, BN * 16),
+                     k > 0 || s > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(acc);
+  }
+
+  // epilogue: accumulator 4i + 2e0 + e1 is time step 64wg + 16w + g + 8e0,
+  // channel 8i + 2q + e1 (w the warp of the warpgroup)
+  const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int co = n0 + 8 * i + 2 * q;
+    if (co >= C) continue;
+    const float b0 = a.bias[co], b1 = a.bias[co + 1];
+#pragma unroll
+    for (int e0 = 0; e0 < 2; ++e0) {
+      const int t = t0 + 64 * wg + 16 * w + g + 8 * e0;
+      if (t >= T) continue;
+      const float v0 = acc[4 * i + 2 * e0] + b0;
+      const float v1 = acc[4 * i + 2 * e0 + 1] + b1;
+      if (kConv1) {
+        *reinterpret_cast<__nv_bfloat162*>(a.dst + ((int64_t)b * T + t) * C +
+                                           co) =
+            __floats2bfloat162_rn(snake(v0, a.af2[co], a.bi2[co]),
+                                  snake(v1, a.af2[co + 1], a.bi2[co + 1]));
+      } else {
+        const int64_t o = ((int64_t)b * C + co) * T + t;
+        a.dst[o] = __float2bfloat16_rn(__bfloat162float(a.res[o]) + v0);
+        a.dst[o + T] =
+            __float2bfloat16_rn(__bfloat162float(a.res[o + T]) + v1);
+      }
+    }
+  }
+}
+
+template <int BM, int BN, bool kConv1>
+int launch_bf16(const ArgsH& a, cudaStream_t stream) {
+  using G = GemmH<BM, BN, kConv1>;
+  const size_t smem = G::smem(a.dil);
+  cudaError_t err = cudaFuncSetAttribute(
+      resunit_gemm_bf16<BM, BN, kConv1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.T + BM - 1) / BM, (a.C + BN - 1) / BN, a.B);
+  resunit_gemm_bf16<BM, BN, kConv1><<<grid, G::threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kConv1>
+int launch_tiles_bf16(const ArgsH& a, int bm, int bn, cudaStream_t st) {
+  if (bn == 64 && bm == 128) return launch_bf16<128, 64, kConv1>(a, st);
+  if (bn == 64 && bm == 64) return launch_bf16<64, 64, kConv1>(a, st);
+  if (bn == 32 && bm == 128) return launch_bf16<128, 32, kConv1>(a, st);
+  if (bn == 32 && bm == 64) return launch_bf16<64, 32, kConv1>(a, st);
+  return -1;
+}
+
 }  // namespace
 
 // Plain C entry, loaded with ctypes: one residual unit, three launches
@@ -394,4 +643,37 @@ extern "C" int vox_resunit(const void* x, const void* cache, const void* w1,
   Args a2{f(z), T, f(w2), f(b2), nullptr, nullptr, f(x), (float*)out, B, C,
           T, dil};
   return launch_tiles<false>(a2, bm, bn, st);
+}
+
+// The same unit in bf16: x, out, cache, ncache, y (B*(6*dil + T)*C
+// elements), z (B*T*C) and the weights, w1: (7, C/8, C, 8) and w2: (1,
+// C/8, C, 8), K-major, are bf16; b1, b2, af1, bi1, af2, bi2 stay float32.
+// Same contract and return codes as vox_resunit.
+extern "C" int vox_resunit_bf16(const void* x, const void* cache,
+                                const void* w1, const void* b1,
+                                const void* w2, const void* b2,
+                                const void* af1, const void* bi1,
+                                const void* af2, const void* bi2, void* y,
+                                void* z, void* out, void* ncache, int B,
+                                int C, int T, int dil, int bm, int bn,
+                                void* stream) {
+  if (dil < 1 || 6 * dil > kMaxPad || C % 8) return -1;
+  if ((bm != 64 && bm != 128) || (bn != 32 && bn != 64)) return -1;
+  if (B == 0 || T == 0) return 0;
+  auto f = [](const void* p) { return (const float*)p; };
+  auto h = [](const void* p) { return (const bf16*)p; };
+  cudaStream_t st = (cudaStream_t)stream;
+  const int pad = 6 * dil;
+  dim3 sgrid((pad + T + 31) / 32, (C + 31) / 32, B);
+  resunit_snake_bf16<<<sgrid, dim3(32, 8), 0, st>>>(
+      h(x), h(cache), (bf16*)ncache, f(af1), f(bi1), (bf16*)y, B, C, T, pad);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ArgsH a1{h(y), pad + T, h(w1), f(b1), f(af2), f(bi2), nullptr, (bf16*)z,
+           B, C, T, dil};
+  err = launch_tiles_bf16<true>(a1, bm, bn, st);
+  if (err != 0) return err;
+  ArgsH a2{h(z), T, h(w2), f(b2), nullptr, nullptr, h(x), (bf16*)out, B, C,
+           T, dil};
+  return launch_tiles_bf16<false>(a2, bm, bn, st);
 }

@@ -14,6 +14,9 @@ one per data-parallel rank. The JAX launcher's serving profiles
         --first-chunk-frames 3 --fused-decode-steps 4 \
         --fused-decode-buckets 1,4 --pipeline-depth 2 \
         --detok-pipeline-depth 2
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts \
+        --scheduler-type input_streaming --codec-dtype bfloat16 \
+        --kv-reserve-fraction 0.5
 
 The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
 serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
@@ -40,7 +43,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scheduler-type", default="online",
-                   choices=["base", "online"])
+                   choices=["base", "online", "offline", "input_streaming"])
+    p.add_argument("--async-scheduling", action="store_true",
+                   help="overlap host scheduling with the device: decode "
+                        "readback pipelined at depth 2 unless "
+                        "--pipeline-depth is set")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch-size", type=int, default=8)
@@ -105,8 +112,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-tokens", type=int, default=None)
     p.add_argument("--repetition-penalty", type=float, default=None)
     p.add_argument("--repetition-window", type=int, default=None)
+    p.add_argument("--cfg-scale", type=float, default=None)
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--detokenize-interval", type=int, default=None)
+    p.add_argument("--codec-dtype", default=None,
+                   help="serve the audio codec at this dtype (bfloat16)")
+    p.add_argument("--kv-reserve-fraction", type=float, default=None,
+                   help="fraction of the worst-case generation budget "
+                        "reserved at admission (1.0 = never defer; <1 "
+                        "overcommits for concurrency)")
+    p.add_argument("--enable-profiling", action="store_true",
+                   help="torch.profiler ranges around the worker's step "
+                        "dispatches")
     p.add_argument("--dp-size", type=int, default=1)
     p.add_argument("--stats-file", default=None,
                    help="scheduler daemon writes kernel launch counts and "
@@ -124,6 +141,11 @@ def main(argv=None) -> None:
     from .models import get_model_class, resolve_device
 
     resolve_device(args.device)  # fail here, not in the daemon
+    if args.async_scheduling and (args.pipeline_depth or 0) >= 2:
+        logger.warning(
+            "--async-scheduling: decode readback is already pipelined "
+            "(pipeline_depth=%d); the flag adds nothing here. It only has "
+            "an effect with --pipeline-depth 0/1.", args.pipeline_depth)
     cls = get_model_class(args.model)  # validates the name early
     sample_rate = getattr(cls, "SAMPLE_RATE", None) or 24000
 
@@ -158,8 +180,12 @@ def main(argv=None) -> None:
         "temperature": args.temperature, "max_tokens": args.max_tokens,
         "repetition_penalty": args.repetition_penalty,
         "repetition_window": args.repetition_window,
-        "greedy": args.greedy,
+        "cfg_scale": args.cfg_scale, "greedy": args.greedy,
+        "async_scheduling": args.async_scheduling,
         "detokenize_interval": args.detokenize_interval,
+        "codec_dtype": args.codec_dtype,
+        "kv_reserve_fraction": args.kv_reserve_fraction,
+        "enable_profiling": args.enable_profiling,
         "stats_file": args.stats_file,
         "log_level": args.log_level,
     }

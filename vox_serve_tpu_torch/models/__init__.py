@@ -75,6 +75,7 @@ def load_model(
     max_tokens: Optional[int] = None,
     repetition_penalty: Optional[float] = None,
     repetition_window: Optional[int] = None,
+    cfg_scale: Optional[float] = None,
     greedy: bool = False,
     detokenize_interval: Optional[int] = None,
     **model_init_kwargs,
@@ -93,13 +94,20 @@ def load_model(
         ("top_p", top_p), ("top_k", top_k), ("min_p", min_p),
         ("temperature", temperature), ("max_tokens", max_tokens),
         ("repetition_penalty", repetition_penalty),
-        ("repetition_window", repetition_window),
+        ("repetition_window", repetition_window), ("cfg_scale", cfg_scale),
     ] if v is not None}
     if greedy:
         overrides["greedy"] = True
-    model.sampling_config = base.replace(**overrides) if overrides else base
     from ..utils import get_logger
 
+    if overrides.get("cfg_scale") is not None:
+        # as in the JAX package: the flag is plumbed, but no model applies
+        # classifier-free guidance in compute
+        get_logger("models").warning(
+            "--cfg-scale is accepted for reference CLI parity but "
+            "classifier-free guidance is not applied by any model (the "
+            "reference does not apply it either)")
+    model.sampling_config = base.replace(**overrides) if overrides else base
     get_logger("models").info("loaded model %s on %s with sampling %s",
                               model_name, device, model.sampling_config)
     return model

@@ -79,8 +79,19 @@ def _init_linear(generator: torch.Generator, d_in: int, d_out: int,
     return p
 
 
+def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The operands at their promoted dtype, as JAX promotes mixed operands
+    (in a bf16 codec, the float32 activations that follow its float32
+    rope meet bf16 weights and values)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    x, w = promoted(x, p["w"])
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

@@ -108,6 +108,8 @@ class BaseLM(abc.ABC):
     #: the sampled rows ARE audio-token rows, so a fused decode can feed its
     #: frames straight into the codec (the cold-start chain)
     supports_chained_detok: bool = False
+    #: serves the ``input_streaming`` scheduler (text arriving in pieces)
+    supports_input_streaming: bool = False
     #: set by the worker when the KV pool is quantized (int8/f8): static
     #: (k_scale, v_scale) dequant multipliers threaded into the backbone
     #: (ops/kv_cache.py KVCacheConfig.kv_scales)
@@ -153,6 +155,20 @@ class BaseLM(abc.ABC):
         """Absolute-position length cap: stop once prompt + generated
         positions exceed max_tokens."""
         return req.next_position_id > self.effective_max_tokens(req)
+
+    # ---- input streaming hooks ---------------------------------------------
+    #: the token column that carries streamed text (Qwen3's dual channel:
+    #: the last, -1)
+    text_channel_index: int = 0
+
+    def text_stream_pad_token(self) -> int:
+        raise NotImplementedError
+
+    def text_stream_eos_token(self) -> int:
+        raise NotImplementedError
+
+    def tokenize_text_stream(self, text: str) -> list[int]:
+        raise NotImplementedError
 
     # ---- step functions -----------------------------------------------------
     @abc.abstractmethod

@@ -27,6 +27,7 @@ class DummyLM(BaseLM):
     #: instantiating the model
     SAMPLE_RATE = 16000
     supports_chained_detok = True
+    supports_input_streaming = True
 
     def __init__(self, model_name: str = "dummy",
                  dtype: torch.dtype = torch.float32,
@@ -102,6 +103,32 @@ class DummyLM(BaseLM):
 
     def is_stop(self, token_ids: np.ndarray) -> bool:
         return int(token_ids[0]) == self.STOP_TOKEN
+
+    def update_request_state(self, req, sampled):
+        if req.is_input_streaming:
+            # a streamed session ends two steps after its injected text EOS
+            # (as Qwen3-TTS's trailing text does), not on a sampled stop
+            req.lm_output_tokens.append(sampled)
+            req.lm_output_audio_tokens.append(sampled)
+            if req.eos_injected:
+                req.extras["post_eos"] = req.extras.get("post_eos", 0) + 1
+            if req.extras.get("post_eos", 0) >= 2:
+                req.done_lm_generation = True
+                req.finish_reason = "stop"
+            elif self.hit_length_cap(req):
+                req.done_lm_generation = True
+                req.finish_reason = "length"
+            return
+        super().update_request_state(req, sampled)
+
+    def text_stream_pad_token(self) -> int:
+        return 0
+
+    def text_stream_eos_token(self) -> int:
+        return self.STOP_TOKEN
+
+    def tokenize_text_stream(self, text: str) -> list[int]:
+        return [(2 + (ord(c) % 62)) for c in text]
 
     # step functions -----------------------------------------------------
     def embed(self, params, token_ids, features, masks):

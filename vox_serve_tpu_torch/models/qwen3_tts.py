@@ -86,6 +86,8 @@ class Qwen3TTSLM(BaseLMWithDepth):
     needs_input_features = True
     needs_input_masks = True
     supports_chained_detok = True  # sampled rows are audio-token rows
+    supports_input_streaming = True
+    text_channel_index = -1
     assets_available = False
 
     def __init__(self, model_name: str = "Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
@@ -281,6 +283,15 @@ class Qwen3TTSLM(BaseLMWithDepth):
 
     def is_stop(self, token_ids: np.ndarray) -> bool:
         return int(token_ids[0]) == CODEC_EOS
+
+    def text_stream_pad_token(self) -> int:
+        return TTS_PAD
+
+    def text_stream_eos_token(self) -> int:
+        return TTS_EOS
+
+    def tokenize_text_stream(self, text: str) -> list[int]:
+        return self._encode_text(text)
 
     # ---- step functions ------------------------------------------------------
     def embed(self, params, token_ids, features, masks):

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their wrappers and their plain
 PyTorch versions.
 
-Five kernels, all CUDA C++ for ``sm_90a`` under ``csrc/``:
+Five kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
 
 * K1 ``paged_decode_attention`` (``csrc/paged_decode.cu``) replaces the
   Pallas ``ragged_paged_attention`` that vox_serve_tpu/ops/attention.py
@@ -16,7 +16,9 @@ Five kernels, all CUDA C++ for ``sm_90a`` under ``csrc/``:
   vox_serve_tpu/ops/pallas_prefill.py ``_pallas_prefill_call``;
 * K2 ``fused_resunit_stack`` (``csrc/resunit.cu``; wrapper in
   ``ops/resunit.py``) replaces vox_serve_tpu/ops/pallas_resunit.py
-  ``fused_resunit_stack``.
+  ``fused_resunit_stack`` over float32 activations (3xTF32), and its bf16
+  entry, counted as ``fused_resunit_stack_bf16``, the same Pallas kernel
+  in the bf16 serving dtype.
 
 Build: ``nvcc`` compiles every source into one shared library with a plain
 C interface, loaded with ``ctypes``, at the first launch (or an explicit
@@ -147,8 +149,9 @@ def build(verbose: bool = False) -> Path:
             lib.vox_ragged_prefill_attention.argtypes = [
                 vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
             lib.vox_ragged_prefill_attention.restype = ci
-            lib.vox_resunit.argtypes = [vp] * 14 + [ci] * 6 + [vp]
-            lib.vox_resunit.restype = ci
+            for entry in (lib.vox_resunit, lib.vox_resunit_bf16):
+                entry.argtypes = [vp] * 14 + [ci] * 6 + [vp]
+                entry.restype = ci
             _lib = lib
         return path
 
@@ -633,7 +636,7 @@ ragged_prefill_attention.launches = 0
 
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
-    from .resunit import fused_resunit_stack
+    from .resunit import fused_resunit_stack, fused_resunit_stack_bf16
 
     return {
         "paged_decode_attention": paged_decode_attention,
@@ -641,11 +644,13 @@ def wrappers() -> dict:
         "paged_decode_attention_pair": paged_decode_attention_pair,
         "ragged_prefill_attention": ragged_prefill_attention,
         "fused_resunit_stack": fused_resunit_stack,
+        "fused_resunit_stack_bf16": fused_resunit_stack_bf16,
     }
 
 
 #: the counters a wrapper keeps beside ``launches`` (K2 also counts stacks)
-_EXTRA_COUNTERS = {"fused_resunit_stack": ("stacks",)}
+_EXTRA_COUNTERS = {"fused_resunit_stack": ("stacks",),
+                   "fused_resunit_stack_bf16": ("stacks",)}
 
 
 def launch_counts() -> dict[str, int]:

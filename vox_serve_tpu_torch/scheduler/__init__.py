@@ -1,12 +1,17 @@
 """Scheduler registry of the port (vox_serve_tpu/scheduler/__init__.py,
-with the two schedulers ported so far: base and online)."""
+with the schedulers ported so far: base, online, offline and
+input_streaming; disaggregation is not ported)."""
 
 from .base import Scheduler
+from .input_streaming import InputStreamingScheduler
+from .offline import OfflineScheduler
 from .online import OnlineScheduler
 
 SCHEDULER_REGISTRY: dict[str, type[Scheduler]] = {
     "base": Scheduler,
     "online": OnlineScheduler,
+    "offline": OfflineScheduler,
+    "input_streaming": InputStreamingScheduler,
 }
 
 

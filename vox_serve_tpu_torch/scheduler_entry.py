@@ -13,18 +13,24 @@ graph at its first use instead of at start-up), ``--prefill-buckets``,
 ``--detok-pipeline-depth``, ``--first-chunk-frames``, ``--ramp-frames``,
 ``--fused-decode-steps``, ``--fused-decode-buckets``, ``--fused-k-schedule``,
 ``--fused-min-batch``, ``--decode-buckets``, ``--table-width-buckets``,
-``--detok-buckets`` and ``--detok-frame-budget``.
+``--detok-buckets``, ``--detok-frame-budget``, ``--codec-dtype``,
+``--kv-reserve-fraction`` and ``--enable-profiling``; ``--cfg-scale``
+overlays the model's sampling defaults, and ``--async-scheduling`` maps to
+decode pipelining at depth 2 when ``--pipeline-depth`` is 0, as there.
 
 ``--stats-file PATH``: the daemon zeroes the kernel launch counters and the
 worker's step counters just before its loop starts and, when it is
 terminated, writes the counts, the worker's per-phase wall times, its
-step counters (graphs captured, replays per kind, decode steps taken,
-eager step calls on the card per kind, the kernel counts one replay of
-each graph adds, capture seconds, each graph's device ms per replay from
-the start-up probe, the deepest readback pipelines seen, cold starts by
-path, the graph pool's size) and the configuration it served (KV layout
-and pool dtype, whether the codec ran the fused residual-unit stacks, the
-fused-decode, pipeline, first-chunk and bucket settings) there as JSON: how a caller that drives the daemon over
+step counters (graphs captured, replays per kind, the first and last
+ordinal of each kind's replays, decode steps taken, eager step calls on
+the card per kind, the kernel counts one replay of each graph adds,
+capture seconds, each graph's device ms per replay from the start-up
+probe, the deepest readback pipelines seen, cold starts by path, the
+graph pool's size) and the configuration it served (scheduler type, KV
+layout and pool dtype, whether the codec ran the fused residual-unit
+stacks, the codec's tensor dtypes as read from its parameters and cache,
+the KV reserve fraction, the fused-decode, pipeline, first-chunk and
+bucket settings) there as JSON: how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
 """
@@ -51,7 +57,8 @@ def _run_scheduler_daemon(args) -> None:
 
     from .models import load_model
     from .ops import kernels
-    from .ops.resunit import fused_resunit_stack, use_fused_resunit
+    from .ops.resunit import (fused_resunit_stack, fused_resunit_stack_bf16,
+                              use_fused_resunit)
     from .scheduler import load_scheduler
     from .worker import ModelWorker, WorkerConfig
 
@@ -60,9 +67,16 @@ def _run_scheduler_daemon(args) -> None:
         top_p=args.top_p, top_k=args.top_k, min_p=args.min_p,
         temperature=args.temperature, max_tokens=args.max_tokens,
         repetition_penalty=args.repetition_penalty,
-        repetition_window=args.repetition_window, greedy=args.greedy,
-        detokenize_interval=args.detokenize_interval,
+        repetition_window=args.repetition_window, cfg_scale=args.cfg_scale,
+        greedy=args.greedy, detokenize_interval=args.detokenize_interval,
     )
+    # --async-scheduling (the reference's overlapped batch selection) maps
+    # to decode pipelining, as in the JAX daemon: the graph replays already
+    # run ahead of the host, and pipeline_depth defers the sampled-token
+    # readback
+    pipeline_depth = args.pipeline_depth
+    if args.async_scheduling and pipeline_depth == 0:
+        pipeline_depth = 2
     wcfg = WorkerConfig(
         max_batch_size=args.max_batch_size,
         num_pages=args.max_num_pages,
@@ -70,7 +84,7 @@ def _run_scheduler_daemon(args) -> None:
         max_prefill_requests=args.max_prefill_requests,
         seed=args.seed,
         warmup=not args.no_warmup,
-        pipeline_depth=args.pipeline_depth,
+        pipeline_depth=pipeline_depth,
         detok_pipeline_depth=args.detok_pipeline_depth,
         first_chunk_frames=args.first_chunk_frames,
         ramp_frames=args.ramp_frames,
@@ -82,6 +96,10 @@ def _run_scheduler_daemon(args) -> None:
         decode_buckets_override=_parse_buckets(args.decode_buckets),
         table_width_buckets=_parse_buckets(args.table_width_buckets),
         detok_buckets_override=_parse_buckets(args.detok_buckets),
+        codec_dtype=args.codec_dtype,
+        enable_profiling=args.enable_profiling,
+        **({"kv_reserve_fraction": args.kv_reserve_fraction}
+           if args.kv_reserve_fraction is not None else {}),
         **({"detok_frame_budget": args.detok_frame_budget}
            if args.detok_frame_budget is not None else {}),
         **({"prefill_token_buckets": _parse_buckets(args.prefill_buckets)}
@@ -102,6 +120,7 @@ def _run_scheduler_daemon(args) -> None:
         max_batch_size=args.max_batch_size,
         rank=args.rank,
         socket_suffix=args.socket_suffix,
+        async_scheduling=args.async_scheduling,
     )
     if args.stats_file:
         from .params import tree_leaves
@@ -112,10 +131,14 @@ def _run_scheduler_daemon(args) -> None:
         param_count = {"lm": _count(model.params),
                        "codec": _count(model.codec_params)}
         served = {
+            "scheduler_type": args.scheduler_type,
             "kv_layout": "combined" if worker.kv_config.combined else "pair",
             "kv_pool_dtype": str(worker.k_pages.dtype).removeprefix("torch."),
             "kv_scales": worker.kv_config.kv_scales,
             "fused_resunit": use_fused_resunit(),
+            "codec_dtypes": worker.codec_dtypes(),
+            "kv_reserve_fraction": wcfg.kv_reserve_fraction,
+            "async_scheduling": args.async_scheduling,
             "fused_decode_steps": wcfg.fused_decode_steps,
             "fused_decode_buckets": list(wcfg.fused_decode_buckets),
             "pipeline_depth": wcfg.pipeline_depth,
@@ -131,6 +154,8 @@ def _run_scheduler_daemon(args) -> None:
             with open(args.stats_file, "w") as f:
                 json.dump({"launches": kernels.launch_counts(),
                            "resunit_stacks": fused_resunit_stack.stacks,
+                           "resunit_bf16_stacks":
+                               fused_resunit_stack_bf16.stacks,
                            "phase_stats": worker.phase_stats,
                            "steps": worker.step_stats(),
                            "param_count": param_count, **served}, f)
@@ -153,7 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scheduler-type", default="online",
-                   choices=["base", "online"])
+                   choices=["base", "online", "offline", "input_streaming"])
+    p.add_argument("--async-scheduling", action="store_true")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--max-num-pages", type=int, default=2048)
@@ -199,8 +225,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-tokens", type=int, default=None)
     p.add_argument("--repetition-penalty", type=float, default=None)
     p.add_argument("--repetition-window", type=int, default=None)
+    p.add_argument("--cfg-scale", type=float, default=None)
     p.add_argument("--greedy", action="store_true")
     p.add_argument("--detokenize-interval", type=int, default=None)
+    p.add_argument("--codec-dtype", default=None,
+                   help="serve the audio codec at this dtype (bfloat16)")
+    p.add_argument("--kv-reserve-fraction", type=float, default=None)
+    p.add_argument("--enable-profiling", action="store_true")
     p.add_argument("--stats-file", default=None,
                    help="write kernel launch counts and phase times here "
                         "as JSON when terminated")

@@ -49,8 +49,24 @@ new stream's first frames in short windows (F, F, 2F, ... frames) through
 the mini detokenize graphs before regular windows take over; the online
 scheduler selects them.
 
-Not ported yet: input streaming (the packs' override columns stay zero),
-tensor parallelism and weight quantisation.
+Streamed text input (the ``input_streaming`` scheduler): a decode row of
+an input-streaming request takes its next queued text token (then the
+model's text EOS once, then pad) in the pack's override columns of the
+model's text channel (``_inject_streaming_text_token``), planned after the
+row's hard-stop and KV backpressure checks so that a row that does not
+step consumes nothing.
+
+``codec_dtype`` serves the codec at another dtype ("bfloat16"): every
+float32 leaf of the codec parameters and of the codec cache is cast before
+the cache is built and before any graph is captured, so graphs and K2's
+packed weights read the cast tensors. ``kv_reserve_fraction`` below 1
+overcommits the KV pool: admission reserves that share of a request's
+generation budget, and a decode row that finds no page is deferred until a
+completion frees one. ``enable_profiling`` wraps each step dispatch in a
+``torch.profiler.record_function`` range (the JAX worker's trace
+annotations).
+
+Not ported: tensor parallelism and weight quantisation.
 
 Float32 matmuls and convolutions run in full float32 on the card
 (``allow_tf32`` off for cuBLAS and cuDNN, set here): the codec runs in
@@ -59,6 +75,7 @@ float32 in the JAX reference too, and TF32 would keep ~10 mantissa bits.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -152,6 +169,15 @@ class WorkerConfig:
     fused_k_schedule: Optional[tuple[int, ...]] = None
     #: latency/throughput regime boundary the scheduler reads (None = none)
     fused_min_batch: Optional[int] = None
+    #: share of the worst-case generation budget reserved at admission. 1.0
+    #: = decode page growth can never exhaust the pool; < 1.0 overcommits
+    #: for more concurrency, and a shortfall defers the request's decode
+    #: step until a completion frees pages.
+    kv_reserve_fraction: float = 1.0
+    #: serve the codec at this dtype ("bfloat16"); None keeps its own
+    codec_dtype: Optional[str] = None
+    #: torch.profiler ranges around each step dispatch (off: none)
+    enable_profiling: bool = False
 
     @property
     def decode_buckets(self) -> tuple[int, ...]:
@@ -286,6 +312,10 @@ class ModelWorker:
                                         dtype=bb.dtype, device=dev)
         self.last_tokens = torch.zeros((rows, model.n_codebooks),
                                        dtype=torch.int32, device=dev)
+        if cfg.codec_dtype is not None:
+            # before the cache is built and anything is captured: graphs and
+            # K2's packed weights hold pointers to these tensors
+            self._cast_codec(getattr(torch, cfg.codec_dtype))
         self.codec_cache = model.init_decoder_cache(rows)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(cfg.seed)
@@ -312,16 +342,47 @@ class ModelWorker:
                        for a in tree_leaves(tree))
 
         self.logger.info(
-            "device %s: params %.2fG + KV pool %.2fG + codec %.2fG + slot "
-            "caches %.2fG; prefill buckets %s, decode buckets %s, table "
-            "widths %s, detokenize buckets %s", dev,
+            "device %s: params %.2fG + KV pool %.2fG + codec %.2fG (%s) + "
+            "slot caches %.2fG; prefill buckets %s, decode buckets %s, table "
+            "widths %s, detokenize buckets %s, KV reserve fraction %g", dev,
             _nbytes(model.params) / 2**30,
             _nbytes([self.k_pages, self.v_pages]) / 2**30,
-            _nbytes(model.codec_params) / 2**30,
+            _nbytes(model.codec_params) / 2**30, self.codec_dtypes(),
             _nbytes(self.codec_cache) / 2**30, cfg.prefill_token_buckets,
-            cfg.decode_buckets, self.table_width_buckets, cfg.detok_buckets)
+            cfg.decode_buckets, self.table_width_buckets, cfg.detok_buckets,
+            cfg.kv_reserve_fraction)
         if cfg.warmup:
             self.warmup()
+
+    def _cast_codec(self, dtype: torch.dtype) -> None:
+        """Cast every float32 leaf of the codec parameters, and of every
+        codec cache the model makes from now on, to ``dtype`` (the JAX
+        worker's ``codec_dtype``)."""
+        model = self.model
+
+        def cast(tree):
+            return tree_map(lambda a: (a.to(dtype) if torch.is_tensor(a)
+                                       and a.dtype == torch.float32 else a),
+                            tree)
+
+        model.codec_params = cast(model.codec_params)
+        make_cache = model.init_decoder_cache
+        model.init_decoder_cache = lambda b: cast(make_cache(b))
+
+    def codec_dtypes(self) -> list[str]:
+        """The floating dtypes of the codec's parameters and cache, read
+        from the tensors."""
+        return sorted({str(a.dtype).removeprefix("torch.")
+                       for a in tree_leaves([self.model.codec_params,
+                                             self.codec_cache])
+                       if torch.is_tensor(a) and a.is_floating_point()})
+
+    def _trace(self, name: str):
+        """A ``torch.profiler`` range around a step dispatch (the JAX
+        worker's trace annotations); nothing unless ``enable_profiling``."""
+        if not self.config.enable_profiling:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(name)
 
     def _init_width_lattice(self) -> None:
         """Block-table limit and width lattice (the JAX worker's): the limit
@@ -406,10 +467,12 @@ class ModelWorker:
     # admission / release
     # ------------------------------------------------------------------
     def _gen_reserve_pages(self, prompt_len: int, max_tokens: int) -> int:
-        """Pages reserved at admission for the full generation budget, so
-        decode-phase page growth cannot exhaust the pool mid-stream."""
+        """Pages reserved at admission: ``kv_reserve_fraction`` of the full
+        generation budget (at 1.0 decode-phase page growth cannot exhaust
+        the pool mid-stream)."""
         budget = max(max_tokens - prompt_len, 0) + 8
-        return cdiv(budget, self.config.page_size) + 1
+        pages = cdiv(budget, self.config.page_size) + 1
+        return int(np.ceil(pages * self.config.kv_reserve_fraction))
 
     def can_admit(self, num_prompt_tokens: int) -> bool:
         prompt_pages = cdiv(max(num_prompt_tokens, 1), self.config.page_size)
@@ -930,8 +993,9 @@ class ModelWorker:
                                if a is not None))
 
     def _dispatch_prefill(self, requests: list[Request], arr: dict) -> None:
-        sampled = self._steps.run(("prefill", arr["T"], arr["B"]),
-                                  *self._prefill_inputs(arr))
+        with self._trace(f"lm_prefill_t{arr['T']}_b{len(requests)}"):
+            sampled = self._steps.run(("prefill", arr["T"], arr["B"]),
+                                      *self._prefill_inputs(arr))
         # the first decode reads the sampled token from the slot buffer, so
         # the host copy goes through the readback pipeline like a decode's
         for req in requests:
@@ -1023,9 +1087,10 @@ class ModelWorker:
         hard_stopped: set[int] = set()
         for i, req in enumerate(requests):
             try:
-                self._plan_decode_row(req, i, gen_idx, positions, page_ids,
-                                      offsets, block_tables, seq_lens,
-                                      slot_ids, hard_stopped)
+                self._plan_decode_row(req, i, overrides, override_mask,
+                                      gen_idx, positions, page_ids, offsets,
+                                      block_tables, seq_lens, slot_ids,
+                                      hard_stopped)
             except Exception as e:
                 # a poisoned request must not fail its co-batched streams;
                 # its row stays a padded row
@@ -1033,12 +1098,14 @@ class ModelWorker:
                 hard_stopped.add(i)
         return packed, hard_stopped
 
-    def _plan_decode_row(self, req: Request, i: int, gen_idx, positions,
-                         page_ids, offsets, block_tables, seq_lens, slot_ids,
+    def _plan_decode_row(self, req: Request, i: int, overrides,
+                         override_mask, gen_idx, positions, page_ids,
+                         offsets, block_tables, seq_lens, slot_ids,
                          hard_stopped: set[int]) -> None:
         """Fill row i for one request. A request that cannot step
         (block-table limit, KV backpressure) joins hard_stopped and keeps
-        its padded row."""
+        its padded row; an input-streaming row that steps takes its next
+        text token in the override columns."""
         page_size = self.config.page_size
         inflight = req.extras.get("inflight", 0)
         # the position of the token fed this step counts the steps still
@@ -1077,6 +1144,48 @@ class ModelWorker:
         seq_lens[i] = req.kv_token_len
         slot_ids[i] = req.slot
         req.extras["inflight"] = inflight + 1
+        if req.is_input_streaming:
+            # after the hard-stop and backpressure checks: a row that does
+            # not step must not consume a queued text token or the one-shot
+            # EOS
+            try:
+                C = self.model.n_codebooks
+                tok = np.zeros((C,), np.int32)
+                self._inject_streaming_text_token(req, tok)
+                ch = self.model.text_channel_index % C
+                overrides[i, ch] = tok[self.model.text_channel_index]
+                override_mask[i, ch] = 1
+            except Exception:
+                # the row is live: back to the padded-row convention (scratch
+                # page, sentinel slot) before the caller's fail_request frees
+                # this request's pages, which a co-batched request may then
+                # take
+                slot_ids[i] = self.config.max_batch_size
+                page_ids[i] = 0
+                offsets[i] = 0
+                override_mask[i, :] = 0
+                req.extras["inflight"] = inflight
+                raise
+
+    def _inject_streaming_text_token(self, req: Request,
+                                     tok: np.ndarray) -> np.ndarray:
+        """Write the request's next streamed text token into the model's
+        text channel of ``tok``: a queued token, else the text EOS once
+        after the text is complete, else pad (and the request waits for
+        text until it is complete)."""
+        model = self.model
+        ch = model.text_channel_index
+        if not req.pending_text_tokens.empty():
+            tok[ch] = req.pending_text_tokens.get()
+            req.waiting_for_text = False
+        elif req.text_complete and not req.eos_injected:
+            tok[ch] = model.text_stream_eos_token()
+            req.eos_injected = True
+        else:
+            tok[ch] = model.text_stream_pad_token()
+            if not req.text_complete:
+                req.waiting_for_text = True
+        return tok
 
     def run_lm_decode(self, requests: list[Request]) -> None:
         if not requests:
@@ -1087,7 +1196,8 @@ class ModelWorker:
         packed, hard_stopped = self._plan_decode(requests, B, W)
         self._stat("decode.plan", t0)
         t0 = time.perf_counter()
-        sampled = self._steps.run(("decode", B, W), packed)
+        with self._trace(f"lm_decode_b{B}"):
+            sampled = self._steps.run(("decode", B, W), packed)
         self._push_pending(sampled, requests, hard_stopped, 1)
         self._stat("decode.dispatch", t0)
         t0 = time.perf_counter()
@@ -1156,11 +1266,13 @@ class ModelWorker:
         self._stat("decode_multi.plan", t0)
         t0 = time.perf_counter()
         if first_chunk:
-            sampled, pcm = self._steps.run(("decode_multi_detok", B, K, W),
-                                           pack)
+            with self._trace(f"lm_cold_start_b{B}_k{K}"):
+                sampled, pcm = self._steps.run(
+                    ("decode_multi_detok", B, K, W), pack)
             self._push_pending(sampled, requests, hard_stopped, K, pcm, K)
         else:
-            sampled = self._steps.run(("decode_multi", B, K, W), pack)
+            with self._trace(f"lm_decode_multi_b{B}_k{K}"):
+                sampled = self._steps.run(("decode_multi", B, K, W), pack)
             self._push_pending(sampled, requests, hard_stopped, K)
         self._stat("decode_multi.dispatch", t0)
         t0 = time.perf_counter()
@@ -1179,7 +1291,7 @@ class ModelWorker:
         maxP = width or self._table_width(requests, K)
         pack = np.zeros((2 * K * B * C + 3 * K * B + B * (3 + maxP),),
                         np.int32)
-        (_overrides, _override_mask, positions, page_ids, offsets, gen_idx0,
+        (overrides, override_mask, positions, page_ids, offsets, gen_idx0,
          seq_lens0, slot_ids, block_tables) = self._multi_pack_views(
             pack, K, B, C, maxP)
         seq_lens0[:] = 1
@@ -1207,6 +1319,14 @@ class ModelWorker:
                 req.kv_pages.extend(got)
                 req.extras["kv_reserved"] = max(
                     reserved - new_pages_needed, 0)
+            if req.is_input_streaming:
+                # after the page allocation: a deferred row consumes no text
+                ch = self.model.text_channel_index % C
+                for s in range(K):
+                    tok = np.zeros((C,), np.int32)
+                    self._inject_streaming_text_token(req, tok)
+                    overrides[s, i, ch] = tok[self.model.text_channel_index]
+                    override_mask[s, i, ch] = 1
             gen_idx0[i] = base_gen
             for s in range(K):
                 positions[s, i] = req.input_length + base_gen + s - 1
@@ -1275,10 +1395,11 @@ class ModelWorker:
             self._dispatch_prefill(admitted, parr)
             self.cold_starts["prefill"] += 1
             return
-        sampled_all, pcm = self._steps.run(
-            ("cold_chain", parr["T"], K),
-            np.concatenate([parr["pack"], dpack]),
-            *self._prefill_inputs(parr)[1:])
+        with self._trace(f"lm_cold_chain_t{parr['T']}_k{K}"):
+            sampled_all, pcm = self._steps.run(
+                ("cold_chain", parr["T"], K),
+                np.concatenate([parr["pack"], dpack]),
+                *self._prefill_inputs(parr)[1:])
         # one entry: K+1 sampled steps (prefill + K decode steps), a
         # K-frame chunk (the prefill's sample + the first K-1 steps)
         self._push_pending(sampled_all, [req], set(), K + 1, pcm, K)
@@ -1368,6 +1489,7 @@ class ModelWorker:
             "max_pending_detok": self.max_pending_detok,
             "polled": self.polled,
             "cold_starts": dict(self.cold_starts),
+            "replay_spans": {k: list(v) for k, v in steps.spans.items()},
         }
         if self.device.type == "cuda":
             out["pool_mib"] = steps.pool_bytes() / 2**20
@@ -1519,7 +1641,8 @@ class ModelWorker:
             token_ids[i] = w
             slot_ids[i] = s
         t0 = time.perf_counter()
-        pcm = self._steps.run(("detok", B, length), pack)
+        with self._trace(f"detokenize_b{B}_l{length}"):
+            pcm = self._steps.run(("detok", B, length), pack)
         self._pending_detok.append(_PendingDetok(
             self._to_host(pcm), self._event(), mapping, finish_check))
         self.max_pending_detok = max(self.max_pending_detok,

@@ -174,6 +174,10 @@ class StepCache:
         self.capture_s = 0.0
         #: key -> device ms per replay from the start-up probe
         self.probe_ms: dict[tuple, float] = {}
+        #: kind -> [first, last] ordinal of its runs among all runs since
+        #: the last reset (the order in which step kinds were issued)
+        self.spans: dict[str, list[int]] = {}
+        self._runs = 0
         self.pool = None
         self._capture_stream = None
         if device.type == "cuda":
@@ -200,7 +204,10 @@ class StepCache:
         return step
 
     def run(self, key: tuple, *inputs: np.ndarray) -> Output:
-        return self.get(key)(*inputs)
+        step = self.get(key)
+        self._runs += 1
+        self.spans.setdefault(key[0], [self._runs, self._runs])[1] = self._runs
+        return step(*inputs)
 
     def probe(self, key: tuple) -> float:
         """Capture ``key`` if needed and time its replay (card only)."""
@@ -233,6 +240,8 @@ class StepCache:
     def reset_counts(self) -> None:
         for step in self.steps.values():
             step.replays = 0
+        self.spans.clear()
+        self._runs = 0
 
     def pool_bytes(self) -> int:
         """Bytes the shared graph pool holds (card only)."""
