@@ -16,17 +16,21 @@ exits non-zero without printing a result:
    against its plain PyTorch version on the same inputs, with CUDA-event
    times of both: K1 over the combined bf16 pool, K1q over int8 and float8
    e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
+   Then K1 at Orpheus-3B's heads (H=24, KH=8: a GQA group of 3) at B=4 and
+   64, and at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
    and its library yardstick (one ``scaled_dot_product_attention`` call
-   with the block-diagonal causal mask; the port never calls it).
+   with the block-diagonal causal mask; the port never calls it). Then K3
+   at G = 3 (T=168 and 1024) and G = 7 (T=1024).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
    paged pool) on the card through the kernels, against the same weights
    on the CPU in float32 through the plain versions, for the combined bf16,
-   int8 and float8 pools and the pair layout.
+   int8 and float8 pools and the pair layout, and once at a GQA group of 3
+   with Llama-3.1 rope scaling.
    Then K2, the codec's residual-unit stack, against its plain version at
    the four decoder-block shapes of a detokenize of 4 streams x 10 frames
    and of one stream (B=4 and B=1), whole and as two streamed chunks with
@@ -51,7 +55,16 @@ exits non-zero without printing a result:
    streams send their text in three pieces ~150 ms apart through
    /generate/stream/start, /text, /end and read /audio) and H (A with
    ``--scheduler-type offline --codec-dtype bfloat16``: the unfused bf16
-   codec; every detokenize replay must come after the last LM step).
+   codec; every detokenize replay must come after the last LM step). Run I
+   serves ``--model orpheus`` (Orpheus-3B: 28 x 3072 Llama-3.2-3B, 24 heads
+   over 8 KV heads, vocab 156,940, Llama-3.1 rope; the float32 SNAC 24 kHz
+   decoder; random weights from the seed) with ``--max-tokens 160``: K1 and
+   K3 at G = 3, single-step decode graphs, detokenize graphs over
+   overlapped 28-token windows every 7 tokens, no first-chunk ramp; each
+   stream's PCM must be exactly what the overlap trim rule gives for the
+   audio tokens its daemon reports (``requests`` in the stats file), at
+   least 6 windows; it prints TTFA, windows/s against real time (11.72 per
+   stream) and the decode and detokenize replay times.
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -215,15 +228,25 @@ DECODE_VARIANTS = {
 }
 
 
-def check_decode(kernels, variant: str) -> dict:
-    """One paged decode kernel against its plain version at the talker's
-    shapes, reading the last layer of a 4096-page pool."""
+#: the (seq_lens, block tables) of each decode batch size and the segment
+#: lengths of each K3 length, as first drawn: later checks (other pools,
+#: other head layouts) reuse them, so each reads the same KV tokens
+_DECODE_ROWS: dict = {}
+_K3_LENS: dict = {}
+
+
+def check_decode(kernels, variant: str, H: int = 16, KH: int = 8,
+                 batches=(1, 4, 8, 64)) -> dict:
+    """One paged decode kernel against its plain version at a talker's
+    shapes (Qwen3's H=16/KH=8 by default; Orpheus's H=24/KH=8, G = 3),
+    reading the last layer of a 4096-page pool. Returns the last batch's
+    result."""
     import torch
 
     dev = torch.device("cuda")
     dtype_name, layout = DECODE_VARIANTS[variant]
     dtype = getattr(torch, dtype_name)
-    L, P, page, H, KH, D = 28, 4096, 16, 16, 8, 128
+    L, P, page, D = 28, 4096, 16, 128
     layer = L - 1  # the far end of the pool: offsets past 2^31 elements
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -271,18 +294,21 @@ def check_decode(kernels, variant: str) -> dict:
 
     worst, res = 0.0, {}
     rng = torch.Generator().manual_seed(2)
-    for B in (1, 4, 8, 64):
-        if B == 4:  # the served batch: 42-token prompts, up to 100 frames
-            seq = torch.randint(40, 121, (B,), generator=rng)
-        else:
-            seq = torch.randint(1, 1001, (B,), generator=rng)
-        if B > 1:
-            seq[B // 2] = 1  # padded row: seq_len 1 on scratch page 0
-        maxp = int((seq.max() + page - 1) // page)
-        perm = torch.randperm(P - 1, generator=rng)[: B * maxp] + 1
-        tables = perm.reshape(B, maxp).to(torch.int32)
-        if B > 1:
-            tables[B // 2] = 0
+    for B in batches:
+        if B not in _DECODE_ROWS:
+            if B == 4:  # the served batch: 42-token prompts, <= 100 frames
+                seq = torch.randint(40, 121, (B,), generator=rng)
+            else:
+                seq = torch.randint(1, 1001, (B,), generator=rng)
+            if B > 1:
+                seq[B // 2] = 1  # padded row: seq_len 1 on scratch page 0
+            maxp = int((seq.max() + page - 1) // page)
+            perm = torch.randperm(P - 1, generator=rng)[: B * maxp] + 1
+            tables = perm.reshape(B, maxp).to(torch.int32)
+            if B > 1:
+                tables[B // 2] = 0
+            _DECODE_ROWS[B] = (seq, tables)
+        seq, tables = (t.clone() for t in _DECODE_ROWS[B])
         q = torch.randn((B, H, D), generator=rng).to(torch.bfloat16)
         q, tables, seq = q.to(dev), tables.to(dev), seq.to(torch.int32).to(dev)
         out = kernel(q, tables, seq)
@@ -306,7 +332,7 @@ def check_decode(kernels, variant: str) -> dict:
         bnd = bound(nbytes, 4.0 * tokens * H * D,
                     "bf16" if elem == 2 else "8bit")
         r = result(worst, ms, plain_ms, bnd)
-        log(f"{variant} {layout} {dtype_name} pool B={B} "
+        log(f"{variant} {layout} {dtype_name} pool H={H} KH={KH} B={B} "
             f"max_seq={int(seq.max())} tokens={tokens} "
             f"max_abs_err={err:.3e} (tol {K1_TOL}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} eager_call_ms={eager_ms:.4f} "
@@ -324,16 +350,22 @@ def check_decode(kernels, variant: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_k3(kernels) -> dict:
+def check_k3(kernels, H: int = 16, KH: int = 8,
+             shapes=((64, 1), (168, 4), (256, 3), (1024, 5))) -> dict:
+    """K3 against its plain version and SDPA at (T, segments) shapes, for
+    Qwen3's H=16/KH=8 by default (Orpheus: H=24/KH=8). Returns the last
+    shape's result."""
     import torch
 
     dev = torch.device("cuda")
-    H, KH, D = 16, 8, 128
+    D = 128
     rng = torch.Generator().manual_seed(3)
     worst, res = 0.0, {}
-    for T, nseg in ((64, 1), (168, 4), (256, 3), (1024, 5)):
+    for T, nseg in shapes:
         if T == 168:  # the served prefill: four 42-token prompts
-            lens, valid = [42] * 4, 168
+            lens = [42] * 4
+        elif T in _K3_LENS:
+            lens = _K3_LENS[T]
         else:
             # nseg random positive spans, then a padded tail (seg -1)
             valid = T - int(torch.randint(0, T // 8 + 1, (1,),
@@ -341,6 +373,7 @@ def check_k3(kernels) -> dict:
             cuts = sorted((torch.randperm(valid - 1, generator=rng)
                            [: nseg - 1] + 1).tolist())
             lens = [b - a for a, b in zip([0] + cuts, cuts + [valid])]
+        _K3_LENS[T] = lens
         seg = torch.full((T,), -1, dtype=torch.int32)
         c = 0
         for i, n in enumerate(lens):
@@ -370,7 +403,9 @@ def check_k3(kernels) -> dict:
         nbytes = 2 * T * H * D * 2 + 2 * T * KH * D * 2 + T * 4
         r = result(worst, ms, plain_ms, bound(nbytes, flops, "bf16"),
                    lib_ms)
-        log(f"K3 ragged_prefill_attention T={T} segments={lens} "
+        log(f"K3 ragged_prefill_attention H={H} KH={KH} "
+            f"tile={kernels.plan_prefill_tiles(T, H, KH)} T={T} "
+            f"segments={lens} "
             f"valid={int(valid.sum())} max_abs_err={err:.3e} (tol {K3_TOL}) "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} eager_call_ms="
             f"{eager_ms:.4f} TFLOP/s={flops / (ms * 1e-3) / 1e12:.2f} "
@@ -410,10 +445,13 @@ def sdpa_time(q, k, v, seg, ref) -> tuple[float, float]:
     return (t1 + t2) / 2, err
 
 
-def check_backbone(kv: str = "combined") -> None:
+def check_backbone(kv: str = "combined", orpheus_heads: bool = False
+                   ) -> None:
     """Small talker backbone: card (bf16, kernels) vs CPU (f32, plain), over
     the combined full-precision pool ("combined"), an int8 or f8_e4m3 one,
-    or the head-major pair ("pair")."""
+    or the head-major pair ("pair"). ``orpheus_heads``: Orpheus's GQA group
+    of 3 (6 query heads over 2 KV heads) with Llama-3.1 rope scaling at
+    theta 5e5, in place of Qwen3's 4 over 2 with q/k norms."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
@@ -423,10 +461,16 @@ def check_backbone(kv: str = "combined") -> None:
     from vox_serve_tpu_torch.ops.kv_cache import KVCacheConfig, alloc_kv_pages
     from vox_serve_tpu_torch.params import tree_to_torch
 
-    cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
-                         num_heads=4, num_kv_heads=2, head_dim=128,
-                         intermediate_size=512, qk_norm=True,
-                         rope_theta=1e6, dtype=torch.float32)
+    if orpheus_heads:
+        cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
+                             num_heads=6, num_kv_heads=2, head_dim=128,
+                             intermediate_size=512, rope_theta=5e5,
+                             llama31_rope_scaling=True, dtype=torch.float32)
+    else:
+        cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
+                             num_heads=4, num_kv_heads=2, head_dim=128,
+                             intermediate_size=512, qk_norm=True,
+                             rope_theta=1e6, dtype=torch.float32)
     g = torch.Generator().manual_seed(4)
     params = init_backbone_params(cfg, g, "cpu")
     lens, page, P = (37, 20), 16, 16
@@ -477,9 +521,11 @@ def check_backbone(kv: str = "combined") -> None:
     if rel > BACKBONE_REL_TOL:
         raise AssertionError(f"backbone ({kv} KV) on card vs CPU: rel err "
                              f"{rel}")
-    log(f"backbone (2x256, prefill {list(lens)} + 3 decode steps, {kv} KV) "
-        f"card bf16 kernels vs CPU f32 plain: max rel err {rel:.3e} "
-        f"(tol {BACKBONE_REL_TOL})")
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads"
+             + (", Llama-3.1 rope" if orpheus_heads else ""))
+    log(f"backbone (2x256, {heads}, prefill {list(lens)} + 3 decode steps, "
+        f"{kv} KV) card bf16 kernels vs CPU f32 plain: max rel err "
+        f"{rel:.3e} (tol {BACKBONE_REL_TOL})")
 
 
 #: K2's decoder blocks at one detokenize of 10 frames: (C, T)
@@ -609,9 +655,36 @@ PROMPTS = [
     "Every frame runs both kernels!!",
     "The codec turns codes to audio.",
 ]
-MAX_TOKENS = 100  # absolute positions: 42-token prompts -> ~60 frames
-SAMPLES_PER_FRAME = 1920
 SAMPLE_RATE = 24000
+#: the model each run serves (Qwen3-TTS unless listed here)
+MODEL_OF = {"I": "orpheus"}
+#: per model: ``--max-tokens`` (absolute positions), and the audio unit a
+#: run counts with its samples: a Qwen3 codec frame (42-token prompts ->
+#: ~60 frames), or one Orpheus window (7 tokens; 42-token prompts -> ~119
+#: tokens, 14 overlapped windows)
+MODELS = {
+    "qwen3-tts": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
+    "orpheus": {"max_tokens": 160, "unit": "windows", "unit_samples": 2048},
+}
+#: Orpheus's detokenize window, overlap and samples kept per window
+ORPHEUS_WINDOW = (28, 21, 2048)
+
+
+def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
+                        window: int = 2048) -> int:
+    """The PCM a stream of ``n_tokens`` audio tokens must emit under the
+    overlap trim rule: windows every ``interval - overlap`` tokens until
+    one reaches the last token, ``window`` samples each, a last window of
+    fewer than ``interval - overlap`` tokens trimmed (the worker's
+    ``_resolve_detok`` and the scheduler's window selection)."""
+    step, s, total = interval - overlap, 0, 0
+    while True:
+        last = min(interval, n_tokens - s)
+        total += window if last >= step else max(
+            int(window * (last - 0.5) / step), 0)
+        if s + interval >= n_tokens:
+            return total
+        s += step
 
 K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
                "paged_decode_attention_pair")
@@ -665,6 +738,11 @@ CONFIGS = {
            "fused_resunit": False, **SINGLE, "scheduler_type": "offline",
            "codec_dtypes": ["bfloat16"], "kv_reserve_fraction": 1.0},
           {K1, K3}),
+    # Orpheus-3B (MODEL_OF): G = 3 in K1 and K3, the float32 SNAC codec in
+    # overlapped windows, no first-chunk ramp (an overlap codec turns it off)
+    "I": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32},
+          {K1, K3}),
 }
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
@@ -706,6 +784,9 @@ def stream_generate(port: int, text: str, out: dict) -> None:
             "Content-Type": "application/x-www-form-urlencoded"})
         resp = conn.getresponse()
         out["status"] = resp.status
+        # "attachment; filename=stream_<first 8 of the request id>.wav"
+        disp = resp.getheader("Content-Disposition") or ""
+        out["rid8"] = disp.rsplit("stream_", 1)[-1].split(".")[0]
         data = b""
         while True:
             chunk = resp.read1(65536)
@@ -799,8 +880,14 @@ def serve_wave(config: str, port: int, prompts: list[str],
                text_streams: int = 0) -> tuple:
     """Stream ``prompts`` concurrently, the first ``text_streams`` of them
     through the text-stream protocol; check every response's PCM and
-    return (results, frames, wall seconds)."""
+    return (results, audio units (frames or windows), wall seconds)."""
     import numpy as np
+
+    spec = MODELS[MODEL_OF.get(config, "qwen3-tts")]
+    unit, per = spec["unit"], spec["unit_samples"]
+    max_samples = (overlap_pcm_samples(spec["max_tokens"])
+                   if MODEL_OF.get(config) == "orpheus"
+                   else spec["max_tokens"] * per)
 
     results = [{} for _ in prompts]
     threads = [threading.Thread(
@@ -823,16 +910,17 @@ def serve_wave(config: str, port: int, prompts: list[str],
         pcm = np.frombuffer(body[44:], dtype=np.int16)
         if pcm.size == 0 or (len(body) - 44) % 2:
             raise AssertionError(f"request {i}: empty or odd PCM")
-        if pcm.size > MAX_TOKENS * SAMPLES_PER_FRAME:
+        if pcm.size > max_samples:
             raise AssertionError(f"request {i}: {pcm.size} samples > "
-                                 "the frame budget")
+                                 f"the budget's {max_samples}")
         if not np.isfinite(pcm.astype(np.float32)).all():
             raise AssertionError(f"request {i}: non-finite PCM")
-        r["frames"] = pcm.size / SAMPLES_PER_FRAME
+        r["samples"] = pcm.size
+        r["frames"] = pcm.size / per
         frames += r["frames"]
         how = "text stream" if r.get("text_stream") else "/generate"
         log(f"[{config}] {len(prompts)}-stream wave, request {i} ({how}): "
-            f"{pcm.size} samples ({r['frames']:.1f} frames, "
+            f"{pcm.size} samples ({r['frames']:.1f} {unit}, "
             f"{pcm.size / SAMPLE_RATE:.2f} s audio, peak "
             f"{int(np.abs(pcm.astype(np.int32)).max())}), TTFA "
             f"{r['ttfa_s'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s")
@@ -845,6 +933,7 @@ def end_to_end(card: str, config: str) -> dict:
     stream's TTFA (F), after checking what it served and which kernels and
     graphs ran."""
     flags, env_extra, served, must_run = CONFIGS[config]
+    model = MODEL_OF.get(config, "qwen3-tts")
     OUT.mkdir(exist_ok=True)
     port = free_port()
     stats_path = OUT / f"chip_smoke_server_stats_{config}.json"
@@ -853,10 +942,10 @@ def end_to_end(card: str, config: str) -> dict:
     log_path = OUT / f"chip_smoke_server_{config}.log"
     server_log = open(log_path, "w")
     cmd = [sys.executable, "-m", "vox_serve_tpu_torch.launch",
-           "--model", "qwen3-tts", "--device", "cuda",
+           "--model", model, "--device", "cuda",
            "--host", "127.0.0.1", "--port", str(port),
            "--max-batch-size", "4", "--max-num-pages", "2048",
-           "--max-tokens", str(MAX_TOKENS), "--seed", "0",
+           "--max-tokens", str(MODELS[model]["max_tokens"]), "--seed", "0",
            "--socket-suffix", f"_smoke{port}",
            "--stats-file", str(stats_path), *flags]
     env = {k: v for k, v in os.environ.items()
@@ -891,7 +980,10 @@ def end_to_end(card: str, config: str) -> dict:
                 continue
             out.update(frames=frames, wall=wall,
                        frames_per_s=frames / wall, ttfa=ttfa,
-                       ttfa_median_s=(ttfa[(n - 1) // 2] + ttfa[n // 2]) / 2)
+                       ttfa_median_s=(ttfa[(n - 1) // 2] + ttfa[n // 2]) / 2,
+                       streams=[{k: r.get(k) for k in ("rid8", "samples",
+                                                        "ttfa_s", "wall_s")}
+                                for r in results])
             if TEXT_STREAMS.get(config):
                 out["text_stream_ttfa"] = [r["ttfa_s"] for r in results
                                            if r.get("text_stream")]
@@ -924,9 +1016,52 @@ def end_to_end(card: str, config: str) -> dict:
             break
         time.sleep(0.1)
     stats = json.loads(stats_path.read_text())
-    out["launches"] = launches = stats["launches"]
+    out["launches"] = stats["launches"]
     check_run(config, card, stats, out)
+    if model == "orpheus":
+        check_overlap_windows(config, stats, out)
     return out
+
+
+def check_overlap_windows(config: str, stats: dict, out: dict) -> None:
+    """Each Orpheus stream's PCM is exactly what the overlap rule gives for
+    the audio tokens its daemon generated (a window dropped or emitted
+    twice fails), at least 6 windows each; prints the run's TTFA, windows/s
+    against real time (11.72 windows/s per stream) and the decode and
+    detokenize replay times."""
+    interval, overlap, window = ORPHEUS_WINDOW
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    for i, st in enumerate(out["streams"]):
+        req = done.get(st["rid8"])
+        if req is None:
+            raise AssertionError(f"[{config}] stream {i} ({st['rid8']}) not "
+                                 f"among the daemon's requests {list(done)}")
+        want = overlap_pcm_samples(req["audio_tokens"], interval, overlap,
+                                   window)
+        if st["samples"] != want:
+            raise AssertionError(
+                f"[{config}] stream {i}: {st['samples']} samples for "
+                f"{req['audio_tokens']} audio tokens, the overlap rule gives "
+                f"{want}")
+        if want < 6 * window:
+            raise AssertionError(f"[{config}] stream {i}: {want // window} "
+                                 "windows, expected at least 6")
+        log(f"[{config}] stream {i} ({st['rid8']}): {req['audio_tokens']} "
+            f"audio tokens ({req['finish_reason']}) -> {st['samples']} "
+            f"samples = {st['samples'] // window} windows (overlap rule: "
+            f"{want}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
+            f"{st['samples'] / window / st['wall_s']:.2f} windows/s")
+    realtime = SAMPLE_RATE / window
+    probe = stats["steps"]["probe_ms"]
+    dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
+    det = {k: v for k, v in probe.items() if k.startswith("detok ")}
+    ph = stats["phase_stats"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    log(f"[{config}] Orpheus-3B: TTFA median {out['ttfa_median_s'] * 1e3:.1f}"
+        f" ms; {out['frames_per_s']:.2f} windows/s aggregate over 4 streams "
+        f"(real time: {realtime:.2f} per stream, {4 * realtime:.2f} for 4); "
+        f"decode replay ms (probe) {dec}; detokenize replay ms (probe) {det};"
+        f" detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} ms per call")
 
 
 def check_run(config: str, card: str, stats: dict, out: dict) -> None:
@@ -953,8 +1088,10 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     ttfa = out["ttfa"]
     solo = (f"; solo stream TTFA {out['solo_ttfa_s'] * 1e3:.1f} ms"
             if "solo_ttfa_s" in out else "")
-    log(f"[{config}] e2e on {card}: 4 streams, {out['frames']:.1f} frames "
-        f"in {out['wall']:.2f} s = {out['frames_per_s']:.1f} frames/s "
+    unit = MODELS[MODEL_OF.get(config, "qwen3-tts")]["unit"]
+    log(f"[{config}] e2e on {card}: {MODEL_OF.get(config, 'qwen3-tts')}, 4 "
+        f"streams, {out['frames']:.1f} {unit} in {out['wall']:.2f} s = "
+        f"{out['frames_per_s']:.1f} {unit}/s "
         f"aggregate; TTFA min/median/max {ttfa[0] * 1e3:.1f}/"
         f"{out['ttfa_median_s'] * 1e3:.1f}/{ttfa[-1] * 1e3:.1f} ms{solo}; "
         f"decode step wall (plan + dispatch + resolve) "
@@ -1096,10 +1233,17 @@ def main(argv=None) -> int:
 
     decode = {v: check_decode(kernels, v) for v in DECODE_VARIANTS}
     k3 = check_k3(kernels)
+    # Orpheus's GQA group of 3 at its served shapes, and G = 7 (4 + 3 heads
+    # per decode CTA, 9 or 4 tokens per K3 tile) once each
+    check_decode(kernels, "K1", H=24, KH=8, batches=(4, 64))
+    check_decode(kernels, "K1", H=28, KH=4, batches=(4,))
+    check_k3(kernels, H=24, KH=8, shapes=((168, 4), (1024, 5)))
+    check_k3(kernels, H=28, KH=4, shapes=((1024, 5),))
     if args.kernels_only:
         return 0
     for kv in ("combined", "int8", "f8_e4m3", "pair"):
         check_backbone(kv)
+    check_backbone("combined", orpheus_heads=True)
     k2 = check_k2()
     k2h = check_k2("bfloat16")
 

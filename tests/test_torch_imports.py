@@ -23,6 +23,9 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.worker.graphs",
     "vox_serve_tpu_torch.models.qwen3_tts",
     "vox_serve_tpu_torch.models.dummy",
+    "vox_serve_tpu_torch.models.orpheus",
+    "vox_serve_tpu_torch.codecs.snac",
+    "vox_serve_tpu_torch.weights",
     "vox_serve_tpu_torch.server.api",
     "vox_serve_tpu_torch.params",
     "vox_serve_tpu_torch.ops.kv_cache",

@@ -5,8 +5,12 @@ the split-KV merge arithmetic of the decode kernel, on the CPU.
   one split where (B, KH) already fills the SMs, never more CTAs than one
   extra wave, and every token (so every page) of a sequence in exactly one
   split, in whole 16-token tiles.
-* ``plan_prefill_tiles``: the query tile holds whole head groups and the
-  grid covers every token exactly once.
+* ``plan_prefill_tiles``: the query tile holds whole head groups (fewer
+  than G rows left over where G does not divide it) and the grid covers
+  every token exactly once, for every GQA group the JAX families use
+  (G in {1, 2, 3, 4, 7, 8, 16}).
+* The decode kernel's head groups: every query head of a KV group in
+  exactly one CTA, a G that 4 does not divide masking the tail.
 * A pure-PyTorch emulation of the decode kernel's arithmetic: each split's
   tiles taken round-robin by four warps with a base-2 online softmax per
   tile, the warps merged, then the splits merged by the log-sum-exp rule,
@@ -28,7 +32,8 @@ N_SM = 132
 
 
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 16, 17, 64, 128])
-@pytest.mark.parametrize("KH,head_groups", [(1, 1), (2, 1), (8, 1), (8, 2)])
+@pytest.mark.parametrize("KH,head_groups", [(1, 1), (2, 1), (8, 1), (8, 2),
+                                             (4, 2), (2, 4)])
 def test_plan_decode_splits_fills_the_card_within_limits(B, KH,
                                                          head_groups):
     ctas = B * KH * head_groups
@@ -74,13 +79,16 @@ def test_decode_split_ranges_cover_every_token_and_page_once(splits):
 
 
 @pytest.mark.parametrize("H,KH", [(16, 8), (16, 16), (32, 8), (16, 4),
-                                  (16, 2), (32, 1)])
+                                  (16, 2), (32, 1), (24, 8), (6, 2),
+                                  (28, 4), (14, 2), (32, 2), (20, 4)])
 def test_plan_prefill_tiles_cover_every_token_once(H, KH):
     G = H // KH
     for T in (1, 17, 64, 168, 256, 1000, 1024, 4096):
         warps, bq, tiles = kernels.plan_prefill_tiles(T, H, KH, N_SM)
         assert warps in (2, 4)
-        assert bq * G == 16 * warps
+        # whole head groups; fewer than G rows of the tile left over
+        assert bq >= 1 and bq * G <= 16 * warps
+        assert 16 * warps - bq * G < G
         assert (tiles - 1) * bq < T <= tiles * bq
         big = -(-T // (64 // G)) * KH
         assert (warps == 4) == (big >= N_SM)
@@ -91,6 +99,40 @@ def test_plan_prefill_tiles_at_the_served_shapes():
     assert kernels.plan_prefill_tiles(1024, 16, 8) == (4, 32, 32)
     with pytest.raises(ValueError):
         kernels.plan_prefill_tiles(64, 64, 1)
+
+
+def test_kernels_take_the_orpheus_head_group():
+    """Orpheus's Llama-3.2-3B: 24 query heads over 8 KV heads (G = 3),
+    which neither divides K3's tile nor fits the decode kernel's groups of
+    1, 2 or 4 without a G = 3 instance."""
+    assert kernels.plan_prefill_tiles(168, 24, 8, N_SM) == (2, 10, 17)
+    assert kernels.plan_prefill_tiles(1024, 24, 8, N_SM) == (4, 21, 49)
+    kernels._check_heads(24, 8, 128, kernels.MAX_GROUP)
+    assert kernels.decode_heads_per_cta(24, 8) == 3
+    assert kernels.decode_head_groups(24, 8) == 1
+    # G = 7 (CosyVoice2, Step-Audio 2) as 4 + 3 heads, G = 16 as 4 x 4
+    assert kernels.decode_head_groups(28, 4) == 2
+    assert kernels.decode_head_groups(32, 2) == 4
+    with pytest.raises(ValueError):
+        kernels._check_heads(66, 1, 128, kernels.MAX_GROUP)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16])
+def test_decode_head_groups_cover_every_head_once(G):
+    """The kernel's head index arithmetic (hgroups = ceil(G / kG), heads
+    g0 .. g0 + nh of grid row hy): every query head of every KV head in
+    exactly one CTA, no CTA past the group."""
+    KH = 2
+    kG = kernels.decode_heads_per_cta(G * KH, KH)
+    hgroups = kernels.decode_head_groups(G * KH, KH)
+    seen = []
+    for hy in range(KH * hgroups):
+        kvh = hy // hgroups
+        g0 = (hy - kvh * hgroups) * kG
+        nh = min(kG, G - g0)
+        assert 1 <= nh <= kG <= kernels.DECODE_MAX_HEADS
+        seen += [kvh * G + g0 + g for g in range(nh)]
+    assert seen == list(range(G * KH))
 
 
 def _emulated_decode(q, pool, layer, tables, seq, splits, scale=None):
@@ -153,16 +195,18 @@ def _merge(states):
     return m, l, acc
 
 
-@pytest.mark.parametrize("B,seq_max,page,splits", [
-    (1, 500, 16, None),    # the planned split at B=1
-    (4, 120, 16, None),    # the served batch
-    (3, 300, 16, 5),
-    (2, 37, 8, 4),         # tiles span two pages; more splits than tiles
-    (2, 70, 32, 3),        # pages hold two tiles
+@pytest.mark.parametrize("B,seq_max,page,splits,H", [
+    (1, 500, 16, None, 16),    # the planned split at B=1
+    (4, 120, 16, None, 16),    # the served batch
+    (3, 300, 16, 5, 16),
+    (2, 37, 8, 4, 16),         # tiles span two pages; more splits than tiles
+    (2, 70, 32, 3, 16),        # pages hold two tiles
+    (4, 120, 16, None, 24),    # Orpheus's G = 3 at the served batch
+    (1, 500, 16, None, 24),
 ])
-def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits):
+def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits, H):
     rng = np.random.default_rng(B * 1000 + seq_max)
-    H, KH, D, L, P = 16, 8, 64, 2, 200
+    KH, D, L, P = 8, 64, 2, 200
     maxp = -(-seq_max // page)
     pool = torch.from_numpy(rng.standard_normal(
         (L, P, page, 2 * KH, D)).astype(np.float32))
@@ -181,7 +225,8 @@ def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits):
 
 @pytest.mark.parametrize("max_batch", [1, 4, 64])
 @pytest.mark.parametrize("H,KH,D", [(16, 8, 128), (8, 8, 64), (16, 2, 128),
-                                    (32, 1, 64)])
+                                    (32, 1, 64), (24, 8, 128), (28, 4, 128),
+                                    (32, 2, 128)])
 def test_decode_scratch_covers_every_launch_of_its_owner(max_batch, H, KH,
                                                          D):
     """A scratch sized for (max batch, block-table limit) holds the states
@@ -199,7 +244,8 @@ def test_decode_scratch_covers_every_launch_of_its_owner(max_batch, H, KH,
             else:
                 groups = kernels.decode_head_groups(H, KH)
                 assert c == B * KH * groups
-                assert f == c * splits * (H // KH // groups) * (D + 2)
+                assert f == c * splits * kernels.decode_heads_per_cta(
+                    H, KH) * (D + 2)
 
 
 def test_decode_scratch_is_allocated_once_at_its_size():

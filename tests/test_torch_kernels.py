@@ -451,12 +451,14 @@ def _decode_fns(variant, pool, scales):
     return kernel, plain
 
 
-#: (variant, B, H, KH, D): the served heads at B = 1, 4, 64, then every
+#: (variant, B, H, KH, D): the served heads at B = 1, 4, 64 (Qwen3's
+#: G = 2, Orpheus's G = 3, and G = 7 as 4 + 3 heads per CTA), then every
 #: head group (G = 1, 2, 4, 8) and head dims below 128 at B=1 (split) and
 #: B=64; D=72 over bf16 pools only (1-byte ones need D % 16 == 0)
 _DECODE_EDGE_CASES = [
     (variant, B, H, KH, D) for variant in _DECODE_VARIANTS
-    for B, H, KH, D in [(1, 16, 8, 128), (4, 16, 8, 128), (64, 16, 8, 128)]
+    for B, H, KH, D in [(B, H, KH, 128) for B in (1, 4, 64)
+                        for H, KH in ((16, 8), (24, 8), (28, 4))]
     + [(B, H, KH, D) for B in (1, 64)
        for H, KH in ((8, 8), (16, 8), (16, 4), (16, 2))
        for D in (64, 72, 128) if (H, KH, D) != (16, 8, 128)]
@@ -562,7 +564,8 @@ def test_decode_scratch_shared_across_shapes_on_card(cuda_device, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,KH", [(8, 8), (16, 8), (16, 4), (16, 2)])
+@pytest.mark.parametrize("H,KH", [(8, 8), (16, 8), (16, 4), (16, 2),
+                                  (24, 8), (28, 4), (32, 2)])
 @pytest.mark.parametrize("T,segs", [
     (5, (5,)),                 # shorter than one query tile
     (168, (42, 42, 42, 42)),   # the served prefill, edges inside tiles
@@ -596,7 +599,8 @@ def test_k3_kernel_narrow_heads_on_card(cuda_device, D):
 
 @pytest.mark.parametrize("H,KH,D,max_group,ok", [
     (16, 8, 128, 8, True), (16, 8, 16, 32, True), (12, 8, 128, 8, False),
-    (24, 8, 128, 8, False), (16, 8, 256, 8, False), (16, 8, 100, 8, False),
+    (24, 8, 128, 32, True), (28, 4, 128, 32, True), (64, 1, 128, 32, False),
+    (16, 8, 256, 8, False), (16, 8, 100, 8, False),
 ])
 def test_kernel_shape_limits_are_checked_before_launch(H, KH, D, max_group,
                                                        ok):

@@ -83,6 +83,34 @@ def test_rope_matches_jax(rope_dim):
                                       q[..., rope_dim:])
 
 
+@pytest.mark.parametrize("head_dim,theta", [(128, 5e5), (64, 5e5),
+                                             (16, 5e5)])
+def test_llama31_rope_matches_jax(head_dim, theta):
+    """Llama-3.1 frequency scaling (Orpheus's Llama-3.2-3B: theta 5e5, head
+    dim 128): the inverse frequencies at 1e-7 relative, then the rotation
+    over positions past the old 8192-token context."""
+    jf = jrope.rope_frequencies(head_dim, theta=theta, llama31_scaling=True)
+    tf = trope.rope_frequencies(head_dim, theta=theta, llama31_scaling=True)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-7,
+                               atol=0)
+    # the rule does scale: long wavelengths divided by 8, short ones kept
+    plain = trope.rope_frequencies(head_dim, theta=theta)
+    assert tf[0] == plain[0]
+    if head_dim >= 64:
+        assert torch.isclose(tf[-1], plain[-1] / 8.0)
+    rng = np.random.default_rng(head_dim)
+    T, H, KH = 7, 6, 2
+    q = rng.standard_normal((T, H, head_dim)).astype(np.float32)
+    k = rng.standard_normal((T, KH, head_dim)).astype(np.float32)
+    pos = rng.integers(0, 12000, (T,)).astype(np.int32)
+    jq, jk = jrope.apply_rope(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(pos), jf)
+    tq, tk = trope.apply_rope(_t(q), _t(k), _t(pos), tf)
+    # angles reach 12000 rad: f32 sin/cos differ in the last ulps
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-4)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4)
+
+
 def test_kv_write_matches_jax_combined_layout():
     rng = np.random.default_rng(3)
     L, P, page, KH, D, T = 2, 6, 4, 2, 16, 7

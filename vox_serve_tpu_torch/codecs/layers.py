@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,3 +70,22 @@ def conv_transpose1d(p: dict, x: torch.Tensor, stride: int = 1,
     return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
                               padding=padding, output_padding=output_padding,
                               groups=groups, dilation=dilation)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake activation x + sin^2(a x) / (a + 1e-9), computed in float32
+    and returned in x's dtype. alpha: (C,) or (1, C, 1)."""
+    if alpha.dim() == 1:
+        alpha = alpha[None, :, None]
+    xf = x.float()
+    af = alpha.float()
+    out = xf + (1.0 / (af + 1e-9)) * torch.sin(af * xf).square()
+    return out.to(x.dtype)
+
+
+def fold_weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Fold torch weight_norm (g, v) into a plain weight: w = g * v/||v||,
+    norm over all dims except dim 0."""
+    norm = np.linalg.norm(v.reshape(v.shape[0], -1), axis=1)
+    return (g.reshape(-1) / np.maximum(norm, 1e-12)).reshape(
+        [-1] + [1] * (v.ndim - 1)) * v

@@ -20,7 +20,8 @@
 //     is a TPU lane artefact, a warp reads D < 128 with idle lanes).
 //
 // What bounds it on an H100: bytes at large batch (every K/V element is read
-// once and used for 2*G flops, G = 2 for Qwen3-TTS, far below the ~295
+// once and used for 2*G flops, G = 2 for Qwen3-TTS and 3 for Orpheus's
+// Llama-3.2-3B, far below the ~295
 // flop/byte ridge) and latency at the serving batch (B = 4, tens of pages),
 // where the whole read is ~1 MB and the launch, one trip to memory and the
 // merge are the time.
@@ -39,8 +40,13 @@
 //     per tile and head, not once per token; exp2 with log2(e) folded into
 //     the query scale;
 //   * the grid is (B, KH * head groups, splits). A CTA holds up to 4 query
-//     heads of one KV group (G = 8 takes two head groups), so each K/V row
-//     read serves all of them. `splits` (ops/kernels.py plan_decode_splits)
+//     heads of one KV group, so each K/V row read serves all of them: G <= 4
+//     is one head group of G heads; a larger G takes ceil(G / 4) groups of
+//     4, the last one masked where 4 does not divide G (G = 7: 4 + 3, the
+//     tail head loads a zero query and stores nothing), so no group needs
+//     more registers than G = 4 does. The mask lives in its own instance
+//     (kTail), so every other G runs the machine code it ran before the
+//     mask existed. `splits` (ops/kernels.py plan_decode_splits)
 //     cuts each sequence's tiles into contiguous ranges so that small
 //     batches still fill the 132 SMs; the four warps of a CTA take the
 //     tiles of its range round-robin and merge in shared memory;
@@ -155,8 +161,9 @@ constexpr int smem_bytes() {
 
 // kPair = false: `kp` is the combined pool and `vp` is unused.
 // kPair = true: `kp` and `vp` are the head-major K and V pools.
-// kG: query heads per CTA (G, or 4 of G = 8).
-template <typename T, bool kPair, int kG>
+// kG: query heads per CTA (G where G <= 4, else 4). kTail: kG does not
+// divide G, so the last head group of each KV head is masked.
+template <typename T, bool kPair, int kG, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ kp, const T* __restrict__ vp,
@@ -180,9 +187,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.z;
   const int splits = gridDim.z;
   const int G = H / KH;
-  const int hgroups = G / kG;
+  const int hgroups = kTail ? (G + kG - 1) / kG : G / kG;
   const int kvh = hy / hgroups;
-  const int head0 = kvh * G + (hy - kvh * hgroups) * kG;
+  const int g0 = (hy - kvh * hgroups) * kG;  // first head within the group
+  const int nh = kTail ? min(kG, G - g0) : kG;  // heads of this CTA
+  const int head0 = kvh * G + g0;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r_in = lane / LPR;            // row of the lane within a load
@@ -197,7 +206,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < EPL / 8; ++c) {
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (lane_ok) raw = src[c];
+      if (lane_ok && (!kTail || g < nh)) raw = src[c];
       Elem<__nv_bfloat16>::cvt(raw, &qf[g][8 * c]);
     }
 #pragma unroll
@@ -367,7 +376,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   float* pm = part;                               // [cta][kG]
   float* pl = part + (int64_t)gridDim.x * gridDim.y * splits * kG;
   float* pacc = pl + (int64_t)gridDim.x * gridDim.y * splits * kG;
-  for (int idx = threadIdx.x; idx < kG * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nh * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx - g * D;
     float mx = -INFINITY;
@@ -406,7 +415,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  for (int idx = threadIdx.x; idx < kG * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nh * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx - g * D;
     float mx = -INFINITY;
@@ -430,7 +439,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   if (threadIdx.x == 0) counters[bh] = 0;  // ready for the next launch
 }
 
-template <typename T, bool kPair, int kG>
+template <typename T, bool kPair, int kG, bool kTail>
 int launch_g(const void* q, const void* kp, const void* vp,
              const void* tables, const void* seq_lens, void* out, void* part,
              void* counters, int B, int H, int KH, int D, int P, int page,
@@ -440,14 +449,14 @@ int launch_g(const void* q, const void* kp, const void* vp,
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T, kPair, kG>,
+        paged_decode_kernel<T, kPair, kG, kTail>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid(B, KH * ((H / KH) / kG), splits);
-  paged_decode_kernel<T, kPair, kG><<<grid, kThreads, bytes,
-                                      (cudaStream_t)stream>>>(
+  dim3 grid(B, KH * ((H / KH + kG - 1) / kG), splits);
+  paged_decode_kernel<T, kPair, kG, kTail><<<grid, kThreads, bytes,
+                                             (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const T*)kp, (const T*)vp,
       (const int*)tables, (const int*)seq_lens, (__nv_bfloat16*)out,
       (float*)part, (int*)counters, H, KH, D, P, page, max_pages, layer,
@@ -464,16 +473,21 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
   if (B == 0) return 0;
   if (splits < 1 || splits > kMaxSplits || (splits > 1 && !part)) return -1;
   const int G = H / KH;
+  if (G < 1) return -1;
   const int kg = G < kMaxHeads ? G : kMaxHeads;
   qk_scale *= kLog2e;  // the kernel's softmax is in base 2
-#define VOX_LAUNCH(N)                                                        \
-  return launch_g<T, kPair, N>(q, kp, vp, tables, seq_lens, out, part,       \
-                               counters, B, H, KH, D, P, page, max_pages,    \
-                               layer, qk_scale, v_scale, splits, stream)
+#define VOX_LAUNCH(N, TAIL)                                                  \
+  return launch_g<T, kPair, N, TAIL>(q, kp, vp, tables, seq_lens, out, part, \
+                                     counters, B, H, KH, D, P, page,         \
+                                     max_pages, layer, qk_scale, v_scale,    \
+                                     splits, stream)
   switch (kg) {
-    case 1: VOX_LAUNCH(1);
-    case 2: VOX_LAUNCH(2);
-    case 4: VOX_LAUNCH(4);
+    case 1: VOX_LAUNCH(1, false);
+    case 2: VOX_LAUNCH(2, false);
+    case 3: VOX_LAUNCH(3, false);
+    case 4:
+      if (G % 4) VOX_LAUNCH(4, true);
+      VOX_LAUNCH(4, false);
     default: return -1;
   }
 #undef VOX_LAUNCH
@@ -485,8 +499,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
 // the launch (0 = success); -1 for an unknown pool type, head group or split
 // count. All pointers are device pointers; `stream` is a cudaStream_t.
 // `part` holds splits > 1 partial states: 2 * n + n * D floats for
-// n = B * KH * (G / min(G, 4)) * splits * min(G, 4); `counters` holds
-// B * KH * (G / min(G, 4)) int32 zeros, and the kernel leaves them zero.
+// n = B * KH * ceil(G / min(G, 4)) * splits * min(G, 4); `counters` holds
+// B * KH * ceil(G / min(G, 4)) int32 zeros, and the kernel leaves them zero.
 
 // Combined pool (K1 / K1q). pool_type: 0 bf16, 1 int8, 2 float8 e4m3.
 extern "C" int vox_paged_decode_attention(

@@ -17,7 +17,15 @@
 // Design, FlashAttention-2 on the tensor cores:
 //   * one CTA per (query tile, KV head). The tile's BM = 16 * warps rows
 //     hold all G query heads of the KV group: row r is head r / BQ of token
-//     t0 + r % BQ (BQ = BM / G), so each K/V tile staged serves all G heads.
+//     t0 + r % BQ (BQ = floor(BM / G)), so each K/V tile staged serves all G
+//     heads. Where G does not divide BM (G = 3: 63 of 64 rows, 21 tokens;
+//     G = 7: 63 of 64 or 28 of 32), the BM - G * BQ < G rows left over load
+//     nothing, see no key (their scores are -inf, their sums 0) and store
+//     nothing. Those checks live in their own instance (kRagged): where G
+//     divides BM (G = 1, 2, 4, 8, 16) the kernel is compiled without them
+//     and is the same machine code as before they existed (compiled with
+//     them, the 2-warp instance dropped from 217 to 169 registers and
+//     measured 7.7-8.1 us at T = 168, G = 2 on an H100, against 7.1).
 //     ops/kernels.py plan_prefill_tiles picks 4 warps (BM 64) where that
 //     grid fills the SMs and 2 warps (BM 32) otherwise;
 //   * QK^T and PV run as bf16 mma.sync.m16n8k16 with f32 accumulators; the
@@ -123,7 +131,8 @@ constexpr int smem_bytes() {
   return (16 * kWarps + 2 * 2 * kBN) * kRowChunks * 16;
 }
 
-template <int kWarps>
+// kRagged: G does not divide 16 * kWarps, so G * BQ < BM rows hold work.
+template <int kWarps, bool kRagged>
 __global__ void __launch_bounds__(kWarps * 32)
 ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -143,6 +152,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int G = H / KH;
   const int BQ = BM / G;
+  const int GB = kRagged ? G * BQ : BM;  // rows that hold a (head, token)
   const int t0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
@@ -156,7 +166,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = idx / kRowChunks;
     const int c = idx - r * kRowChunks;
     const int t = t0 + r % BQ;
-    const bool ok = t < T && c < nchunks;
+    const bool ok = (!kRagged || r < GB) && t < T && c < nchunks;
     const __nv_bfloat16* src =
         ok ? q + ((int64_t)t * H + (int64_t)h * G + r / BQ) * D + c * 8 : q;
     cp_async16(qs + swz(r, c), src, ok);
@@ -262,14 +272,16 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tq = (ra + 8 * i) % BQ;
-    rlo[i] = tok_lo[tq];
-    rhi[i] = tok_seg[tq] >= 0 ? t0 + tq : -1;
+    const bool live = !kRagged || ra + 8 * i < GB;
+    rlo[i] = live ? tok_lo[tq] : INT_MAX;
+    rhi[i] = live && tok_seg[tq] >= 0 ? t0 + tq : -1;
   }
   int wlo_min, wlo_max, whi_min, whi_max;
   bool w_any, w_all;
   {
-    const int tq = (warp * 16 + (lane & 15)) % BQ;
-    const bool ok = tok_seg[tq] >= 0;
+    const int r = warp * 16 + (lane & 15);
+    const int tq = r % BQ;
+    const bool ok = (!kRagged || r < GB) && tok_seg[tq] >= 0;
     const int lo_r = tok_lo[tq];
     const int hi_r = t0 + tq;
     w_any = __any_sync(0xffffffffu, ok);
@@ -415,7 +427,7 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const float inv = L > 0.f ? 1.f / L : 0.f;
     const int r = ra + 8 * i;
     const int t = t0 + r % BQ;
-    if (t >= T) continue;
+    if ((kRagged && r >= GB) || t >= T) continue;
     __nv_bfloat16* o =
         out + ((int64_t)t * H + (int64_t)h * G + r / BQ) * D;
 #pragma unroll
@@ -428,41 +440,53 @@ ragged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int kWarps>
-int launch(const void* q, const void* k, const void* v, const void* seg,
-           void* out, int T, int H, int KH, int D, float scale,
-           void* stream) {
+template <int kWarps, bool kRagged>
+int launch_k(const void* q, const void* k, const void* v, const void* seg,
+             void* out, int T, int H, int KH, int D, float scale,
+             void* stream) {
   constexpr int bytes = smem_bytes<kWarps>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ragged_prefill_kernel<kWarps>,
+        ragged_prefill_kernel<kWarps, kRagged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int BQ = 16 * kWarps / (H / KH);
   dim3 grid((T + BQ - 1) / BQ, KH);
-  ragged_prefill_kernel<kWarps><<<grid, kWarps * 32, bytes,
-                                  (cudaStream_t)stream>>>(
+  ragged_prefill_kernel<kWarps, kRagged><<<grid, kWarps * 32, bytes,
+                                           (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)seg, (__nv_bfloat16*)out, T, H,
       KH, D, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
+template <int kWarps>
+int launch(const void* q, const void* k, const void* v, const void* seg,
+           void* out, int T, int H, int KH, int D, float scale,
+           void* stream) {
+  if ((16 * kWarps) % (H / KH))
+    return launch_k<kWarps, true>(q, k, v, seg, out, T, H, KH, D, scale,
+                                  stream);
+  return launch_k<kWarps, false>(q, k, v, seg, out, T, H, KH, D, scale,
+                                 stream);
+}
+
 }  // namespace
 
 // Plain C entry, loaded with ctypes. `warps` (2 or 4) is the query tile of
-// ops/kernels.py plan_prefill_tiles: 16 * warps rows = G heads x
-// 16 * warps / G tokens. Returns cudaGetLastError() after the launch
-// (0 = success), -1 for a tile that cannot hold the head group.
+// ops/kernels.py plan_prefill_tiles: 16 * warps rows hold G heads x
+// floor(16 * warps / G) tokens. Returns cudaGetLastError() after the launch
+// (0 = success), -1 for a tile that cannot hold one token of the head group
+// (G > 16 * warps).
 extern "C" int vox_ragged_prefill_attention(
     const void* q, const void* k, const void* v, const void* seg, void* out,
     int T, int H, int KH, int D, float scale, int warps, void* stream) {
   if (T == 0) return 0;
   const int G = H / KH;
-  if (D > kMaxD || D % 8 || G < 1 || (16 * warps) % G) return -1;
+  if (D > kMaxD || D % 8 || G < 1 || G > 16 * warps) return -1;
   switch (warps) {
     case 2: return launch<2>(q, k, v, seg, out, T, H, KH, D, scale, stream);
     case 4: return launch<4>(q, k, v, seg, out, T, H, KH, D, scale, stream);

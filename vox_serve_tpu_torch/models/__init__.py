@@ -1,5 +1,6 @@
 """Model registry of the port (vox_serve_tpu/models/__init__.py, holding the
-families ported so far: ``dummy`` and the Qwen3-TTS CustomVoice patterns).
+families ported so far: ``dummy``, the Qwen3-TTS CustomVoice patterns and
+Orpheus-3B).
 
 ``load_model`` resolves the class, builds it on the given device, and
 applies CLI sampling overrides onto the model's defaults.
@@ -29,6 +30,8 @@ _register(
         "qwen/qwen3-tts-12hz-0.6b-customvoice",
     ],
     "vox_serve_tpu_torch.models.qwen3_tts", "Qwen3TTSLM")
+_register(["orpheus", "canopylabs/orpheus-3b-0.1-ft"],
+          "vox_serve_tpu_torch.models.orpheus", "OrpheusLM")
 
 
 def available_models() -> list[str]:

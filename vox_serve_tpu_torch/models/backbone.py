@@ -36,6 +36,7 @@ class BackboneConfig:
     head_dim: Optional[int] = None  # default hidden_size // num_heads
     rope_theta: float = 10000.0
     rope_dim: Optional[int] = None  # partial rotary if < head_dim
+    llama31_rope_scaling: bool = False  # Llama-3.1 frequency scaling
     rms_eps: float = 1e-6
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
     attn_scale: Optional[float] = None
@@ -155,7 +156,8 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     inv_freq = rope_frequencies(cfg.rope_dim or hd, cfg.rope_theta,
-                                device=x.device)
+                                device=x.device,
+                                llama31_scaling=cfg.llama31_rope_scaling)
     T = x.shape[0]
     h = x
     for li in range(cfg.num_layers):

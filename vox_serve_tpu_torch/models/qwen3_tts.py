@@ -37,6 +37,7 @@ from ..models.base import BaseLMWithDepth, PreprocessOutput
 from ..models.depth import (DepthConfig, depth_forward, init_depth_kv,
                             init_depth_params, prepare_depth_layers)
 from ..sampling import SamplingConfig, sample
+from ..weights import load_text_tokenizer
 
 # special token ids
 TTS_BOS = 151672
@@ -56,24 +57,6 @@ LANGUAGE_IDS = {
 }
 TEXT_VOCAB = 151936
 SAMPLES_PER_FRAME = 1920
-
-
-class DevTokenizer:
-    """Deterministic char-level fallback tokenizer used while the real
-    tokenizer assets are absent (a copy of vox_serve_tpu.weights.
-    DevTokenizer, whose module imports jax). Not the production path:
-    ``assets_available`` stays False so the server can warn."""
-
-    def __init__(self, vocab_size: int = 128000, offset: int = 64):
-        self.vocab_size = vocab_size
-        self.offset = offset
-
-    def encode(self, text: str) -> list[int]:
-        return [self.offset + (ord(c) * 2654435761)
-                % (self.vocab_size - self.offset - 1) for c in text]
-
-    def __call__(self, text: str):
-        return self.encode(text)
 
 
 def _normal(generator, shape, std, dtype, device):
@@ -118,7 +101,8 @@ class Qwen3TTSLM(BaseLMWithDepth):
         self.num_code_groups = 16
         self.logger = get_logger("qwen3_tts")
         self.spk_ids = {"ryan": 2090, "vivian": 2091, "serena": 2092}
-        self.text_tokenizer = DevTokenizer(TEXT_VOCAB)
+        self.text_tokenizer, self.assets_available = load_text_tokenizer(
+            model_name, TEXT_VOCAB)
         self._depth_src = self._depth_layers = None
         self._init_params(seed)
         self.sampling_config = self.default_sampling_config

@@ -176,12 +176,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
 
 
 def _check_heads(H: int, KH: int, D: int, max_group: int) -> None:
+    """The head layout a kernel takes: any GQA group G = H / KH up to
+    ``max_group`` (K3: a 2-warp query tile holds one token of at most 32
+    heads; the decode kernel: its head groups cover any G, masked where 4
+    does not divide it), head dim a multiple of 8 up to 128."""
     if KH <= 0 or H % KH:
         raise ValueError(f"{H} query heads not a multiple of {KH} KV heads")
     G = H // KH
-    if G > max_group or max_group % G:
-        raise ValueError(f"GQA group {G} unsupported (divisor of "
-                         f"{max_group} required)")
+    if not 1 <= G <= max_group:
+        raise ValueError(f"GQA group {G} unsupported (1 to {max_group})")
     if D > 128 or D % 8:
         raise ValueError(f"head dim {D} unsupported (multiple of 8, <= 128)")
 
@@ -213,14 +216,21 @@ _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 #: the decode kernel's unit of work (tokens) and warps per CTA
 DECODE_TILE = 16
 DECODE_WARPS = 4
-#: query heads one decode CTA holds (G = 8 takes two head groups)
+#: query heads one decode CTA holds (a larger G takes several head groups)
 DECODE_MAX_HEADS = 4
+#: the largest GQA group the kernels take (K3's 2-warp tile: 32 rows)
+MAX_GROUP = 32
+
+
+def decode_heads_per_cta(H: int, KH: int) -> int:
+    """Query heads one decode CTA holds: G where G <= 4, else 4 (the last
+    head group of a G that 4 does not divide masks its missing heads)."""
+    return min(H // KH, DECODE_MAX_HEADS)
 
 
 def decode_head_groups(H: int, KH: int) -> int:
-    """CTAs per KV head in the decode grid: G / min(G, 4)."""
-    G = H // KH
-    return G // min(G, DECODE_MAX_HEADS)
+    """CTAs per KV head in the decode grid: ceil(G / min(G, 4))."""
+    return cdiv(H // KH, decode_heads_per_cta(H, KH))
 
 
 def plan_decode_splits(B: int, KH: int, max_pages: int, n_sm: int = 132,
@@ -263,7 +273,8 @@ def _split_need(B: int, H: int, KH: int, D: int, max_pages: int, n_sm: int,
     if splits == 1:
         return 1, 0, 0
     ctas = B * KH * groups
-    return splits, ctas * splits * (H // KH // groups) * (D + 2), ctas
+    return (splits, ctas * splits * decode_heads_per_cta(H, KH) * (D + 2),
+            ctas)
 
 
 def decode_scratch_size(max_batch: int, H: int, KH: int, D: int,
@@ -386,7 +397,7 @@ def _check_decode(q, block_tables, seq_lens, H, KH, D, layer, L) -> None:
     _check("q", q, torch.bfloat16, 3, dev)
     _check("block_tables", block_tables, torch.int32, 2, dev)
     _check("seq_lens", seq_lens, torch.int32, 1, dev)
-    _check_heads(H, KH, D, 8)
+    _check_heads(H, KH, D, MAX_GROUP)
     B = q.shape[0]
     if block_tables.shape[0] != B or seq_lens.shape[0] != B:
         raise ValueError("block_tables / seq_lens batch mismatch")
@@ -558,12 +569,13 @@ paged_decode_attention_pair.launches = 0
 def plan_prefill_tiles(T: int, H: int, KH: int, n_sm: int = 132
                        ) -> tuple[int, int, int]:
     """K3's query tile: (warps, tokens per tile, tiles). A tile holds
-    16 * warps rows, the G = H / KH heads of a KV group over 16 * warps / G
-    tokens; the grid is (tiles, KH). Four warps where that grid fills the
-    SMs, else two (more, smaller CTAs for short prompts)."""
+    16 * warps rows, the G = H / KH heads of a KV group over
+    floor(16 * warps / G) tokens (the fewer than G rows left over idle);
+    the grid is (tiles, KH). Four warps where that grid fills the SMs, else
+    two (more, smaller CTAs for short prompts)."""
     G = H // KH
-    if G < 1 or 32 % G:
-        raise ValueError(f"GQA group {G} unsupported (divisor of 32)")
+    if not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"GQA group {G} unsupported (1 to {MAX_GROUP})")
     for warps in (4, 2):
         bq = 16 * warps // G
         tiles = cdiv(T, bq)
@@ -619,7 +631,7 @@ def ragged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, seg "
                          f"{tuple(segment_ids.shape)}")
-    _check_heads(H, KH, D, 32)
+    _check_heads(H, KH, D, MAX_GROUP)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     warps = plan_prefill_tiles(T, H, KH, _sm_count(dev))[0]

@@ -1,24 +1,45 @@
 """Rotary position embeddings (port of vox_serve_tpu/ops/rope.py).
 
 Split-half rotation (HF Llama/Qwen convention) with optional partial rotary
-(``rope_dim < head_dim``); Qwen3 uses theta = 1e6. The interleaved
-(ChatGLM) variant and Llama-3.1 frequency scaling belong to families that
-are not ported yet.
+(``rope_dim < head_dim``); Qwen3 uses theta = 1e6, Orpheus's Llama-3.2-3B
+theta = 5e5 with Llama-3.1 frequency scaling. The interleaved (ChatGLM)
+variant belongs to a family that is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """Per-pair inverse frequencies, shape (head_dim // 2,), float32."""
+                     device: torch.device | str = "cpu",
+                     llama31_scaling: bool = False,
+                     scale_factor: float = 8.0,
+                     low_freq_factor: float = 1.0,
+                     high_freq_factor: float = 4.0,
+                     old_context_len: int = 8192) -> torch.Tensor:
+    """Per-pair inverse frequencies, shape (head_dim // 2,), float32.
+    ``llama31_scaling``: Llama-3.1's rule, with the JAX package's constants
+    (long wavelengths divided by ``scale_factor``, short ones kept, a
+    smooth blend between)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    inv_freq = 1.0 / (theta ** exps)
+    if llama31_scaling:
+        low_wavelen = old_context_len / low_freq_factor
+        high_wavelen = old_context_len / high_freq_factor
+        wavelen = 2.0 * math.pi / inv_freq
+        smooth = (old_context_len / wavelen - low_freq_factor) / (
+            high_freq_factor - low_freq_factor)
+        blend = ((1.0 - smooth) * inv_freq / scale_factor
+                 + smooth * inv_freq)
+        inv_freq = torch.where(
+            wavelen > low_wavelen, inv_freq / scale_factor,
+            torch.where(wavelen < high_wavelen, inv_freq, blend))
+    return inv_freq
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,

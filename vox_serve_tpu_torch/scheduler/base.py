@@ -30,6 +30,7 @@ both packages and are fixed in both at once.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -69,6 +70,9 @@ class Scheduler:
         self.logger = RankLogger(get_logger("scheduler"), rank)
         # latency/throughput regime latch (see _throughput_regime)
         self._regime_fused = False
+        #: the last completed requests' audio-token counts and finish
+        #: reasons, for the daemon's stats file (bounded: a server runs on)
+        self.completed: collections.deque = collections.deque(maxlen=256)
 
         model = model_worker.model
         self.sample_rate = model.sample_rate
@@ -626,6 +630,10 @@ class Scheduler:
         self._send(req.request_id.encode() + b"|COMPLETION|"
                    + json.dumps(msg).encode())
         req.extras["completion_sent"] = True
+        self.completed.append({
+            "request_id": req.request_id,
+            "audio_tokens": len(req.lm_output_audio_tokens),
+            "finish_reason": req.finish_reason})
 
     def _send(self, message: bytes) -> None:
         if self.result_socket is not None:

@@ -26,7 +26,8 @@ ordinal of each kind's replays, decode steps taken, eager step calls on
 the card per kind, the kernel counts one replay of each graph adds,
 capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
-graph pool's size) and the configuration it served (scheduler type, KV
+graph pool's size), the last completed requests' audio-token counts and
+finish reasons, and the configuration it served (scheduler type, KV
 layout and pool dtype, whether the codec ran the fused residual-unit
 stacks, the codec's tensor dtypes as read from its parameters and cache,
 the KV reserve fraction, the fused-decode, pipeline, first-chunk and
@@ -158,6 +159,7 @@ def _run_scheduler_daemon(args) -> None:
                                fused_resunit_stack_bf16.stacks,
                            "phase_stats": worker.phase_stats,
                            "steps": worker.step_stats(),
+                           "requests": list(scheduler.completed),
                            "param_count": param_count, **served}, f)
             os._exit(0)
 
