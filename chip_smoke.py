@@ -17,20 +17,23 @@ exits non-zero without printing a result:
    times of both: K1 over the combined bf16 pool, K1q over int8 and float8
    e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
    Then K1 at Orpheus-3B's heads (H=24, KH=8: a GQA group of 3) at B=4 and
-   64, and at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4.
+   64, at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4, and at
+   CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
    and its library yardstick (one ``scaled_dot_product_attention`` call
    with the block-diagonal causal mask; the port never calls it). Then K3
-   at G = 3 (T=168 and 1024) and G = 7 (T=1024).
+   at G = 3 (T=168 and 1024), G = 7 (T=1024) and CSM's G = 4 at head dim
+   64 (T=168 and 1024).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
    paged pool) on the card through the kernels, against the same weights
    on the CPU in float32 through the plain versions, for the combined bf16,
-   int8 and float8 pools and the pair layout, and once at a GQA group of 3
-   with Llama-3.1 rope scaling.
+   int8 and float8 pools and the pair layout, and once each at a GQA group
+   of 3 (Orpheus) and of 4 at head dim 64 (CSM), with Llama-3.1 rope
+   scaling.
    Then K2, the codec's residual-unit stack, against its plain version at
    the four decoder-block shapes of a detokenize of 4 streams x 10 frames
    and of one stream (B=4 and B=1), whole and as two streamed chunks with
@@ -38,6 +41,12 @@ exits non-zero without printing a result:
    float32 (3xTF32) and in bf16 (the codec served at ``--codec-dtype
    bfloat16``; against the bf16 plain version, the Pallas kernel's
    rounding points).
+   Then CSM's codec path at full width: the Mimi decoder (random weights
+   from a seed) for 4 streams x 10 frames, whole and as two streamed
+   chunks with caches, on the card against the CPU in float32 and in bf16
+   against float32; the spectral watermark over a 19,200-sample chunk per
+   stream and SilentCipher's encode (random params, one chunk at 44.1
+   kHz), card vs CPU; CUDA-event times of each.
 5. end to end over HTTP: ``python -m vox_serve_tpu_torch.launch --model
    qwen3-tts --device cuda`` serves Qwen3-TTS-12Hz-1.7B-CustomVoice at full
    width (28x2048 talker, 5x1024 depth, default codec; random weights from a
@@ -64,7 +73,23 @@ exits non-zero without printing a result:
    stream's PCM must be exactly what the overlap trim rule gives for the
    audio tokens its daemon reports (``requests`` in the stats file), at
    least 6 windows; it prints TTFA, windows/s against real time (11.72 per
-   stream) and the decode and detokenize replay times.
+   stream) and the decode and detokenize replay times. In every other run
+   each stream's PCM is exactly what the trim rule gives for the frames its
+   daemon reports (with F's and K's ramp: whole, or half a frame short).
+   Runs J and K serve
+   ``--model csm`` (CSM-1B: a 16 x 2048 Llama-3.2-1B backbone, 32 heads
+   over 8 KV heads at head dim 64, a 4 x 1024 depth decoder sampling 31
+   codebooks per step, the Mimi codec with its transformer ring in the slot
+   cache, the spectral watermark in every detokenize graph; random
+   weights from the seed) with ``--max-tokens 100``: J with default flags,
+   K with ``--codec-dtype bfloat16 --first-chunk-frames 3
+   --fused-decode-steps 4 --fused-decode-buckets 1,4 --pipeline-depth 2
+   --detok-pipeline-depth 2`` (no cold chain: CSM's rows do not chain).
+   The daemon must report the spectral watermark; K1 and K3 launch 16
+   times per decode step and per prefill replay; each stream's PCM is
+   what the trim rule gives for the audio tokens its daemon reports (with
+   K's ramp, whole or half a frame short); each prints frames/s per stream
+   against real time (12.5).
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -73,7 +98,8 @@ exits non-zero without printing a result:
    takes the cold chain) and prints its TTFA beside A's median. The
    scheduler daemon zeroes its counters before its loop starts and writes
    them, with the configuration it served, when terminated: each run must
-   show its KV layout, pool dtype, codec path and decode settings, launch
+   show its model, KV layout, pool dtype, codec path, watermark and decode
+   settings, launch
    its kernels and none of the others, replay prefill, decode and
    detokenize graphs and call no step body eagerly, launch K3 28 times per
    prefill or cold-chain replay and its decode kernel 28 times per decode
@@ -236,17 +262,17 @@ _K3_LENS: dict = {}
 
 
 def check_decode(kernels, variant: str, H: int = 16, KH: int = 8,
-                 batches=(1, 4, 8, 64)) -> dict:
+                 batches=(1, 4, 8, 64), D: int = 128) -> dict:
     """One paged decode kernel against its plain version at a talker's
-    shapes (Qwen3's H=16/KH=8 by default; Orpheus's H=24/KH=8, G = 3),
-    reading the last layer of a 4096-page pool. Returns the last batch's
-    result."""
+    shapes (Qwen3's H=16/KH=8 by default; Orpheus's H=24/KH=8, G = 3;
+    CSM's H=32/KH=8 at D=64, G = 4), reading the last layer of a 4096-page
+    pool. Returns the last batch's result."""
     import torch
 
     dev = torch.device("cuda")
     dtype_name, layout = DECODE_VARIANTS[variant]
     dtype = getattr(torch, dtype_name)
-    L, P, page, D = 28, 4096, 16, 128
+    L, P, page = 28, 4096, 16
     layer = L - 1  # the far end of the pool: offsets past 2^31 elements
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -332,7 +358,7 @@ def check_decode(kernels, variant: str, H: int = 16, KH: int = 8,
         bnd = bound(nbytes, 4.0 * tokens * H * D,
                     "bf16" if elem == 2 else "8bit")
         r = result(worst, ms, plain_ms, bnd)
-        log(f"{variant} {layout} {dtype_name} pool H={H} KH={KH} B={B} "
+        log(f"{variant} {layout} {dtype_name} pool H={H} KH={KH} D={D} B={B} "
             f"max_seq={int(seq.max())} tokens={tokens} "
             f"max_abs_err={err:.3e} (tol {K1_TOL}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} eager_call_ms={eager_ms:.4f} "
@@ -351,14 +377,14 @@ def check_decode(kernels, variant: str, H: int = 16, KH: int = 8,
 
 
 def check_k3(kernels, H: int = 16, KH: int = 8,
-             shapes=((64, 1), (168, 4), (256, 3), (1024, 5))) -> dict:
+             shapes=((64, 1), (168, 4), (256, 3), (1024, 5)),
+             D: int = 128) -> dict:
     """K3 against its plain version and SDPA at (T, segments) shapes, for
-    Qwen3's H=16/KH=8 by default (Orpheus: H=24/KH=8). Returns the last
-    shape's result."""
+    Qwen3's H=16/KH=8 by default (Orpheus: H=24/KH=8; CSM: H=32/KH=8 at
+    D=64). Returns the last shape's result."""
     import torch
 
     dev = torch.device("cuda")
-    D = 128
     rng = torch.Generator().manual_seed(3)
     worst, res = 0.0, {}
     for T, nseg in shapes:
@@ -403,7 +429,7 @@ def check_k3(kernels, H: int = 16, KH: int = 8,
         nbytes = 2 * T * H * D * 2 + 2 * T * KH * D * 2 + T * 4
         r = result(worst, ms, plain_ms, bound(nbytes, flops, "bf16"),
                    lib_ms)
-        log(f"K3 ragged_prefill_attention H={H} KH={KH} "
+        log(f"K3 ragged_prefill_attention H={H} KH={KH} D={D} "
             f"tile={kernels.plan_prefill_tiles(T, H, KH)} T={T} "
             f"segments={lens} "
             f"valid={int(valid.sum())} max_abs_err={err:.3e} (tol {K3_TOL}) "
@@ -445,13 +471,20 @@ def sdpa_time(q, k, v, seg, ref) -> tuple[float, float]:
     return (t1 + t2) / 2, err
 
 
-def check_backbone(kv: str = "combined", orpheus_heads: bool = False
-                   ) -> None:
+#: the small backbone's head layouts: (query heads, KV heads, head dim,
+#: q/k norms, Llama-3.1 rope at theta 5e5 (else theta 1e6))
+BACKBONE_HEADS = {"qwen3": (4, 2, 128, True, False),
+                  "orpheus": (6, 2, 128, False, True),
+                  "csm": (8, 2, 64, False, True)}
+
+
+def check_backbone(kv: str = "combined", heads: str = "qwen3") -> None:
     """Small talker backbone: card (bf16, kernels) vs CPU (f32, plain), over
     the combined full-precision pool ("combined"), an int8 or f8_e4m3 one,
-    or the head-major pair ("pair"). ``orpheus_heads``: Orpheus's GQA group
-    of 3 (6 query heads over 2 KV heads) with Llama-3.1 rope scaling at
-    theta 5e5, in place of Qwen3's 4 over 2 with q/k norms."""
+    or the head-major pair ("pair"). ``heads`` (``BACKBONE_HEADS``): Qwen3's
+    4 query heads over 2 with q/k norms, Orpheus's GQA group of 3 (6 over
+    2) or CSM's group of 4 at head dim 64 (8 over 2), both with Llama-3.1
+    rope scaling."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
@@ -461,16 +494,12 @@ def check_backbone(kv: str = "combined", orpheus_heads: bool = False
     from vox_serve_tpu_torch.ops.kv_cache import KVCacheConfig, alloc_kv_pages
     from vox_serve_tpu_torch.params import tree_to_torch
 
-    if orpheus_heads:
-        cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
-                             num_heads=6, num_kv_heads=2, head_dim=128,
-                             intermediate_size=512, rope_theta=5e5,
-                             llama31_rope_scaling=True, dtype=torch.float32)
-    else:
-        cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
-                             num_heads=4, num_kv_heads=2, head_dim=128,
-                             intermediate_size=512, qk_norm=True,
-                             rope_theta=1e6, dtype=torch.float32)
+    H, KH, D, qk_norm, llama31 = BACKBONE_HEADS[heads]
+    cfg = BackboneConfig(vocab_size=64, hidden_size=256, num_layers=2,
+                         num_heads=H, num_kv_heads=KH, head_dim=D,
+                         intermediate_size=512, qk_norm=qk_norm,
+                         rope_theta=5e5 if llama31 else 1e6,
+                         llama31_rope_scaling=llama31, dtype=torch.float32)
     g = torch.Generator().manual_seed(4)
     params = init_backbone_params(cfg, g, "cpu")
     lens, page, P = (37, 20), 16, 16
@@ -484,7 +513,7 @@ def check_backbone(kv: str = "combined", orpheus_heads: bool = False
 
         c = dataclasses.replace(cfg, dtype=dtype)
         p = tree_to_torch(params, device, dtype)
-        kvc = KVCacheConfig(2, P, page, 2, 128, dtype=dtype,
+        kvc = KVCacheConfig(2, P, page, KH, D, dtype=dtype,
                             combined=kv != "pair",
                             quant=kv if kv in ("int8", "f8_e4m3") else "none",
                             k_amax=4.0, v_amax=4.0)
@@ -521,9 +550,9 @@ def check_backbone(kv: str = "combined", orpheus_heads: bool = False
     if rel > BACKBONE_REL_TOL:
         raise AssertionError(f"backbone ({kv} KV) on card vs CPU: rel err "
                              f"{rel}")
-    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads"
-             + (", Llama-3.1 rope" if orpheus_heads else ""))
-    log(f"backbone (2x256, {heads}, prefill {list(lens)} + 3 decode steps, "
+    layout = (f"{H}/{KH} heads, D={D}"
+              + (", Llama-3.1 rope" if llama31 else ""))
+    log(f"backbone (2x256, {layout}, prefill {list(lens)} + 3 decode steps, "
         f"{kv} KV) card bf16 kernels vs CPU f32 plain: max rel err "
         f"{rel:.3e} (tol {BACKBONE_REL_TOL})")
 
@@ -646,6 +675,147 @@ def check_k2(dtype_name: str = "float32") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: CSM's codec and watermark
+# ---------------------------------------------------------------------------
+
+# relative to max |reference|: the float32 Mimi decoder on the card (TF32
+# off) against the CPU, the same math summed in another order; streamed
+# chunks against the whole decode on the card (position-exact masks: only
+# the summation order differs); the bf16 codec against float32 (2^-5,
+# about 3x the 1.1e-2 the CPU measures at these shapes)
+MIMI_REL_TOL = 1e-4
+MIMI_CHUNK_REL_TOL = 1e-5
+MIMI_BF16_REL_TOL = 2.0 ** -5
+# the spectral watermark, card vs CPU, absolute on audio in [-1, 1] (float32
+# FFTs in another order); SilentCipher's encode, relative to max |ref|
+WATERMARK_TOL = 1e-5
+SC_REL_TOL = 1e-4
+
+
+def check_codec() -> dict:
+    """CSM's detokenize path at full width: the Mimi decoder (random
+    weights from a seed) for 4 streams x 10 frames, whole and as two
+    streamed chunks (4 + 6 frames) with caches, on the card against the CPU
+    in float32, then cast to bf16 (the codec at ``--codec-dtype bfloat16``)
+    against float32; the spectral watermark over one 19,200-sample chunk
+    per stream, its resample to 44.1 kHz and SilentCipher's encode (random
+    params, a 512-row message band) over a chunk of noise at that rate,
+    card vs CPU. Prints CUDA-event times (graph
+    replays) of each."""
+    import torch
+
+    from vox_serve_tpu_torch.codecs import mimi
+    from vox_serve_tpu_torch.params import tree_map
+    from vox_serve_tpu_torch.watermark import (SILENTCIPHER_KEY,
+                                               WatermarkConfig,
+                                               apply_watermark,
+                                               init_watermarker)
+    from vox_serve_tpu_torch.watermark import silentcipher as sc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = mimi.MimiConfig()
+    g = torch.Generator().manual_seed(6)
+    params = mimi.init_mimi(cfg, g, "cpu")
+    B, T, cut = 4, 10, 4
+    codes = torch.randint(0, 2048, (B, 32, T), generator=g)
+
+    def to(tree, device, dtype=None):
+        return tree_map(lambda a: a.to(device, dtype) if dtype is not None
+                        and a.dtype == torch.float32 else a.to(device), tree)
+
+    def decode(p, device, dtype=None):
+        c = codes.to(device)
+        whole = mimi.mimi_decode_chunk(p, cfg, c, None)[0]
+        cache0 = to(mimi.mimi_init_cache(cfg, B, device), device, dtype)
+        a, cache = mimi.mimi_decode_chunk(p, cfg, c[..., :cut], cache0)
+        cache = tree_map(lambda x, r: x.to(r.dtype), cache, cache0)
+        b, _ = mimi.mimi_decode_chunk(p, cfg, c[..., cut:], cache)
+        return whole.float().cpu(), torch.cat([a, b], -1).float().cpu()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    ref_whole, ref_chunks = decode(params, "cpu")
+    pc = to(params, dev)
+    whole, chunks = decode(pc, dev)
+    pb = to(params, dev, torch.bfloat16)
+    b_whole, b_chunks = decode(pb, dev, torch.bfloat16)
+    errs = {"card_vs_cpu": max(rel(whole, ref_whole), rel(chunks, ref_chunks)),
+            "chunks_vs_whole": rel(chunks, whole),
+            "bf16_vs_f32": max(rel(b_whole, ref_whole),
+                               rel(b_chunks, ref_whole)),
+            "bf16_chunks_vs_whole": rel(b_chunks, b_whole)}
+    tols = {"card_vs_cpu": MIMI_REL_TOL, "chunks_vs_whole": MIMI_CHUNK_REL_TOL,
+            "bf16_vs_f32": MIMI_BF16_REL_TOL,
+            "bf16_chunks_vs_whole": MIMI_BF16_REL_TOL}
+    shape = (B, 1, T * cfg.frame_samples)
+    for out in (whole, chunks, b_whole, b_chunks):
+        if tuple(out.shape) != shape or not torch.isfinite(out).all():
+            raise AssertionError(f"Mimi decode: shape {tuple(out.shape)} or "
+                                 "not finite")
+    for k, e in errs.items():
+        if e > tols[k]:
+            raise AssertionError(f"Mimi {k}: rel err {e} > {tols[k]}")
+    c = codes.to(dev)
+    ms = {dt: cuda_time_ms(lambda p=p: mimi.mimi_decode_chunk(p, cfg, c, None),
+                           iters=5, graph=True)
+          for dt, p in (("f32", pc), ("bf16", pb))}
+    log(f"Mimi decoder (full width: 8 x 512 transformer, window 250, SEANet "
+        f"rates {cfg.upsample_ratios}) B={B} x {T} frames, whole and "
+        f"{cut} + {T - cut} streamed: "
+        + " ".join(f"{k}={v:.3e} (tol {tols[k]})" for k, v in errs.items())
+        + f"; graph ms per decode f32={ms['f32']:.3f} bf16={ms['bf16']:.3f} "
+        f"({T / 12.5 * 1e3:.0f} ms of audio per stream)")
+
+    wcfg = WatermarkConfig()
+    wp = init_watermarker(wcfg, torch.Generator().manual_seed(101), "cpu")
+    audio = ref_whole[:, 0]
+    ref = apply_watermark(wp, wcfg, audio)
+    wpc, ac = to(wp, dev), audio.to(dev)
+    got = apply_watermark(wpc, wcfg, ac).cpu()
+    wm_err = (got - ref).abs().max().item()
+    if not torch.isfinite(got).all() or wm_err > WATERMARK_TOL:
+        raise AssertionError(f"spectral watermark card vs CPU: {wm_err}")
+    wm_ms = cuda_time_ms(lambda: apply_watermark(wpc, wcfg, ac), graph=True)
+    log(f"spectral watermark B={B} x {audio.shape[1]} samples: card vs CPU "
+        f"max_abs_err={wm_err:.3e} (tol {WATERMARK_TOL}); graph ms "
+        f"{wm_ms:.3f}; mark size {(ref - audio).abs().max().item():.3e}")
+
+    # the message band cut to 512 rows, as in the JAX package's parity
+    # test: the default 1024 exceeds the 513 bins of a 1024-point STFT
+    scfg = sc.SilentCipherConfig(message_band_size=512)
+    scp = sc.init_silentcipher(scfg, g, "cpu")
+    onehot = torch.from_numpy(sc.message_to_symbols(list(SILENTCIPHER_KEY),
+                                                    scfg))
+    y = sc.sinc_resample(audio[:1], wcfg.sample_rate, scfg.sr)
+    up_err = (sc.sinc_resample(ac[:1], wcfg.sample_rate, scfg.sr).cpu()
+              - y).abs().max().item()
+    if up_err > WATERMARK_TOL:
+        raise AssertionError(f"sinc_resample card vs CPU: {up_err}")
+    # the encode over white noise of the resampled chunk's length: a bin
+    # with next to no energy (above the resampled audio's 12 kHz band)
+    # takes its phase from rounding, and the mark's energy lands there
+    # with that phase, so only a signal with energy in every bin compares
+    # sample for sample
+    y = torch.randn(y.shape, generator=g) * 0.1
+    ref = sc.sc_encode(scp, scfg, y, onehot)
+    scc, yc, oc = to(scp, dev), y.to(dev), onehot.to(dev)
+    got = sc.sc_encode(scc, scfg, yc, oc).cpu()
+    sc_err = rel(got, ref)
+    if not torch.isfinite(got).all() or sc_err > SC_REL_TOL:
+        raise AssertionError(f"sc_encode card vs CPU: rel err {sc_err}")
+    sc_ms = cuda_time_ms(lambda: sc.sc_encode(scc, scfg, yc, oc), iters=5,
+                         graph=True)
+    log(f"SilentCipher: sinc_resample 24 -> 44.1 kHz card vs CPU "
+        f"max_abs_err={up_err:.3e} (tol {WATERMARK_TOL}); sc_encode (random "
+        f"params) 1 x {y.shape[1]} samples of noise at 44.1 kHz: card vs CPU "
+        f"max_rel_err={sc_err:.3e} (tol {SC_REL_TOL}); graph ms {sc_ms:.3f}")
+    return {**errs, "watermark": wm_err, "sc_encode": sc_err}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: end to end over HTTP
 # ---------------------------------------------------------------------------
 
@@ -657,7 +827,7 @@ PROMPTS = [
 ]
 SAMPLE_RATE = 24000
 #: the model each run serves (Qwen3-TTS unless listed here)
-MODEL_OF = {"I": "orpheus"}
+MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm"}
 #: per model: ``--max-tokens`` (absolute positions), and the audio unit a
 #: run counts with its samples: a Qwen3 codec frame (42-token prompts ->
 #: ~60 frames), or one Orpheus window (7 tokens; 42-token prompts -> ~119
@@ -665,7 +835,16 @@ MODEL_OF = {"I": "orpheus"}
 MODELS = {
     "qwen3-tts": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
     "orpheus": {"max_tokens": 160, "unit": "windows", "unit_samples": 2048},
+    "csm": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
 }
+#: per model: backbone layers (each decode step launches the decode kernel
+#: once per layer, each prefill K3 once per layer)
+LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16}
+#: per model: the /generate form fields besides the text (CSM's speaker is
+#: an integer id)
+FORM = {"csm": {"speaker": "0"}}
+#: Qwen3's and CSM's detokenize interval (frames) and samples per frame
+FRAME_WINDOWS = (10, 1920)
 #: Orpheus's detokenize window, overlap and samples kept per window
 ORPHEUS_WINDOW = (28, 21, 2048)
 
@@ -697,9 +876,9 @@ K2H = "fused_resunit_stack_bf16"
 SINGLE = {"fused_decode_steps": 0, "pipeline_depth": 0,
           "first_chunk_frames": 0}
 #: what A-F serve besides: the online scheduler, the codec in float32 and
-#: the whole generation budget reserved at admission
+#: the whole generation budget reserved at admission, no watermark
 ONLINE_F32 = {"scheduler_type": "online", "codec_dtypes": ["float32"],
-              "kv_reserve_fraction": 1.0}
+              "kv_reserve_fraction": 1.0, "watermark": None}
 BF16_CODEC = ["--codec-dtype", "bfloat16"]
 FUSED = ["--fused-decode-steps", "4", "--fused-decode-buckets", "1,4",
          "--pipeline-depth", "2"]
@@ -743,6 +922,23 @@ CONFIGS = {
     "I": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
                    "fused_resunit": False, **SINGLE, **ONLINE_F32},
           {K1, K3}),
+    # CSM-1B (MODEL_OF): G = 4 at D=64 in K1 and K3, 16 layers, the
+    # 31-codebook depth step in every decode graph, the Mimi codec with its
+    # transformer ring in the slot cache, the spectral watermark in every
+    # detokenize graph. K: the paths of the JAX csm profile at this batch
+    # (bf16 codec, first-chunk ramp, fused decode, pipelines); CSM's rows do
+    # not chain (the JAX model's flag), so no cold chain
+    "J": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "watermark": "spectral"}, {K1, K3}),
+    "K": ([*BF16_CODEC, "--first-chunk-frames", "3", *FUSED,
+           "--detok-pipeline-depth", "2"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False, "fused_decode_steps": 4,
+           "pipeline_depth": 2, "first_chunk_frames": 3,
+           "detok_pipeline_depth": 2, "scheduler_type": "online",
+           "codec_dtypes": ["bfloat16"], "kv_reserve_fraction": 1.0,
+           "watermark": "spectral"}, {K1, K3}),
 }
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
@@ -753,8 +949,6 @@ TEXT_STREAMS = {"G": 2}
 #: the step kinds that run the LM (H: every detokenize replay after them)
 LM_KINDS = ("prefill", "decode", "decode_multi", "decode_multi_detok",
             "cold_chain")
-#: talker layers: each decode step launches the decode kernel once per layer
-TALKER_LAYERS = 28
 
 
 def free_port() -> int:
@@ -774,9 +968,10 @@ def http_get(port: int, path: str) -> int:
         conn.close()
 
 
-def stream_generate(port: int, text: str, out: dict) -> None:
-    body = urllib.parse.urlencode({"text": text, "speaker": "ryan",
-                                   "language": "english"})
+def stream_generate(port: int, text: str, out: dict,
+                    fields: dict | None = None) -> None:
+    body = urllib.parse.urlencode({"text": text, **(fields or {
+        "speaker": "ryan", "language": "english"})})
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         t0 = time.perf_counter()
@@ -830,6 +1025,7 @@ def stream_text_input(port: int, text: str, out: dict) -> None:
         if status != 200:
             raise RuntimeError(f"stream start: status {status}")
         rid = json.loads(body)["request_id"]
+        out["rid8"] = rid[:8]
 
         def read_audio():
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
@@ -890,9 +1086,11 @@ def serve_wave(config: str, port: int, prompts: list[str],
                    else spec["max_tokens"] * per)
 
     results = [{} for _ in prompts]
+    fields = FORM.get(MODEL_OF.get(config))
     threads = [threading.Thread(
         target=stream_text_input if i < text_streams else stream_generate,
-        args=(port, p, r)) for i, (p, r) in enumerate(zip(prompts, results))]
+        args=(port, p, r) if i < text_streams else (port, p, r, fields))
+        for i, (p, r) in enumerate(zip(prompts, results))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -1020,7 +1218,69 @@ def end_to_end(card: str, config: str) -> dict:
     check_run(config, card, stats, out)
     if model == "orpheus":
         check_overlap_windows(config, stats, out)
+    else:
+        check_frame_streams(config, stats, out, model == "csm")
     return out
+
+
+def frame_pcm_samples(n_tokens: int, ends: set) -> int:
+    """The PCM a stream of ``n_tokens`` codec frames (Qwen3, CSM) must
+    emit: windows tile the frames contiguously, 1920 samples a frame, and a
+    last window holding fewer frames than its length keeps int(samples *
+    (valid - 0.5) / length) (the JAX worker's ``_resolve_detok``), half a
+    frame less. ``ends``: where windows end."""
+    fs = FRAME_WINDOWS[1]
+    return fs * n_tokens - (0 if n_tokens in ends else fs // 2)
+
+
+def check_frame_streams(config: str, stats: dict, out: dict,
+                        verbose: bool) -> None:
+    """Each stream's PCM is exactly what the trim rule gives for the frames
+    its daemon generated (a window dropped or emitted twice fails).
+    Without the first-chunk ramp windows end every 10 frames; with it the
+    ramp's mini windows (3, then 3 or 6 frames, unless the scheduler hands
+    a stream to full windows early) end first, so a stream's last window is
+    whole or trimmed by half a frame and both lengths are accepted.
+    ``verbose`` (CSM) prints each stream's finish reason, TTFA and frames/s
+    against real time (12.5 frames/s), and the decode and detokenize replay
+    times."""
+    interval, fs = FRAME_WINDOWS
+    ramp = stats["first_chunk_frames"]
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    for i, st in enumerate(out["streams"]):
+        req = done.get(st["rid8"])
+        if req is None:
+            raise AssertionError(f"[{config}] stream {i} ({st['rid8']}) not "
+                                 f"among the daemon's requests {list(done)}")
+        n = req["audio_tokens"]
+        want = {frame_pcm_samples(n, set(range(0, n + 1, interval)))}
+        if ramp:
+            want |= {fs * n, fs * n - fs // 2}
+        if n <= 0 or st["samples"] not in want:
+            raise AssertionError(
+                f"[{config}] stream {i}: {st['samples']} samples for {n} "
+                f"frames, the trim rule gives {sorted(want)}")
+        if verbose:
+            log(f"[{config}] stream {i} ({st['rid8']}): {n} audio tokens "
+                f"({req['finish_reason']}) -> {st['samples']} samples (rule:"
+                f" {sorted(want)}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
+                f"{st['samples'] / fs / st['wall_s']:.2f} frames/s (real "
+                "time 12.50)")
+    if not verbose:
+        frames = [done[st["rid8"]]["audio_tokens"] for st in out["streams"]]
+        log(f"[{config}] every stream's PCM follows the trim rule for its "
+            f"frames {frames}")
+        return
+    probe = stats["steps"]["probe_ms"]
+    ph = stats["phase_stats"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    log(f"[{config}] CSM-1B: TTFA median {out['ttfa_median_s'] * 1e3:.1f} ms;"
+        f" {out['frames_per_s']:.2f} frames/s aggregate over 4 streams (real "
+        f"time: 12.50 per stream, 50.00 for 4); decode replay ms (probe) "
+        + str({k: v for k, v in probe.items() if k.startswith("decode")})
+        + "; detokenize replay ms (probe) "
+        + str({k: v for k, v in probe.items() if k.startswith("detok ")})
+        + f"; detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} ms per call")
 
 
 def check_overlap_windows(config: str, stats: dict, out: dict) -> None:
@@ -1068,6 +1328,8 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     """Print a served run's numbers and hold its stats file to what the
     configuration must have run (see the module docstring)."""
     _flags, _env, served, must_run = CONFIGS[config]
+    model = MODEL_OF.get(config, "qwen3-tts")
+    layers = LAYERS[model]
     ph = stats["phase_stats"]
     steps = stats["steps"]
     n_steps = steps["decode_steps"]
@@ -1088,8 +1350,8 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     ttfa = out["ttfa"]
     solo = (f"; solo stream TTFA {out['solo_ttfa_s'] * 1e3:.1f} ms"
             if "solo_ttfa_s" in out else "")
-    unit = MODELS[MODEL_OF.get(config, "qwen3-tts")]["unit"]
-    log(f"[{config}] e2e on {card}: {MODEL_OF.get(config, 'qwen3-tts')}, 4 "
+    unit = MODELS[model]["unit"]
+    log(f"[{config}] e2e on {card}: {model}, 4 "
         f"streams, {out['frames']:.1f} {unit} in {out['wall']:.2f} s = "
         f"{out['frames_per_s']:.1f} {unit}/s "
         f"aggregate; TTFA min/median/max {ttfa[0] * 1e3:.1f}/"
@@ -1111,7 +1373,8 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
         f"{steps['max_pending_detok']}; polled {steps['polled']}; device "
         f"ms per replay (start-up probe): "
         + ", ".join(f"{k}={v:.3f}" for k, v in steps["probe_ms"].items()))
-    log(f"[{config}] served {({k: stats[k] for k in served})}; kernel "
+    log(f"[{config}] served {stats['model']} "
+        f"{({k: stats[k] for k in served})}; kernel "
         f"launches {launches}; resunit stacks {stats['resunit_stacks']} "
         f"(bf16 {stats['resunit_bf16_stacks']}); replay order "
         f"{steps['replay_spans']}")
@@ -1121,6 +1384,9 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
                                  out["text_stream_ttfa"])
             + " ms; of the /generate streams " + ", ".join(
                 f"{t * 1e3:.1f}" for t in out["generate_ttfa"]) + " ms")
+    if stats["model"] != model:
+        raise AssertionError(f"[{config}] the daemon served {stats['model']}"
+                             f", expected {model}")
     for key, want in served.items():
         if stats[key] != want:
             raise AssertionError(f"[{config}] served {key}={stats[key]!r}, "
@@ -1145,15 +1411,19 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     # each replay counted the kernels its capture launched: K3 once per
     # talker layer and prefill, the decode kernel once per layer and step
     prefills = replays.get("prefill", 0) + replays.get("cold_chain", 0)
-    if launches[K3] != TALKER_LAYERS * prefills:
+    if launches[K3] != layers * prefills:
         raise AssertionError(
             f"[{config}] {K3} launched {launches[K3]} times, expected "
-            f"{TALKER_LAYERS} x {prefills} prefill and cold-chain replays")
+            f"{layers} x {prefills} prefill and cold-chain replays")
     (decode_kernel,) = must_run & {K1, K1Q, K4}
-    if launches[decode_kernel] != TALKER_LAYERS * n_steps:
+    if launches[decode_kernel] != layers * n_steps:
         raise AssertionError(
             f"[{config}] {decode_kernel} launched {launches[decode_kernel]}"
-            f" times, expected {TALKER_LAYERS} x {n_steps} decode steps")
+            f" times, expected {layers} x {n_steps} decode steps")
+    log(f"[{config}] {K3}: {launches[K3]} launches = {layers} layers x "
+        f"{prefills} prefill replays; {decode_kernel}: "
+        f"{launches[decode_kernel]} launches = {layers} layers x {n_steps} "
+        "decode steps")
     # and every counter is the sum over graphs of replays x captured counts
     want = {name: 0 for name in launches}
     stacks = {K2: 0, K2H: 0}
@@ -1185,7 +1455,11 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
             raise AssertionError(f"[{config}] the readback pipeline never "
                                  f"held {served['pipeline_depth']} steps")
     if served["first_chunk_frames"]:
-        if not replays.get("cold_chain"):
+        chained = replays.get("cold_chain", 0) + replays.get(
+            "decode_multi_detok", 0)
+        if model == "csm" and chained:
+            raise AssertionError(f"[{config}] CSM's rows chained: {replays}")
+        if model != "csm" and not replays.get("cold_chain"):
             raise AssertionError(f"[{config}] no cold chain was replayed")
         minis = {int(k.split()[2]) for k, c in captured.items()
                  if k.startswith("detok ") and c["replays"]}
@@ -1239,13 +1513,18 @@ def main(argv=None) -> int:
     check_decode(kernels, "K1", H=28, KH=4, batches=(4,))
     check_k3(kernels, H=24, KH=8, shapes=((168, 4), (1024, 5)))
     check_k3(kernels, H=28, KH=4, shapes=((1024, 5),))
+    # CSM-1B's served heads: a GQA group of 4 at head dim 64
+    check_decode(kernels, "K1", H=32, KH=8, batches=(4, 64), D=64)
+    check_k3(kernels, H=32, KH=8, shapes=((168, 4), (1024, 5)), D=64)
     if args.kernels_only:
         return 0
     for kv in ("combined", "int8", "f8_e4m3", "pair"):
         check_backbone(kv)
-    check_backbone("combined", orpheus_heads=True)
+    check_backbone("combined", heads="orpheus")
+    check_backbone("combined", heads="csm")
     k2 = check_k2()
     k2h = check_k2("bfloat16")
+    check_codec()
 
     # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)

@@ -25,6 +25,11 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.models.dummy",
     "vox_serve_tpu_torch.models.orpheus",
     "vox_serve_tpu_torch.codecs.snac",
+    "vox_serve_tpu_torch.models.csm",
+    "vox_serve_tpu_torch.codecs.mimi",
+    "vox_serve_tpu_torch.watermark",
+    "vox_serve_tpu_torch.watermark.spectral",
+    "vox_serve_tpu_torch.watermark.silentcipher",
     "vox_serve_tpu_torch.weights",
     "vox_serve_tpu_torch.server.api",
     "vox_serve_tpu_torch.params",

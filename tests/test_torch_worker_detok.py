@@ -346,6 +346,50 @@ def test_flush_and_poll_resolve_pending_batches():
         assert len(_drain_pcm(r)) == interval * S * 2
 
 
+@pytest.mark.parametrize("detok_depth", [1, 2])
+@pytest.mark.parametrize("last", [2, 4])
+@pytest.mark.parametrize("other", [False, True])
+def test_window_in_flight_holds_the_completion(detok_depth, last, other):
+    """A stream whose last window is still in a detokenize batch in flight
+    is not finished, and goes back to the scheduler done only with that
+    audio: neither the batch before it resolving finishes it (the JAX
+    worker's ``_maybe_finish`` there reads the window list the later
+    dispatch has already advanced), nor does the scheduler's own mark (the
+    online scheduler marks a stream done once its last window is selected,
+    then sends its completion with its next audio or at its next round)
+    hand it back before its last window resolves, also when (``other``)
+    another stream's batch sits between and another stream's window
+    dispatches beside it."""
+    w = _worker(pipeline_depth=2, detok_pipeline_depth=detok_depth)
+    interval = w.detokenize_interval
+    req = _req_with_audio(w, "t", 2 * interval + last)
+    req.done_lm_generation = True
+    pcm, returned = b"", []
+
+    def window(r, start):
+        r.next_audio_decode_idx = [start]
+        return w.run_detokenize([r])
+
+    for start in (0, interval):
+        returned += window(req, start)
+    if other:
+        window(_req_with_audio(w, "c", interval, seed=9), 0)
+    returned += window(req, 2 * interval)
+    pcm += _drain_pcm(req)
+    assert not req.done_all  # its last window is in flight
+    req.done_all, req.next_audio_decode_idx = True, []
+    batch = [req]
+    if other:
+        batch.append(_req_with_audio(w, "o", interval, seed=8))
+        batch[1].next_audio_decode_idx = [0]
+    returned += w.run_detokenize(batch)
+    assert req in returned and not w._in_flight(req)
+    pcm += _drain_pcm(req)
+    tail = last * S if last == interval else int(
+        interval * S * (last - 0.5) / interval)
+    assert len(pcm) == 2 * (2 * interval * S + tail)
+
+
 # -- slot codec rows -----------------------------------------------------------
 
 

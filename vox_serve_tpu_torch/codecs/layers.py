@@ -72,6 +72,33 @@ def conv_transpose1d(p: dict, x: torch.Tensor, stride: int = 1,
                               groups=groups, dilation=dilation)
 
 
+def causal_conv(p: dict, x: torch.Tensor, pad: int, cache, dilation: int = 1,
+                groups: int = 1):
+    """Causal conv1d -> (y, new cache). Without a cache the input is
+    zero-padded by ``pad`` on the left; with one, the cache (the last
+    ``pad`` input samples) is prepended and the new cache is the last
+    ``pad`` samples of that."""
+    if cache is None:
+        xin = F.pad(x, (pad, 0))
+        new_cache = None
+    else:
+        xin = torch.cat([cache.to(x.dtype), x], dim=-1)
+        new_cache = xin[:, :, -pad:] if pad > 0 else cache
+    y = conv1d(p, xin, padding=0, dilation=dilation, groups=groups)
+    return y, new_cache
+
+
+def rvq_decode(group: dict, codes: torch.Tensor) -> torch.Tensor:
+    """Residual-VQ decode of one quantizer group (codebook = embed_sum /
+    usage; the entries summed over quantizers, then the group's 1x1 output
+    projection): codes (B, n_q, T) -> (B, out_dim, T)."""
+    embed = group["embed_sum"] / torch.clamp(group["usage"],
+                                             min=1e-5)[..., None]
+    q_idx = torch.arange(embed.shape[0], device=codes.device)[None, :, None]
+    q = embed[q_idx, codes.long()]              # (B, n_q, T, vq_dim)
+    return conv1d(group["out_proj"], q.sum(dim=1).transpose(1, 2))
+
+
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Snake activation x + sin^2(a x) / (a + 1e-9), computed in float32
     and returned in x's dtype. alpha: (C,) or (1, C, 1)."""

@@ -31,8 +31,8 @@ from ..ops.kernels import NEG_INF
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.resunit import fused_resunit_stack, use_fused_resunit
 from ..ops.rope import rope_frequencies
-from .layers import (conv1d, conv_transpose1d, init_conv1d,
-                     init_conv_transpose1d)
+from .layers import (causal_conv, conv1d, conv_transpose1d, init_conv1d,
+                     init_conv_transpose1d, rvq_decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,17 +215,6 @@ def _snake_beta(x, alpha, beta):
     return x + (1.0 / (b + 1e-9)) * torch.square(torch.sin(x * a))
 
 
-def _causal_conv(p, x, pad, cache, dilation=1, groups=1):
-    if cache is None:
-        xin = F.pad(x, (pad, 0))
-        new_cache = None
-    else:
-        xin = torch.cat([cache.to(x.dtype), x], dim=-1)
-        new_cache = xin[:, :, -pad:] if pad > 0 else cache
-    y = conv1d(p, xin, padding=0, dilation=dilation, groups=groups)
-    return y, new_cache
-
-
 def _causal_transconv(p, x, stride, kernel, cache):
     """CausalTransConvNet semantics: full mode trims (kernel - stride) from
     both sides; chunk mode prepends the last input sample and keeps
@@ -245,7 +234,7 @@ def _causal_transconv(p, x, stride, kernel, cache):
 
 def _convnext_block(p, x, cache):
     residual = x
-    y, new_cache = _causal_conv(p["dw"], x, 6, cache, groups=x.shape[1])
+    y, new_cache = causal_conv(p["dw"], x, 6, cache, groups=x.shape[1])
     y = y.transpose(1, 2)
     y = layer_norm(y, p["norm_w"], p["norm_b"], eps=1e-6)
     y = linear(p["pw1"], y)
@@ -259,8 +248,8 @@ def _convnext_block(p, x, cache):
 def _residual_unit(p, x, dilation, cache):
     res = x
     y = _snake_beta(x, p["alpha1"], p["beta1"])
-    y, new_cache = _causal_conv(p["conv1"], y, 6 * dilation, cache,
-                                dilation=dilation)
+    y, new_cache = causal_conv(p["conv1"], y, 6 * dilation, cache,
+                               dilation=dilation)
     y = _snake_beta(y, p["alpha2"], p["beta2"])
     y = conv1d(p["conv2"], y)
     return res + y, new_cache
@@ -271,21 +260,11 @@ def _residual_unit(p, x, dilation, cache):
 # ---------------------------------------------------------------------------
 
 
-def _rvq_decode(group: dict, codes: torch.Tensor) -> torch.Tensor:
-    """codes: (B, n_q, T) -> (B, codebook_dim, T)."""
-    embed = group["embed_sum"] / torch.clamp(group["usage"], min=1e-5)[..., None]
-    n_q = embed.shape[0]
-    q_idx = torch.arange(n_q, device=codes.device)[None, :, None]
-    q = embed[q_idx, codes.long()]              # (B, n_q, T, vq_dim)
-    summed = q.sum(dim=1)                       # (B, T, vq_dim)
-    return conv1d(group["out_proj"], summed.transpose(1, 2))
-
-
 def qwen3_rvq_decode(params: dict, cfg: Qwen3CodecConfig,
                      codes: torch.Tensor) -> torch.Tensor:
     """(B, 16, T) -> (B, 512, T): semantic (cb 0) + acoustic (cb 1..15)."""
-    sem = _rvq_decode(params["rvq_first"], codes[:, :1])
-    ac = _rvq_decode(params["rvq_rest"], codes[:, 1:])
+    sem = rvq_decode(params["rvq_first"], codes[:, :1])
+    ac = rvq_decode(params["rvq_rest"], codes[:, 1:])
     return sem + ac
 
 
@@ -384,8 +363,8 @@ def _pipeline(params: dict, cfg: Qwen3CodecConfig, codes: torch.Tensor,
         return node
 
     hidden = qwen3_rvq_decode(params, cfg, codes)  # (B, 512, T)
-    hidden, pre_cache = _causal_conv(params["pre_conv"], hidden, 2,
-                                     c("pre_conv"))
+    hidden, pre_cache = causal_conv(params["pre_conv"], hidden, 2,
+                                    c("pre_conv"))
     hidden, tr_cache = _transformer(params, cfg, hidden.transpose(1, 2),
                                     cache)
     hidden = hidden.transpose(1, 2)  # (B, latent, T)
@@ -400,7 +379,7 @@ def _pipeline(params: dict, cfg: Qwen3CodecConfig, codes: torch.Tensor,
         new_ups.append({"trans": t_cache, "convnext_dw": d_cache})
 
     dec = params["decoder"]
-    wav, c0_cache = _causal_conv(dec["conv0"], hidden, 6, c("dec_conv0"))
+    wav, c0_cache = causal_conv(dec["conv0"], hidden, 6, c("dec_conv0"))
     new_blocks = []
     fused = use_fused_resunit()
     for i, (b, rate) in enumerate(zip(dec["blocks"], cfg.upsample_rates)):
@@ -419,7 +398,7 @@ def _pipeline(params: dict, cfg: Qwen3CodecConfig, codes: torch.Tensor,
                 res_caches.append(rcache)
         new_blocks.append({"trans": t_cache, "res": res_caches})
     wav = _snake_beta(wav, dec["alpha_out"], dec["beta_out"])
-    wav, head_cache = _causal_conv(dec["head"], wav, 6, c("head"))
+    wav, head_cache = causal_conv(dec["head"], wav, 6, c("head"))
     wav = torch.clamp(wav, -1.0, 1.0)
 
     new_cache = None

@@ -1,6 +1,6 @@
 """Model registry of the port (vox_serve_tpu/models/__init__.py, holding the
-families ported so far: ``dummy``, the Qwen3-TTS CustomVoice patterns and
-Orpheus-3B).
+families ported so far: ``dummy``, the Qwen3-TTS CustomVoice patterns,
+Orpheus-3B and CSM-1B).
 
 ``load_model`` resolves the class, builds it on the given device, and
 applies CLI sampling overrides onto the model's defaults.
@@ -32,6 +32,7 @@ _register(
     "vox_serve_tpu_torch.models.qwen3_tts", "Qwen3TTSLM")
 _register(["orpheus", "canopylabs/orpheus-3b-0.1-ft"],
           "vox_serve_tpu_torch.models.orpheus", "OrpheusLM")
+_register(["csm", "sesame/csm-1b"], "vox_serve_tpu_torch.models.csm", "CSMLM")
 
 
 def available_models() -> list[str]:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.backbone import BackboneConfig, backbone_forward
+from ..models.depth import prepare_depth_layers
 from ..ops.attention import AttnMetadata
 from ..requests import Request
 from ..sampling import SamplingConfig, sample_and_update
@@ -110,6 +111,10 @@ class BaseLM(abc.ABC):
     supports_chained_detok: bool = False
     #: serves the ``input_streaming`` scheduler (text arriving in pieces)
     supports_input_streaming: bool = False
+    #: the worker watermarks every decoded chunk (``watermark/``), with the
+    #: published marker of this name where its weights are loaded
+    needs_watermarking: bool = False
+    watermarker_type: Optional[str] = None
     #: set by the worker when the KV pool is quantized (int8/f8): static
     #: (k_scale, v_scale) dequant multipliers threaded into the backbone
     #: (ops/kv_cache.py KVCacheConfig.kv_scales)
@@ -259,3 +264,15 @@ class BaseLMWithDepth(BaseLM):
         all_ids, feedback = self.depth_step(params, hidden, ids[:, 0],
                                             generator)
         return {"sampled": all_ids, "feedback": feedback}
+
+    _depth_src: Optional[dict] = None
+    _depth_layers: Optional[dict] = None
+
+    def prepared_depth(self, depth_params: dict) -> dict:
+        """The depth stack with its fused q|k|v and gate|up weights,
+        concatenated once per parameter set (the worker's warm-up call
+        makes them before any graph capture)."""
+        if self._depth_src is not depth_params:
+            self._depth_layers = prepare_depth_layers(depth_params)
+            self._depth_src = depth_params
+        return self._depth_layers

@@ -35,7 +35,7 @@ from ..models.backbone import (BackboneConfig, _init_linear,
                                seeded_generator)
 from ..models.base import BaseLMWithDepth, PreprocessOutput
 from ..models.depth import (DepthConfig, depth_forward, init_depth_kv,
-                            init_depth_params, prepare_depth_layers)
+                            init_depth_params)
 from ..sampling import SamplingConfig, sample
 from ..weights import load_text_tokenizer
 
@@ -103,7 +103,6 @@ class Qwen3TTSLM(BaseLMWithDepth):
         self.spk_ids = {"ryan": 2090, "vivian": 2091, "serena": 2092}
         self.text_tokenizer, self.assets_available = load_text_tokenizer(
             model_name, TEXT_VOCAB)
-        self._depth_src = self._depth_layers = None
         self._init_params(seed)
         self.sampling_config = self.default_sampling_config
         # suppress [vocab-1024, vocab) except codec EOS
@@ -310,12 +309,7 @@ class Qwen3TTSLM(BaseLMWithDepth):
         x0 = torch.stack([hidden.to(self.dtype), cb0_embed], dim=1)
         x0p = linear(d["proj"], x0.reshape(B * 2, H)).reshape(B, 2, -1)
         kc, vc = init_depth_kv(dcfg, B, hidden.device)
-        # fused q|k|v and gate|up weights, concatenated once per params
-        # (the worker's warm-up call fills this before any graph capture)
-        if self._depth_src is not d["backbone"]:
-            self._depth_layers = prepare_depth_layers(d["backbone"])
-            self._depth_src = d["backbone"]
-        db = self._depth_layers
+        db = self.prepared_depth(d["backbone"])
         h = depth_forward(db, dcfg, x0p, 0, kc, vc)
         scfg = self.sampling_config
         feedback = torch.zeros((B, H), dtype=self.dtype, device=hidden.device)

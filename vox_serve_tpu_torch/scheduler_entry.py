@@ -27,10 +27,11 @@ the card per kind, the kernel counts one replay of each graph adds,
 capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
 graph pool's size), the last completed requests' audio-token counts and
-finish reasons, and the configuration it served (scheduler type, KV
+finish reasons, and the configuration it served (model, scheduler type, KV
 layout and pool dtype, whether the codec ran the fused residual-unit
 stacks, the codec's tensor dtypes as read from its parameters and cache,
-the KV reserve fraction, the fused-decode, pipeline, first-chunk and
+the watermark it applied ("spectral", "silentcipher" or null), the KV
+reserve fraction, the fused-decode, pipeline, first-chunk and
 bucket settings) there as JSON: how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
@@ -61,6 +62,7 @@ def _run_scheduler_daemon(args) -> None:
     from .ops.resunit import (fused_resunit_stack, fused_resunit_stack_bf16,
                               use_fused_resunit)
     from .scheduler import load_scheduler
+    from .watermark import watermark_kind
     from .worker import ModelWorker, WorkerConfig
 
     model = load_model(
@@ -132,12 +134,14 @@ def _run_scheduler_daemon(args) -> None:
         param_count = {"lm": _count(model.params),
                        "codec": _count(model.codec_params)}
         served = {
+            "model": args.model,
             "scheduler_type": args.scheduler_type,
             "kv_layout": "combined" if worker.kv_config.combined else "pair",
             "kv_pool_dtype": str(worker.k_pages.dtype).removeprefix("torch."),
             "kv_scales": worker.kv_config.kv_scales,
             "fused_resunit": use_fused_resunit(),
             "codec_dtypes": worker.codec_dtypes(),
+            "watermark": watermark_kind(worker.watermark_params),
             "kv_reserve_fraction": wcfg.kv_reserve_fraction,
             "async_scheduling": args.async_scheduling,
             "fused_decode_steps": wcfg.fused_decode_steps,

@@ -1,9 +1,10 @@
 """Logging and small host-side utilities of the port.
 
 A copy of what the port uses of vox_serve_tpu/utils.py: the logger factory
-with a process-global, thread-safe log level, the rank-prefixing adapter and
-``cdiv``. The port keeps its own copy so that it imports nothing of the JAX
-package; the loggers are named ``vox_serve_tpu_torch.<name>``.
+with a process-global, thread-safe log level, the rank-prefixing adapter,
+``cdiv`` and the WAV reader ``load_audio_mono``. The port keeps its own
+copy so that it imports nothing of the JAX package; the loggers are named
+``vox_serve_tpu_torch.<name>``.
 """
 
 from __future__ import annotations
@@ -66,3 +67,36 @@ class RankLogger(logging.LoggerAdapter):
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def load_audio_mono(path: str, target_sr: "int | None",
+                    return_sr: bool = False):
+    """Read a PCM WAV file -> mono float32 in [-1, 1] at target_sr (stdlib
+    ``wave`` and a linear resample, as the JAX package reads reference
+    audio)."""
+    import wave
+
+    import numpy as np
+
+    with wave.open(path, "rb") as w:
+        sr = w.getframerate()
+        n = w.getnframes()
+        ch = w.getnchannels()
+        width = w.getsampwidth()
+        raw = w.readframes(n)
+    if width == 2:
+        x = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+    elif width == 4:
+        x = np.frombuffer(raw, np.int32).astype(np.float32) / 2147483648.0
+    elif width == 1:
+        x = (np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported WAV sample width {width}")
+    if ch > 1:
+        x = x.reshape(-1, ch).mean(axis=1)
+    if target_sr is not None and sr != target_sr and len(x):
+        t_out = np.linspace(0.0, len(x) - 1.0,
+                            int(round(len(x) * target_sr / sr)))
+        x = np.interp(t_out, np.arange(len(x)), x).astype(np.float32)
+        sr = target_sr
+    return (x, sr) if return_sr else x

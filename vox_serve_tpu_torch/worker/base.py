@@ -56,6 +56,12 @@ model's text channel (``_inject_streaming_text_token``), planned after the
 row's hard-stop and KV backpressure checks so that a row that does not
 step consumes nothing.
 
+A model with ``needs_watermarking`` has every decoded chunk watermarked in
+``_detok_rows`` (``watermark/``: parameters made at start-up on the device
+from ``seed + 101``, float32 whatever the codec's dtype), so the mark is
+inside every graph that runs the codec: detokenize, the chained
+first-chunk decode and the cold chain.
+
 ``codec_dtype`` serves the codec at another dtype ("bfloat16"): every
 float32 leaf of the codec parameters and of the codec cache is cast before
 the cache is built and before any graph is captured, so graphs and K2's
@@ -92,8 +98,10 @@ from ..ops.kernels import DecodeScratch
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
                             alloc_kv_pages, combined_kv_supported)
 from ..params import tree_leaves, tree_map
+from ..models.backbone import seeded_generator
 from ..requests import Request
 from ..sampling import init_repetition_cache
+from ..watermark import WatermarkConfig, apply_watermark, init_watermarker
 from .graphs import StepCache
 
 #: block-table widths are whole multiples of this many tokens (the JAX
@@ -312,6 +320,13 @@ class ModelWorker:
                                         dtype=bb.dtype, device=dev)
         self.last_tokens = torch.zeros((rows, model.n_codebooks),
                                        dtype=torch.int32, device=dev)
+        self.watermark_cfg = self.watermark_params = None
+        if model.needs_watermarking:
+            self.watermark_cfg = WatermarkConfig(
+                style=model.watermarker_type or "silentcipher",
+                sample_rate=model.sample_rate)
+            self.watermark_params = init_watermarker(
+                self.watermark_cfg, seeded_generator(dev, cfg.seed + 101), dev)
         if cfg.codec_dtype is not None:
             # before the cache is built and anything is captured: graphs and
             # K2's packed weights hold pointers to these tensors
@@ -730,13 +745,18 @@ class ModelWorker:
     def _detok_rows(self, token_ids: torch.Tensor,
                     slots: torch.Tensor) -> torch.Tensor:
         """The codec over (B, L, C) windows, each in its slot's codec-cache
-        row (gathered, then scattered back in place); int16 PCM (B,
-        channels, samples) on the device."""
+        row (gathered, then scattered back in place), then the watermark
+        (in float32: ``torch.fft`` takes no bf16); int16 PCM (B, channels,
+        samples) on the device."""
         model = self.model
         rows = (None if self.codec_cache is None
                 else tree_map(lambda a: a[slots], self.codec_cache))
         audio, new_rows = model.detokenize(model.codec_params, token_ids,
                                            rows)
+        if self.watermark_cfg is not None:
+            marked = apply_watermark(self.watermark_params,
+                                     self.watermark_cfg, audio[:, 0].float())
+            audio = marked[:, None].to(audio.dtype)
         if self.codec_cache is not None and new_rows is not None:
             def put(a, r):
                 a[slots] = r.to(a.dtype)
@@ -1558,11 +1578,17 @@ class ModelWorker:
     def _run_detokenize(self, requests: list[Request]) -> list[Request]:
         model = self.model
         interval = model.detokenize_interval
+        # the scheduler marks a stream done once its last window is selected
+        # and sends its completion with the stream's next audio, or at its
+        # next round: resolve the batches that still hold a done stream's
+        # windows first, so that the completion follows its last chunk
+        pre_resolved: list[Request] = []
+        while any(r.done_all and self._in_flight(r) for r in requests):
+            pre_resolved += self._resolve_detok()
         # first-chunk minis: short windows grouped by ramp size (stateful
         # codec caches forbid padding mixed sizes into one batch)
         F = self.first_chunk_frames
         minis = [r for r in requests if r.extras.pop("mini_chunk", False)]
-        pre_resolved: list[Request] = []
         if minis and F:
             by_size: dict[int, list[Request]] = {}
             for r in minis:
@@ -1740,9 +1766,25 @@ class ModelWorker:
             out += self._resolve_detok()
         return out
 
+    def _in_flight(self, req: Request) -> bool:
+        """Whether a detokenize batch in flight holds one of req's
+        windows."""
+        return any(m[0] is req for e in self._pending_detok
+                   for m in e.mapping)
+
     def _maybe_finish(self, requests: list[Request]) -> None:
+        """Mark done the requests whose last window has been decoded.
+        Different on purpose from the JAX worker, which also finishes a
+        request whose last window is still in a batch in flight (its window
+        list already names that window when the batch before resolves), so
+        the completion went out ahead of the last chunk: here the batch
+        that holds the last window finishes it. (A stream the scheduler
+        marks done itself has its windows resolved first, in
+        ``_run_detokenize``.)"""
         interval = self.model.detokenize_interval
         for req in requests:
+            if self._in_flight(req):
+                continue
             if req.done_lm_generation and req.audio_decode_idx and (
                     req.audio_decode_idx[-1] + interval
                     >= len(req.lm_output_audio_tokens)):
