@@ -116,6 +116,38 @@ exits non-zero without printing a result:
    streams' TTFA (first piece to first PCM byte) beside its /generate
    streams'.
 
+6. checkpoints in the published layouts (``synthetic_checkpoints.py``):
+   random weights from seeds at the published widths and tensor names,
+   written with the port's safetensors writer (or ``torch.save`` where the
+   published repo ships ``.bin`` / ``.ckpt`` files) into a temporary
+   Hugging Face hub cache, one family at a time, each resolved by its id
+   through ``HF_HUB_CACHE`` and loaded onto the card by the package's
+   loaders, every tensor held bit-equal to the one written, with the bytes,
+   seconds, GB/s and the peak resident set of each load printed:
+   Qwen/Qwen3-TTS-12Hz-1.7B-Base (talker, depth and ``speaker_encoder.*``,
+   bf16), Qwen/Qwen3-TTS-Tokenizer-12Hz (the decoder and the 32-codebook
+   ``encoder.*`` Mimi model, float32), sesame/csm-1b (with
+   ``codec_model.*`` and two 0.96 s prompt WAVs),
+   canopylabs/orpheus-3b-0.1-ft at full width but 4 of its 28 layers,
+   hubertsiuzdak/snac_24khz (``pytorch_model.bin``, weight-norm pairs) and
+   sony/silentcipher (its three state dicts and ``hparams.yaml``, at the
+   512-row band of phase 4). Between them it serves, each daemon resolving
+   its model by id in that cache: run L, ``--model
+   Qwen/Qwen3-TTS-12Hz-1.7B-Base --max-tokens 200``, four streams: two ICL
+   voice clones (a 3 s 24 kHz reference WAV uploaded as the ``audio``
+   field, and a ``ref_text``), one ``x_vector_only_mode=true`` clone and
+   one without audio; run M, ``--model
+   Qwen/Qwen3-TTS-12Hz-1.7B-VoiceDesign --max-tokens 140`` from the same
+   talker without a speaker encoder, two ``instruct`` streams; run N, J's
+   configuration from the sesame/csm-1b snapshot (``--max-tokens 1072``:
+   every prompt carries the default two-speaker context built from the
+   prompt WAVs through the Mimi encoder on the card). Each must report
+   every part of its model loaded from the checkpoint (a mapping that fell
+   back to random init fails the run), K1 and K3 launched in graphs as in
+   A, each stream's PCM by the trim rule, and each prompt exactly as long
+   as its variant's rows (L's ICL prompts hold the reference's 38 frames,
+   M's have no speaker row, N's the context).
+
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -826,8 +858,36 @@ PROMPTS = [
     "The codec turns codes to audio.",
 ]
 SAMPLE_RATE = 24000
-#: the model each run serves (Qwen3-TTS unless listed here)
-MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm"}
+#: the published ids whose synthetic snapshots the checkpoint phase writes
+QWEN3_BASE = "Qwen/Qwen3-TTS-12Hz-1.7B-Base"
+QWEN3_DESIGN = "Qwen/Qwen3-TTS-12Hz-1.7B-VoiceDesign"
+QWEN3_CODEC = "Qwen/Qwen3-TTS-Tokenizer-12Hz"
+CSM_ID = "sesame/csm-1b"
+ORPHEUS_ID = "canopylabs/orpheus-3b-0.1-ft"
+SNAC_ID = "hubertsiuzdak/snac_24khz"
+SC_ID = "sony/silentcipher"
+#: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M
+#: and N by published id, from the checkpoint phase's hub cache
+MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
+            "M": QWEN3_DESIGN, "N": CSM_ID}
+#: the family of a served id (its layers, audio unit and form fields)
+FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm"}
+
+
+def family(config: str) -> str:
+    return FAMILY.get(MODEL_OF.get(config, "qwen3-tts"), "qwen3-tts")
+
+
+#: ``--max-tokens`` where a run's prompts are longer than the family's
+#: default budget: L's ICL prompts carry 38 reference frames and the
+#: reference transcript, M's the instruct text, N's the default
+#: two-speaker context (its two transcripts, 946 characters through the
+#: char-level dev tokenizer, and two 0.96 s prompt WAVs)
+MAX_TOKENS = {"L": 200, "M": 140, "N": 1072}
+
+
+def max_tokens(config: str) -> int:
+    return MAX_TOKENS.get(config, MODELS[family(config)]["max_tokens"])
 #: per model: ``--max-tokens`` (absolute positions), and the audio unit a
 #: run counts with its samples: a Qwen3 codec frame (42-token prompts ->
 #: ~60 frames), or one Orpheus window (7 tokens; 42-token prompts -> ~119
@@ -940,15 +1000,148 @@ CONFIGS = {
            "codec_dtypes": ["bfloat16"], "kv_reserve_fraction": 1.0,
            "watermark": "spectral"}, {K1, K3}),
 }
+#: what L, M and N load from their snapshots: a part False (random init
+#: after a failed mapping) or missing fails the run
+QWEN3_LOADED = {"talker": True, "codec": True, "codec_encoder": True}
+CONFIGS.update({
+    # Qwen3-TTS Base from a full-width synthetic checkpoint: two ICL voice
+    # clones (an uploaded reference WAV and its transcript: the ECAPA
+    # x-vector and the Mimi encoder's reference frames in the prompt), one
+    # x-vector-only clone, one request without audio
+    "L": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": {**QWEN3_LOADED, "speaker_encoder": True}},
+          {K1, K3}),
+    # VoiceDesign: the same talker without a speaker encoder, two instruct
+    # streams, no speaker row
+    "M": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": {**QWEN3_LOADED, "speaker_encoder": None}},
+          {K1, K3}),
+    # J's configuration from the sesame/csm-1b snapshot: the backbone, the
+    # Mimi codec and its encoder, the default two-speaker context in every
+    # prompt
+    "N": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "watermark": "spectral", "tokenizer_loaded": False,
+                   "checkpoint": {"backbone": True, "codec": True,
+                                  "codec_encoder": True}}, {K1, K3}),
+})
+#: the runs served from random weights, and those from checkpoints (the
+#: checkpoint phase writes their snapshots)
+RANDOM_RUNS = "ABCDEFGHIJK"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
-WAVES = {"F": (1, 4)}
+WAVES = {"F": (1, 4), "M": (2,)}
+#: per run, each request's form fields besides the text and whether it
+#: uploads the reference WAV (``audio``); other runs send FORM's fields
+REF_TEXTS = ("A short reference clip for the voice clone.",
+             "Another transcript of the same reference.")
+INSTRUCTS = ("A warm, low voice, speaking slowly.",
+             "Bright and fast, like a sports announcer.")
+REQUESTS = {
+    "L": [{"fields": {"language": "english", "ref_text": REF_TEXTS[0]},
+           "audio": True},
+          {"fields": {"language": "english", "ref_text": REF_TEXTS[1]},
+           "audio": True},
+          {"fields": {"language": "english", "x_vector_only_mode": "true"},
+           "audio": True},
+          {"fields": {"language": "english"}}],
+    "M": [{"fields": {"language": "english", "instruct": i}}
+          for i in INSTRUCTS],
+}
+#: the reference clip L uploads: 3 s at 24 kHz
+REF_SAMPLES = 72000
+#: the prompt WAVs of the synthetic sesame/csm-1b snapshot: 0.96 s each
+CSM_PROMPT_SAMPLES = 23040
 #: the requests of a wave that use the text-stream protocol (G: 2 of 4; the
 #: rest POST /generate)
 TEXT_STREAMS = {"G": 2}
 #: the step kinds that run the LM (H: every detokenize replay after them)
 LM_KINDS = ("prefill", "decode", "decode_multi", "decode_multi_detok",
             "cold_chain")
+
+
+def mimi_frames(n_samples: int, ratios=(8, 6, 5, 4)) -> int:
+    """Frames the Mimi encoder makes of ``n_samples``: each strided causal
+    conv pads its last frame whole (ceil), then the x2 downsample."""
+    n = n_samples
+    for r in (*reversed(ratios), 2):
+        n = -(-n // r)
+    return n
+
+
+def synth_wav(n_samples: int, seed: int) -> bytes:
+    """A 24 kHz mono PCM16 WAV of a voiced-like signal (harmonics of a
+    gliding pitch under a syllable-rate envelope)."""
+    import io
+    import wave
+
+    import numpy as np
+
+    t = np.arange(n_samples) / SAMPLE_RATE
+    f0 = 110.0 + 30.0 * seed + 20.0 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+    x = sum(np.sin(k * phase) / k for k in range(1, 8))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t) ** 2
+    pcm = (x / np.abs(x).max() * 12000).astype(np.int16)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def expected_prompt_tokens(config: str, i: int, text: str) -> int:
+    """The prompt length request ``i`` of a run must have under the
+    char-level dev tokenizer (every snapshot here ships none): Qwen3's role
+    rows (3), think prefix with the English id (4), the speaker x-vector
+    row (Base), tts_bos, the text, tts_eos + codec_bos; an ICL clone adds
+    its reference transcript and the reference's codec frames; VoiceDesign
+    adds its instruct template and has no speaker row. CSM: the default
+    two-speaker context ("[spk]transcript" rows, each prompt WAV's Mimi
+    frames and an EOS frame), then "[0]text"."""
+    if family(config) == "csm":
+        from vox_serve_tpu_torch.models.csm import CSMLM
+
+        ctx = sum(len(f"[{spk}]{t}") + mimi_frames(CSM_PROMPT_SAMPLES) + 1
+                  for spk, t in enumerate(CSMLM._PROMPT_TEXTS))
+        return ctx + len(f"[0]{text}")
+    fields = REQUESTS[config][i]["fields"]
+    n = 3 + 4 + 1 + len(text) + 2
+    if "instruct" in fields:
+        return n + len(f"<|im_start|>user\n{fields['instruct']}"
+                       "<|im_end|>\n")
+    n += 1  # the x-vector row
+    if "ref_text" in fields:
+        n += len(fields["ref_text"]) + mimi_frames(REF_SAMPLES)
+    return n
+
+
+#: the runs whose prompts are held to ``expected_prompt_tokens``
+PROMPT_LENGTHS = ("L", "M", "N")
+
+
+def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
+    """Each stream's prompt, as the daemon counted it, is exactly as long
+    as its variant's rows: L's ICL prompts hold the reference's frames, M's
+    have no speaker row, N's carry the default context."""
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    got = []
+    for i, st in enumerate(out["streams"]):
+        want = expected_prompt_tokens(config, i, PROMPTS[i])
+        n = done[st["rid8"]]["prompt_tokens"]
+        if n != want:
+            raise AssertionError(f"[{config}] stream {i}: a prompt of {n} "
+                                 f"tokens, its rows give {want}")
+        got.append(n)
+    log(f"[{config}] prompt lengths {got} as their rows give"
+        + (f" (ICL: {mimi_frames(REF_SAMPLES)} reference frames each)"
+           if config == "L" else ""))
 
 
 def free_port() -> int:
@@ -968,15 +1161,39 @@ def http_get(port: int, path: str) -> int:
         conn.close()
 
 
+def multipart(fields: dict, files: dict) -> tuple[bytes, str]:
+    """A multipart/form-data body: text ``fields`` and ``files`` (name ->
+    (filename, bytes)); returns (body, content type)."""
+    boundary = f"vox{time.monotonic_ns()}"
+    parts = []
+    for k, v in fields.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="{k}"\r\n\r\n{v}\r\n'.encode())
+    for k, (fname, data) in files.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="{k}"; filename="{fname}"\r\nContent-Type: '
+                     'audio/wav\r\n\r\n'.encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
 def stream_generate(port: int, text: str, out: dict,
-                    fields: dict | None = None) -> None:
-    body = urllib.parse.urlencode({"text": text, **(fields or {
-        "speaker": "ryan", "language": "english"})})
+                    fields: dict | None = None,
+                    audio: bytes | None = None) -> None:
+    """POST /generate (urlencoded, or multipart with an uploaded ``audio``
+    WAV) and read the streamed WAV, recording TTFA and wall time."""
+    form = {"text": text, **(fields or {"speaker": "ryan",
+                                        "language": "english"})}
+    if audio is None:
+        body = urllib.parse.urlencode(form)
+        ctype = "application/x-www-form-urlencoded"
+    else:
+        body, ctype = multipart(form, {"audio": ("reference.wav", audio)})
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         t0 = time.perf_counter()
-        conn.request("POST", "/generate", body=body, headers={
-            "Content-Type": "application/x-www-form-urlencoded"})
+        conn.request("POST", "/generate", body=body,
+                     headers={"Content-Type": ctype})
         resp = conn.getresponse()
         out["status"] = resp.status
         # "attachment; filename=stream_<first 8 of the request id>.wav"
@@ -1079,17 +1296,21 @@ def serve_wave(config: str, port: int, prompts: list[str],
     return (results, audio units (frames or windows), wall seconds)."""
     import numpy as np
 
-    spec = MODELS[MODEL_OF.get(config, "qwen3-tts")]
+    spec = MODELS[family(config)]
     unit, per = spec["unit"], spec["unit_samples"]
-    max_samples = (overlap_pcm_samples(spec["max_tokens"])
-                   if MODEL_OF.get(config) == "orpheus"
-                   else spec["max_tokens"] * per)
+    max_samples = (overlap_pcm_samples(max_tokens(config))
+                   if family(config) == "orpheus"
+                   else max_tokens(config) * per)
 
     results = [{} for _ in prompts]
-    fields = FORM.get(MODEL_OF.get(config))
+    reqs = REQUESTS.get(config) or [
+        {"fields": FORM.get(family(config))}] * len(prompts)
+    ref = synth_wav(REF_SAMPLES, seed=0)
     threads = [threading.Thread(
         target=stream_text_input if i < text_streams else stream_generate,
-        args=(port, p, r) if i < text_streams else (port, p, r, fields))
+        args=(port, p, r) if i < text_streams else (
+            port, p, r, reqs[i].get("fields"),
+            ref if reqs[i].get("audio") else None))
         for i, (p, r) in enumerate(zip(prompts, results))]
     t0 = time.perf_counter()
     for t in threads:
@@ -1125,13 +1346,15 @@ def serve_wave(config: str, port: int, prompts: list[str],
     return results, frames, wall
 
 
-def end_to_end(card: str, config: str) -> dict:
+def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     """Serve one configuration over HTTP; returns the daemon's launch
     counts, the 4-stream wave's frames/s and TTFA median, and the solo
     stream's TTFA (F), after checking what it served and which kernels and
-    graphs ran."""
+    graphs ran. ``hub``: the Hugging Face hub cache the daemon resolves
+    checkpoints in (``HF_HUB_CACHE``; L, M and N)."""
     flags, env_extra, served, must_run = CONFIGS[config]
     model = MODEL_OF.get(config, "qwen3-tts")
+    fam = family(config)
     OUT.mkdir(exist_ok=True)
     port = free_port()
     stats_path = OUT / f"chip_smoke_server_stats_{config}.json"
@@ -1143,12 +1366,15 @@ def end_to_end(card: str, config: str) -> dict:
            "--model", model, "--device", "cuda",
            "--host", "127.0.0.1", "--port", str(port),
            "--max-batch-size", "4", "--max-num-pages", "2048",
-           "--max-tokens", str(MODELS[model]["max_tokens"]), "--seed", "0",
+           "--max-tokens", str(max_tokens(config)), "--seed", "0",
            "--socket-suffix", f"_smoke{port}",
            "--stats-file", str(stats_path), *flags]
     env = {k: v for k, v in os.environ.items()
-           if k not in ("VOX_FUSED_RESUNIT", "VOX_KV_COMBINED")}
+           if k not in ("VOX_FUSED_RESUNIT", "VOX_KV_COMBINED",
+                        "HF_HUB_CACHE")}
     env.update(env_extra)
+    if hub is not None:
+        env["HF_HUB_CACHE"] = hub
     t_start = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=server_log, env=env,
                             stderr=subprocess.STDOUT, start_new_session=True)
@@ -1216,10 +1442,12 @@ def end_to_end(card: str, config: str) -> dict:
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
     check_run(config, card, stats, out)
-    if model == "orpheus":
+    if fam == "orpheus":
         check_overlap_windows(config, stats, out)
     else:
-        check_frame_streams(config, stats, out, model == "csm")
+        check_frame_streams(config, stats, out, fam == "csm")
+    if config in PROMPT_LENGTHS:
+        check_prompt_lengths(config, stats, out)
     return out
 
 
@@ -1328,8 +1556,8 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     """Print a served run's numbers and hold its stats file to what the
     configuration must have run (see the module docstring)."""
     _flags, _env, served, must_run = CONFIGS[config]
-    model = MODEL_OF.get(config, "qwen3-tts")
-    layers = LAYERS[model]
+    model, fam = MODEL_OF.get(config, "qwen3-tts"), family(config)
+    layers = LAYERS[fam]
     ph = stats["phase_stats"]
     steps = stats["steps"]
     n_steps = steps["decode_steps"]
@@ -1346,12 +1574,13 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     tk, nk = per_call("decode_multi")
     det_t, det_n = ph.get("detokenize", (0.0, 0))
     pre_t, pre_n = ph.get("prefill", (0.0, 0))
+    pp_t, pp_n = ph.get("preprocess", (0.0, 0))
     wins, batches = ph.get("detok.windows", (0.0, 0))
     ttfa = out["ttfa"]
     solo = (f"; solo stream TTFA {out['solo_ttfa_s'] * 1e3:.1f} ms"
             if "solo_ttfa_s" in out else "")
-    unit = MODELS[model]["unit"]
-    log(f"[{config}] e2e on {card}: {model}, 4 "
+    unit = MODELS[fam]["unit"]
+    log(f"[{config}] e2e on {card}: {model}, {len(ttfa)} "
         f"streams, {out['frames']:.1f} {unit} in {out['wall']:.2f} s = "
         f"{out['frames_per_s']:.1f} {unit}/s "
         f"aggregate; TTFA min/median/max {ttfa[0] * 1e3:.1f}/"
@@ -1363,6 +1592,7 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
         f"{det_t / max(det_n, 1) * 1e3:.2f} ms per call over {det_n} calls "
         f"({batches} batches of {wins / max(batches, 1):.2f} windows); "
         f"prefill wall {pre_t / max(pre_n, 1) * 1e3:.2f} ms x {pre_n}; "
+        f"preprocess {pp_t / max(pp_n, 1) * 1e3:.2f} ms x {pp_n}; "
         f"cold starts {steps['cold_starts']}; params LM "
         f"{stats['param_count']['lm'] / 1e9:.3f} B + codec "
         f"{stats['param_count']['codec'] / 1e6:.1f} M")
@@ -1457,9 +1687,9 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     if served["first_chunk_frames"]:
         chained = replays.get("cold_chain", 0) + replays.get(
             "decode_multi_detok", 0)
-        if model == "csm" and chained:
+        if fam == "csm" and chained:
             raise AssertionError(f"[{config}] CSM's rows chained: {replays}")
-        if model != "csm" and not replays.get("cold_chain"):
+        if fam != "csm" and not replays.get("cold_chain"):
             raise AssertionError(f"[{config}] no cold chain was replayed")
         minis = {int(k.split()[2]) for k, c in captured.items()
                  if k.startswith("detok ") and c["replays"]}
@@ -1472,6 +1702,302 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
             raise AssertionError(
                 f"[{config}] the detokenize pipeline never held "
                 f"{served['detok_pipeline_depth']} batches")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: checkpoints in the published layouts, and runs L, M, N
+# ---------------------------------------------------------------------------
+
+
+def _rss_gb(key: str) -> float:
+    """A size from /proc/self/status (VmRSS: the resident set), GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+class RssPeak:
+    """The peak resident set of this process while the block runs, GB:
+    VmRSS sampled every 2 ms by a thread (the kernel's VmHWM is not
+    offered everywhere, and cannot be reset everywhere)."""
+
+    def __enter__(self):
+        self.peak = _rss_gb("VmRSS")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, _rss_gb("VmRSS"))
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gb("VmRSS"))
+
+
+def _bits(t):
+    import torch
+
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def assert_bit_equal(label: str, written: dict, loaded: dict) -> int:
+    """Every tensor the loader gave back (re-exported to the published
+    names) has the dtype, shape and bits of the one written."""
+    import torch
+
+    if set(written) != set(loaded):
+        raise AssertionError(f"[load] {label}: names differ: "
+                             f"{sorted(set(written) ^ set(loaded))[:8]}")
+    for k, w in written.items():
+        r = loaded[k]
+        if (r.dtype != w.dtype or tuple(r.shape) != tuple(w.shape)
+                or not torch.equal(_bits(r).to(w.device), _bits(w))):
+            raise AssertionError(f"[load] {label}: {k} differs from the "
+                                 f"tensor written ({r.dtype} {tuple(r.shape)}"
+                                 f" vs {w.dtype} {tuple(w.shape)})")
+    return len(written)
+
+
+def timed_load(label: str, files: list, load, written: dict,
+               reexport, write_s: float) -> dict:
+    """Resolve and load one snapshot onto the card (``load``), timed, with
+    the peak resident set of this process over the load; then hold every
+    tensor bit-equal to the written ones (``reexport`` maps the loaded
+    tree back to the published names)."""
+    import gc
+
+    gc.collect()
+    _sync()
+    base = _rss_gb("VmRSS")
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        loaded = load()
+        _sync()
+        dt = time.perf_counter() - t0
+    peak = rss.peak
+    if loaded is None:
+        raise AssertionError(f"[load] {label}: the loader fell back to "
+                             "random init")
+    n = assert_bit_equal(label, written, reexport(loaded))
+    nbytes = sum(os.path.getsize(f) for f in files)
+    params = sum(t.numel() for k, t in written.items()
+                 if not k.endswith("num_batches_tracked"))
+    r = {"gb": nbytes / 1e9, "s": dt, "gb_per_s": nbytes / 1e9 / dt,
+         "peak_rss_gb": peak, "rss_before_gb": base, "write_s": write_s,
+         "params": params, "tensors": n}
+    log(f"[load] {label}: {r['gb']:.3f} GB in {len(files)} file(s), "
+        f"{params / 1e9:.4f} B params (written in {write_s:.1f} s); "
+        f"resolved through the hub cache and loaded onto the card in "
+        f"{dt:.2f} s = {r['gb_per_s']:.2f} GB/s; peak RSS {peak:.2f} GB "
+        f"(before {base:.2f} GB, sampled every 2 ms); {n} tensors "
+        "bit-equal to those written")
+    return r
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _files(snap) -> list:
+    return sorted(str(p) for p in Path(snap).rglob("*") if p.is_file())
+
+
+def _drop_snapshot(cache: Path, model_id: str) -> None:
+    import shutil
+
+    shutil.rmtree(cache / ("models--" + model_id.replace("/", "--")),
+                  ignore_errors=True)
+
+
+def checkpoint_phase(card: str) -> tuple[dict, dict]:
+    """Write synthetic checkpoints at the published widths and names
+    (random weights from seeds, through ``synthetic_checkpoints.py``'s
+    exporters and the port's safetensors writer) into a temporary hub
+    cache, one family at a time; load each on the card through the
+    package's loaders (resolved by id through ``HF_HUB_CACHE``), holding
+    every tensor bit-equal to the one written and printing bytes, seconds,
+    GB/s and peak RSS; serve runs L and M (Qwen3-TTS Base and VoiceDesign)
+    and N (CSM-1B) from those snapshots. Each snapshot is deleted after
+    its run. Returns (load numbers, run results)."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.codecs.mimi import (MimiConfig, init_mimi,
+                                                 init_mimi_encoder)
+    from vox_serve_tpu_torch.codecs.qwen3_codec import (Qwen3CodecConfig,
+                                                        init_qwen3_codec)
+    from vox_serve_tpu_torch.codecs.snac import SNACConfig, init_snac_decoder
+    from vox_serve_tpu_torch.encoders.ecapa import EcapaConfig, init_ecapa
+    from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
+                                                     seeded_generator)
+    from vox_serve_tpu_torch.models.csm import CSMLM
+    from vox_serve_tpu_torch.models.orpheus import OrpheusLM
+    from vox_serve_tpu_torch.models.qwen3_tts import Qwen3TTSLM
+    from vox_serve_tpu_torch.watermark import silentcipher as sc
+    from vox_serve_tpu_torch.watermark import spectral
+
+    dev = torch.device("cuda")
+    cache = Path(tempfile.mkdtemp(prefix="vox_hub_"))
+    saved_env = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = str(cache)
+    loads, runs = {}, {}
+
+    def write(model_id, state, shards):
+        snap = synth.snapshot_dir(cache, model_id)
+        t0 = time.perf_counter()
+        synth.write_shards(snap, state, shards)
+        return snap, time.perf_counter() - t0
+
+    try:
+        # -- Qwen3-TTS Base: talker, depth, speaker encoder; the codec ----
+        src = Qwen3TTSLM(QWEN3_BASE, device=dev, seed=21)
+        spk = init_ecapa(EcapaConfig(mel_dim=128, enc_dim=2048),
+                         seeded_generator(dev, 22), dev)
+        state = synth.export_qwen3(src.params, spk, torch.bfloat16)
+        snap, ws = write(QWEN3_BASE, state, 2)
+        (snap / "config.json").write_text(_json.dumps({"talker_config": {
+            "spk_id": {"ryan": 2090, "vivian": 2091, "serena": 2092}}}))
+        loads[QWEN3_BASE] = timed_load(
+            QWEN3_BASE, _files(snap), src._load_checkpoint, state,
+            lambda t: synth.export_qwen3(t, src._spk_enc_params,
+                                         torch.bfloat16), ws)
+
+        g = seeded_generator(dev, 23)
+        codec = init_qwen3_codec(Qwen3CodecConfig(), g, dev)
+        enc = init_mimi_encoder(MimiConfig(), g, dev)
+        cstate = {**synth.export_qwen3_codec(codec),
+                  **synth.export_mimi_encoder(enc, "encoder.")}
+        csnap, ws = write(QWEN3_CODEC, cstate, 1)
+        loads[QWEN3_CODEC] = timed_load(
+            QWEN3_CODEC, _files(csnap), src._load_codec_params, cstate,
+            lambda t: {**synth.export_qwen3_codec(t),
+                       **synth.export_mimi_encoder(src._codec_encoder,
+                                                   "encoder.")}, ws)
+        if src._enc_mimi_cfg != MimiConfig():
+            raise AssertionError("the codec encoder's config changed")
+        del src, spk, codec, enc, cstate
+        _free()
+        runs["L"] = end_to_end(card, "L", hub=str(cache))
+
+        # -- VoiceDesign: the same talker, no speaker encoder -------------
+        _drop_snapshot(cache, QWEN3_BASE)
+        design = {k: v for k, v in state.items()
+                  if not k.startswith("speaker_encoder.")}
+        del state
+        write(QWEN3_DESIGN, design, 2)
+        del design
+        _free()
+        runs["M"] = end_to_end(card, "M", hub=str(cache))
+        _drop_snapshot(cache, QWEN3_DESIGN)
+        _drop_snapshot(cache, QWEN3_CODEC)
+
+        # -- CSM-1B with the Mimi codec and encoder, and its prompts ------
+        src = CSMLM(CSM_ID, device=dev, seed=31)
+        g = seeded_generator(dev, 32)
+        codec = init_mimi(MimiConfig(), g, dev)
+        enc = init_mimi_encoder(MimiConfig(), g, dev)
+        state = synth.export_csm(src.params, codec, enc)
+        snap, ws = write(CSM_ID, state, 2)
+        (snap / "prompts").mkdir()
+        for i, name in enumerate(("conversational_a", "conversational_b")):
+            (snap / "prompts" / f"{name}.wav").write_bytes(
+                synth_wav(CSM_PROMPT_SAMPLES, seed=1 + i))
+
+        def csm_reexport(t):
+            shared = synth.share_mimi_codebooks(t["codec"], t["encoder"])
+            for grp in ("rvq_first", "rvq_rest"):
+                for k in ("embed_sum", "usage"):
+                    if not torch.equal(shared[grp][k], t["encoder"][grp][k]):
+                        raise AssertionError("encoder codebooks differ")
+            return synth.export_csm(t["params"], t["codec"], t["encoder"])
+
+        loads[CSM_ID] = timed_load(CSM_ID, _files(snap), src._load_checkpoint,
+                                   state, csm_reexport, ws)
+        del src, codec, enc, state
+        _free()
+        runs["N"] = end_to_end(card, "N", hub=str(cache))
+        _drop_snapshot(cache, CSM_ID)
+
+        # -- Orpheus-3B at full width, 4 of its 28 layers; SNAC -----------
+        cfg4 = BackboneConfig(
+            vocab_size=156940, hidden_size=3072, num_layers=4, num_heads=24,
+            num_kv_heads=8, head_dim=128, intermediate_size=8192,
+            rope_theta=500000.0, llama31_rope_scaling=True)
+        src = OrpheusLM(ORPHEUS_ID, device=dev, seed=41, debug_backbone=cfg4)
+        state = synth.export_orpheus(src.params)
+        snap, ws = write(ORPHEUS_ID, state, 2)
+        loads[ORPHEUS_ID + " (4 of 28 layers)"] = timed_load(
+            ORPHEUS_ID, _files(snap), src._load_params, state,
+            synth.export_orpheus, ws)
+        _drop_snapshot(cache, ORPHEUS_ID)
+        del state
+
+        snac = init_snac_decoder(SNACConfig(), seeded_generator(dev, 42), dev)
+        sstate = synth.export_snac(snac, SNACConfig())
+        snap = synth.snapshot_dir(cache, SNAC_ID)
+        t0 = time.perf_counter()
+        torch.save(sstate, snap / "pytorch_model.bin")
+        loads[SNAC_ID] = timed_load(
+            SNAC_ID, _files(snap), src._load_snac, sstate,
+            lambda t: synth.export_snac(t, SNACConfig()),
+            time.perf_counter() - t0)
+        _drop_snapshot(cache, SNAC_ID)
+        del src, snac, sstate
+
+        # -- SilentCipher at the 512-row message band ----------------------
+        scfg = sc.SilentCipherConfig(message_band_size=512)
+        scp = sc.init_silentcipher(scfg, seeded_generator(dev, 43), dev)
+        snap = synth.snapshot_dir(cache, SC_ID)
+        t0 = time.perf_counter()
+        synth.write_silentcipher(snap, scp, scfg)
+        ws = time.perf_counter() - t0
+        written = {f"{f}:{k}": v for f, sd in
+                   synth.export_silentcipher(scp).items()
+                   for k, v in sd.items()}
+
+        def sc_reexport(real):
+            if real["_sc_cfg"] != scfg:
+                raise AssertionError(f"hparams read as {real['_sc_cfg']}")
+            return {f"{f}:{k}": v.to(dev) for f, sd in
+                    synth.export_silentcipher(real["sc"]).items()
+                    for k, v in sd.items()}
+
+        loads[SC_ID] = timed_load(
+            SC_ID, _files(snap),
+            lambda: spectral._try_load_real_silentcipher(
+                spectral.WatermarkConfig(), dev),
+            {k: v.to(dev) for k, v in written.items()}, sc_reexport, ws)
+        _drop_snapshot(cache, SC_ID)
+    finally:
+        if saved_env is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved_env
+        shutil.rmtree(cache, ignore_errors=True)
+    return loads, runs
 
 
 def main(argv=None) -> int:
@@ -1501,6 +2027,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path = kernels.build(verbose=True)
     log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
+    marks = [("build", time.perf_counter())]
     for line in kernels.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -1518,17 +2045,31 @@ def main(argv=None) -> int:
     check_k3(kernels, H=32, KH=8, shapes=((168, 4), (1024, 5)), D=64)
     if args.kernels_only:
         return 0
+    marks.append(("attention kernels", time.perf_counter()))
     for kv in ("combined", "int8", "f8_e4m3", "pair"):
         check_backbone(kv)
     check_backbone("combined", heads="orpheus")
     check_backbone("combined", heads="csm")
+    marks.append(("backbones", time.perf_counter()))
     k2 = check_k2()
     k2h = check_k2("bfloat16")
+    marks.append(("K2", time.perf_counter()))
     check_codec()
+    marks.append(("codec", time.perf_counter()))
 
     # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)
-    runs = {c: end_to_end(card, c) for c in CONFIGS}
+    runs = {}
+    for c in RANDOM_RUNS:
+        runs[c] = end_to_end(card, c)
+        marks.append((f"run {c}", time.perf_counter()))
+    _loads, ckpt_runs = checkpoint_phase(card)
+    marks.append(("checkpoints, L, M, N", time.perf_counter()))
+    runs.update(ckpt_runs)
+    log("seconds per phase: " + ", ".join(
+        f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+        in zip(marks[1:], marks)) + f"; all after the build "
+        f"{marks[-1][1] - marks[0][1]:.1f}")
     total = {name: sum(r["launches"][name] for r in runs.values())
              for name in runs["A"]["launches"]}
     a, e = runs["A"], runs["E"]

@@ -1,7 +1,11 @@
 """The port imports torch and never jax: checked in a fresh interpreter
 (the test process itself imports jax for the parity tests), and by source.
 Also: the serving device is explicit, and asking for CUDA without it fails
-at start-up."""
+at start-up; and the checkpoint loaders work with the card's installation,
+which has none of safetensors, huggingface_hub, transformers, yaml or
+ml_dtypes (a fresh interpreter in which they cannot be imported resolves
+and reads a bf16 snapshot through the hub cache and loads a Qwen3
+checkpoint, a SilentCipher snapshot and the dev tokenizer)."""
 
 import pathlib
 import re
@@ -31,6 +35,7 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.watermark.spectral",
     "vox_serve_tpu_torch.watermark.silentcipher",
     "vox_serve_tpu_torch.weights",
+    "vox_serve_tpu_torch.encoders.ecapa",
     "vox_serve_tpu_torch.server.api",
     "vox_serve_tpu_torch.params",
     "vox_serve_tpu_torch.ops.kv_cache",
@@ -69,7 +74,8 @@ def test_port_sources_never_import_jax():
     used = set()
     pkg_import = re.compile(r"^\s*(?:from|import) vox_serve_tpu(?:\.([\w.]+))?"
                             r"(?=[\s,]|$)", re.M)
-    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+              ROOT / "synthetic_checkpoints.py"]:
         used |= {m or "vox_serve_tpu"
                  for m in pkg_import.findall(p.read_text())}
     assert used <= allowed, used - allowed
@@ -125,6 +131,7 @@ def test_chip_smoke_process_imports_nothing_of_the_jax_package():
     code = (
         "import sys\n"
         "import chip_smoke\n"
+        "import synthetic_checkpoints\n"
         "import vox_serve_tpu_torch.ops.kernels\n"
         "import vox_serve_tpu_torch.models.backbone\n"
         "import vox_serve_tpu_torch.ops.attention\n"
@@ -170,3 +177,94 @@ def test_launch_fails_fast_without_cuda():
         timeout=120)
     assert out.returncode != 0
     assert "CUDA is unavailable" in out.stderr
+
+
+_CARD_INSTALL = """
+import importlib.abc, os, sys, tempfile
+from pathlib import Path
+
+MISSING = {"safetensors", "huggingface_hub", "transformers", "yaml",
+           "ml_dtypes", "jax", "jaxlib", "vox_serve_tpu"}
+
+
+class Missing(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in MISSING:
+            raise ImportError(f"No module named {name!r}")
+        return None
+
+
+sys.meta_path.insert(0, Missing())
+cache = Path(tempfile.mkdtemp())
+os.environ["HF_HUB_CACHE"] = str(cache)
+import torch
+
+import synthetic_checkpoints as synth
+from vox_serve_tpu_torch import weights
+from vox_serve_tpu_torch.codecs.qwen3_codec import Qwen3CodecConfig
+from vox_serve_tpu_torch.encoders.ecapa import EcapaConfig, init_ecapa
+from vox_serve_tpu_torch.models.backbone import BackboneConfig
+from vox_serve_tpu_torch.models.depth import DepthConfig
+from vox_serve_tpu_torch.models.qwen3_tts import Qwen3TTSLM
+from vox_serve_tpu_torch.params import tree_leaves, tree_map
+from vox_serve_tpu_torch.watermark import silentcipher as sc
+from vox_serve_tpu_torch.watermark import spectral
+
+g = torch.Generator().manual_seed(0)
+src = {"w": torch.randn(5, 7, generator=g).to(torch.bfloat16),
+       "i": torch.arange(6, dtype=torch.int64).reshape(2, 3)}
+snap = synth.snapshot_dir(cache, "Org/tiny")
+synth.write_shards(snap, src, 1)
+assert weights.resolve_model_dir("Org/tiny") == snap
+back = weights.load_safetensors_state(snap)
+assert back["w"].dtype == torch.bfloat16
+assert torch.equal(back["w"].view(torch.int16), src["w"].view(torch.int16))
+assert torch.equal(back["i"], src["i"])
+
+name = "Qwen/Qwen3-TTS-12Hz-1.7B-Base"
+bb = BackboneConfig(vocab_size=3072, hidden_size=32, num_layers=2,
+                    num_heads=2, num_kv_heads=1, head_dim=16,
+                    intermediate_size=48, qk_norm=True)
+dp = DepthConfig(hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=1,
+                 head_dim=8, intermediate_size=24, max_seq=17, qk_norm=True)
+codec = Qwen3CodecConfig(codebook_dim=16, latent_dim=16, decoder_dim=16,
+                         hidden_size=16, intermediate_size=16, head_dim=8,
+                         num_heads=2, num_kv_heads=2, num_layers=1,
+                         sliding_window=8, upsample_rates=(2,),
+                         upsampling_ratios=(2,), vq_dim=8)
+m = Qwen3TTSLM(name, device="cpu", debug_backbone=bb, debug_depth=dp,
+               debug_codec=codec)
+spk = init_ecapa(EcapaConfig(mel_dim=128, enc_dim=32,
+                             channels=(8, 8, 8, 8, 24), se_channels=4,
+                             attention_channels=4), g, "cpu")
+synth.write_shards(synth.snapshot_dir(cache, name),
+                   synth.export_qwen3(m.params, spk, torch.bfloat16))
+loaded = m._load_checkpoint()
+assert loaded is not None and m._spk_enc_params is not None
+same = tree_map(lambda a, b: torch.equal(a, b), loaded, m.params)
+assert all(tree_leaves(same)), "talker"
+assert all(tree_leaves(tree_map(
+    lambda a, b: torch.equal(a, b.to(torch.bfloat16).float()),
+    m._spk_enc_params, spk))), "speaker encoder"
+
+cfg = sc.SilentCipherConfig(message_band_size=512)
+synth.write_silentcipher(synth.snapshot_dir(cache, "sony/silentcipher"),
+                         sc.init_silentcipher(cfg, g, "cpu"), cfg)
+wm = spectral.init_watermarker(spectral.WatermarkConfig(), g, "cpu")
+assert spectral.watermark_kind(wm) == "silentcipher"
+assert wm["_sc_cfg"] == cfg
+
+(snap / "tokenizer.json").write_text("{}")
+tok, ok = weights.load_text_tokenizer("Org/tiny", 1000)
+assert not ok and isinstance(tok, weights.DevTokenizer)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in MISSING)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_loaders_work_without_the_sandbox_only_packages():
+    out = subprocess.run([sys.executable, "-c", _CARD_INSTALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

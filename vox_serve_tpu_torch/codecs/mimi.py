@@ -20,8 +20,10 @@ captured graphs). The encoder (audio -> codes: SEANet encoder, encoder
 transformer, x2 downsample, nearest-centroid RVQ) tokenizes CSM's audio
 context. Activations are NCH; the attention is plain PyTorch (the JAX
 package's is plain einsum attention, not a Pallas kernel). The checkpoint
-mappers (``load_mimi_params``, ``load_mimi_encoder_params``) are not
-ported yet: the codec serves random weights from a generator.
+mappers ``load_mimi_params`` (decode path) and ``load_mimi_encoder_params``
+map the HF ``MimiModel`` state dict, under a prefix (``codec_model.`` in
+sesame/csm-1b, ``encoder.`` in the Qwen3-TTS tokenizer), onto these trees
+in float32 on the model's device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..models.backbone import _init_linear, linear, promoted
 from ..ops.kernels import NEG_INF
 from ..ops.norms import layer_norm
 from ..ops.rope import rope_frequencies
+from ..weights import _stack, to_device
 from .layers import (causal_conv, conv1d, conv_transpose1d, init_conv1d,
                      init_conv_transpose1d, rvq_decode)
 
@@ -166,6 +169,106 @@ def init_mimi_encoder(cfg: MimiConfig, generator: torch.Generator,
         "rvq_first": _init_vq_group(cfg, g, device, 1, False),
         "rvq_rest": _init_vq_group(cfg, g, device, cfg.n_codebooks - 1,
                                    False),
+    }
+
+
+# ---------------------------------------------------------------------------
+# checkpoint mappers (HF MimiModel state dict -> the trees above)
+# ---------------------------------------------------------------------------
+
+
+def _mapper(sd: dict, prefix: str, device):
+    def arr(name):
+        return to_device(sd[prefix + name], device, torch.float32)
+
+    def lin(name):
+        p = {"w": to_device(sd[prefix + name + ".weight"], device,
+                            torch.float32, transpose=True)}
+        if prefix + name + ".bias" in sd:
+            p["b"] = arr(name + ".bias")
+        return p
+
+    def conv(name):
+        p = {"w": arr(name + ".weight")}
+        if prefix + name + ".bias" in sd:
+            p["b"] = arr(name + ".bias")
+        return p
+
+    def codebooks(name, n_q):
+        t = prefix + f"quantizer.{name}.layers.{{i}}.codebook"
+        return {"embed_sum": _stack(sd, t + ".embed_sum", n_q, device,
+                                    dtype=torch.float32),
+                "usage": _stack(sd, t + ".cluster_usage", n_q, device,
+                                dtype=torch.float32)}
+
+    def transformer(name, n_layers):
+        return {"layers": [{
+            "ln1_w": arr(f"{pre}.input_layernorm.weight"),
+            "ln1_b": arr(f"{pre}.input_layernorm.bias"),
+            "ln2_w": arr(f"{pre}.post_attention_layernorm.weight"),
+            "ln2_b": arr(f"{pre}.post_attention_layernorm.bias"),
+            "q": lin(f"{pre}.self_attn.q_proj"),
+            "k": lin(f"{pre}.self_attn.k_proj"),
+            "v": lin(f"{pre}.self_attn.v_proj"),
+            "o": lin(f"{pre}.self_attn.o_proj"),
+            "fc1": lin(f"{pre}.mlp.fc1"),
+            "fc2": lin(f"{pre}.mlp.fc2"),
+            "ls_attn": arr(f"{pre}.self_attn_layer_scale.scale"),
+            "ls_mlp": arr(f"{pre}.mlp_layer_scale.scale"),
+        } for pre in (f"{name}.layers.{i}" for i in range(n_layers))]}
+
+    return arr, conv, codebooks, transformer
+
+
+_SEM, _AC = ("semantic_residual_vector_quantizer",
+             "acoustic_residual_vector_quantizer")
+
+
+def load_mimi_params(sd: dict, cfg: MimiConfig, prefix: str = "", *,
+                     device) -> dict:
+    """The decode path of an HF ``MimiModel`` state dict (optionally under
+    ``prefix``) -> ``init_mimi``'s tree."""
+    arr, conv, codebooks, transformer = _mapper(sd, prefix, device)
+    n_up = len(cfg.upsample_ratios)
+    return {
+        "rvq_first": {**codebooks(_SEM, 1), "out_proj": {"w": arr(
+            f"quantizer.{_SEM}.output_proj.weight")}},
+        "rvq_rest": {**codebooks(_AC, cfg.n_codebooks - 1), "out_proj": {
+            "w": arr(f"quantizer.{_AC}.output_proj.weight")}},
+        "transformer": transformer("decoder_transformer", cfg.num_layers),
+        "upsample_trans": conv("upsample.conv"),
+        "dec_conv0": conv("decoder.layers.0.conv"),
+        "blocks": [{
+            "trans": conv(f"decoder.layers.{2 + 3 * i}.conv"),
+            "res_conv1": conv(f"decoder.layers.{3 + 3 * i}.block.1.conv"),
+            "res_conv2": conv(f"decoder.layers.{3 + 3 * i}.block.3.conv"),
+        } for i in range(n_up)],
+        "head": conv(f"decoder.layers.{2 + 3 * n_up}.conv"),
+    }
+
+
+def load_mimi_encoder_params(sd: dict, cfg: MimiConfig, prefix: str = "",
+                             *, device) -> dict:
+    """The encode path of an HF ``MimiModel`` state dict (optionally under
+    ``prefix``) -> ``init_mimi_encoder``'s tree, with the quantizer's input
+    projections and codebooks."""
+    arr, conv, codebooks, transformer = _mapper(sd, prefix, device)
+    n_up = len(cfg.upsample_ratios)
+    return {
+        "enc_conv0": conv("encoder.layers.0.conv"),
+        "enc_blocks": [{
+            "res_conv1": conv(f"encoder.layers.{1 + 3 * j}.block.1.conv"),
+            "res_conv2": conv(f"encoder.layers.{1 + 3 * j}.block.3.conv"),
+            "down": conv(f"encoder.layers.{3 + 3 * j}.conv"),
+        } for j in range(n_up)],
+        "enc_final": conv(f"encoder.layers.{2 + 3 * n_up}.conv"),
+        "enc_transformer": transformer("encoder_transformer",
+                                       cfg.num_layers),
+        "downsample": conv("downsample.conv"),
+        "in_proj_first": {"w": arr(f"quantizer.{_SEM}.input_proj.weight")},
+        "in_proj_rest": {"w": arr(f"quantizer.{_AC}.input_proj.weight")},
+        "rvq_first": codebooks(_SEM, 1),
+        "rvq_rest": codebooks(_AC, cfg.n_codebooks - 1),
     }
 
 

@@ -16,6 +16,8 @@ Streaming state is a functional dict (per-slot batched by the worker):
 causal convs carry their left context, trans-convs their last input sample,
 attention a rolling W-slot KV window. ``qwen3_codec_decode`` is streaming
 over ring-sized chunks, so ``decode_chunk`` over those chunks equals it.
+``load_qwen3_codec_params`` maps the Qwen/Qwen3-TTS-Tokenizer-12Hz
+checkpoint's decoder onto this tree (float32 on the model's device).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.kernels import NEG_INF
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.resunit import fused_resunit_stack, use_fused_resunit
 from ..ops.rope import rope_frequencies
+from ..weights import _stack, to_device
 from .layers import (causal_conv, conv1d, conv_transpose1d, init_conv1d,
                      init_conv_transpose1d, rvq_decode)
 
@@ -162,6 +165,108 @@ def init_qwen3_codec(cfg: Qwen3CodecConfig, generator: torch.Generator,
     dec["alpha_out"] = full(0.0, out_dim)
     dec["beta_out"] = full(0.0, out_dim)
     dec["head"] = conv(out_dim, 1, 7)
+    params["decoder"] = dec
+    return params
+
+
+def load_qwen3_codec_params(sd: dict, cfg: Qwen3CodecConfig, *,
+                            device) -> dict:
+    """Map the Qwen/Qwen3-TTS-Tokenizer-12Hz decoder checkpoint (torch
+    layouts: Linear (out, in), Conv1d (out, in/groups, k), ConvTranspose1d
+    (in, out, k)) onto the decoder's tree, float32 on ``device``. Takes the
+    decoder's own keys (``pre_transformer...``) or the full codec model's
+    (``decoder.pre_transformer...``); encoder tensors are ignored."""
+    if any(k.startswith("decoder.pre_transformer.") for k in sd):
+        sd = {k[len("decoder."):]: v for k, v in sd.items()
+              if k.startswith("decoder.")}
+
+    def arr(name):
+        return to_device(sd[name], device, torch.float32)
+
+    def lin(prefix):
+        p = {"w": to_device(sd[f"{prefix}.weight"], device, torch.float32,
+                            transpose=True)}
+        if f"{prefix}.bias" in sd:
+            p["b"] = arr(f"{prefix}.bias")
+        return p
+
+    def conv(prefix):
+        p = {"w": arr(f"{prefix}.weight")}
+        if f"{prefix}.bias" in sd:
+            p["b"] = arr(f"{prefix}.bias")
+        return p
+
+    def vq_group(prefix, n_q):
+        cb = f"{prefix}.vq.layers.{{i}}._codebook"
+        return {
+            "embed_sum": _stack(sd, cb + ".embedding_sum", n_q, device,
+                                dtype=torch.float32),
+            "usage": _stack(sd, cb + ".cluster_usage", n_q, device,
+                            dtype=torch.float32),
+            "out_proj": {"w": arr(f"{prefix}.output_proj.weight")},
+        }
+
+    params: dict = {
+        "rvq_first": vq_group("quantizer.rvq_first", 1),
+        "rvq_rest": vq_group("quantizer.rvq_rest", cfg.num_quantizers - 1),
+        "pre_conv": conv("pre_conv.conv"),
+    }
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"pre_transformer.layers.{i}"
+        layers.append({
+            "input_norm": arr(f"{pre}.input_layernorm.weight"),
+            "post_norm": arr(f"{pre}.post_attention_layernorm.weight"),
+            "q": lin(f"{pre}.self_attn.q_proj"),
+            "k": lin(f"{pre}.self_attn.k_proj"),
+            "v": lin(f"{pre}.self_attn.v_proj"),
+            "o": lin(f"{pre}.self_attn.o_proj"),
+            "gate": lin(f"{pre}.mlp.gate_proj"),
+            "up": lin(f"{pre}.mlp.up_proj"),
+            "down": lin(f"{pre}.mlp.down_proj"),
+            "ls_attn": arr(f"{pre}.self_attn_layer_scale.scale"),
+            "ls_mlp": arr(f"{pre}.mlp_layer_scale.scale"),
+        })
+    params["transformer"] = {
+        "layers": layers,
+        "norm": arr("pre_transformer.norm.weight"),
+        "input_proj": lin("pre_transformer.input_proj"),
+        "output_proj": lin("pre_transformer.output_proj"),
+    }
+    params["upsample"] = [{
+        "trans": conv(f"upsample.{i}.0.conv"),
+        "convnext": {
+            "dw": conv(f"upsample.{i}.1.dwconv.conv"),
+            "norm_w": arr(f"upsample.{i}.1.norm.weight"),
+            "norm_b": arr(f"upsample.{i}.1.norm.bias"),
+            "pw1": lin(f"upsample.{i}.1.pwconv1"),
+            "pw2": lin(f"upsample.{i}.1.pwconv2"),
+            "gamma": arr(f"upsample.{i}.1.gamma"),
+        },
+    } for i in range(len(cfg.upsampling_ratios))]
+
+    dec: dict = {"conv0": conv("decoder.0.conv")}
+    blocks = []
+    for i in range(len(cfg.upsample_rates)):
+        pre = f"decoder.{i + 1}.block"
+        blocks.append({
+            "alpha": arr(f"{pre}.0.alpha"),
+            "beta": arr(f"{pre}.0.beta"),
+            "trans": conv(f"{pre}.1.conv"),
+            "res": [{
+                "alpha1": arr(f"{pre}.{j + 2}.act1.alpha"),
+                "beta1": arr(f"{pre}.{j + 2}.act1.beta"),
+                "conv1": conv(f"{pre}.{j + 2}.conv1.conv"),
+                "alpha2": arr(f"{pre}.{j + 2}.act2.alpha"),
+                "beta2": arr(f"{pre}.{j + 2}.act2.beta"),
+                "conv2": conv(f"{pre}.{j + 2}.conv2.conv"),
+            } for j in range(3)],
+        })
+    dec["blocks"] = blocks
+    n_up = len(cfg.upsample_rates)
+    dec["alpha_out"] = arr(f"decoder.{n_up + 1}.alpha")
+    dec["beta_out"] = arr(f"decoder.{n_up + 1}.beta")
+    dec["head"] = conv(f"decoder.{n_up + 2}.conv")
     params["decoder"] = dec
     return params
 

@@ -20,7 +20,14 @@ one per data-parallel rank. The JAX launcher's serving profiles
 
 The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
 serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
-fused residual-unit stacks.
+fused residual-unit stacks. A model given by its published id loads its
+checkpoint from the Hugging Face hub cache (``HF_HUB_CACHE``, see
+``weights.py``).
+
+The scheduler daemons are spawned before the launcher imports torch, so
+their start-up (torch, CUDA, the model, the graph capture) overlaps the
+launcher's own checks of the device and the model name; a failed check
+stops them and exits non-zero.
 """
 
 from __future__ import annotations
@@ -138,17 +145,6 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     set_global_log_level(args.log_level)
 
-    from .models import get_model_class, resolve_device
-
-    resolve_device(args.device)  # fail here, not in the daemon
-    if args.async_scheduling and (args.pipeline_depth or 0) >= 2:
-        logger.warning(
-            "--async-scheduling: decode readback is already pipelined "
-            "(pipeline_depth=%d); the flag adds nothing here. It only has "
-            "an effect with --pipeline-depth 0/1.", args.pipeline_depth)
-    cls = get_model_class(args.model)  # validates the name early
-    sample_rate = getattr(cls, "SAMPLE_RATE", None) or 24000
-
     from aiohttp import web
     from .server.api import APIServer
     from .server.app import build_app
@@ -201,6 +197,20 @@ def main(argv=None) -> None:
         timeout_seconds=args.timeout_seconds,
         scheduler_args=scheduler_args,
     )
+    try:
+        from .models import get_model_class, resolve_device
+
+        resolve_device(args.device)  # no CUDA: stop the daemons, fail
+        cls = get_model_class(args.model)  # validates the name
+    except BaseException:
+        server.cleanup()
+        raise
+    if args.async_scheduling and (args.pipeline_depth or 0) >= 2:
+        logger.warning(
+            "--async-scheduling: decode readback is already pipelined "
+            "(pipeline_depth=%d); the flag adds nothing here. It only has "
+            "an effect with --pipeline-depth 0/1.", args.pipeline_depth)
+    sample_rate = getattr(cls, "SAMPLE_RATE", None) or 24000
 
     def _shutdown(signum, frame):
         logger.info("received signal %s, shutting down", signum)

@@ -1,6 +1,6 @@
 """Model registry of the port (vox_serve_tpu/models/__init__.py, holding the
-families ported so far: ``dummy``, the Qwen3-TTS CustomVoice patterns,
-Orpheus-3B and CSM-1B).
+families ported so far: ``dummy``, Qwen3-TTS (CustomVoice, Base and
+VoiceDesign at 1.7B and 0.6B), Orpheus-3B and CSM-1B).
 
 ``load_model`` resolves the class, builds it on the given device, and
 applies CLI sampling overrides onto the model's defaults.
@@ -27,7 +27,11 @@ _register(
     [
         "qwen3-tts", "qwen3-tts-1.7b", "qwen3-tts-0.6b",
         "qwen/qwen3-tts-12hz-1.7b-customvoice",
+        "qwen/qwen3-tts-12hz-1.7b-base",
+        "qwen/qwen3-tts-12hz-1.7b-voicedesign",
         "qwen/qwen3-tts-12hz-0.6b-customvoice",
+        "qwen/qwen3-tts-12hz-0.6b-base",
+        "qwen/qwen3-tts-12hz-0.6b-voicedesign",
     ],
     "vox_serve_tpu_torch.models.qwen3_tts", "Qwen3TTSLM")
 _register(["orpheus", "canopylabs/orpheus-3b-0.1-ft"],

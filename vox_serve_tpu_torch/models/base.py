@@ -119,6 +119,9 @@ class BaseLM(abc.ABC):
     #: (k_scale, v_scale) dequant multipliers threaded into the backbone
     #: (ops/kv_cache.py KVCacheConfig.kv_scales)
     kv_quant_scales: Optional[tuple[float, float]] = None
+    #: which parts of the model came from a checkpoint (True) and which
+    #: from random init (False), by part name; empty for a weight-free model
+    checkpoint_parts: dict = {}
 
     @property
     def use_repetition_penalty(self) -> bool:

@@ -17,10 +17,14 @@ Mimi codebooks (port of vox_serve_tpu/models/csm.py).
 The backbone is Llama-3.2-1B at its published widths (16 x 2048, 32 heads
 over 8 KV heads, so a GQA group of 4 at head dim 64; MLP 8192, rope theta
 5e5 with Llama-3.1 scaling), the depth decoder 4 x 1024 (8 heads over 2,
-head dim 128), the codec Mimi at its defaults. The checkpoint mapper is not
-ported: the model serves random weights from ``seed`` with the dev
-tokenizer, and without the Mimi encoder's weights no default speaker
-context.
+head dim 128), the codec Mimi at its defaults. Weights come from the
+checkpoint when one resolves (the transformers ``CsmForConditionalGeneration``
+layout: ``backbone_model.*``, ``depth_decoder.*``, ``embed_text_tokens``,
+``lm_head``, and the Mimi codec and encoder under ``codec_model.*``), and
+then the default two-speaker context is built from the snapshot's
+``prompts/conversational_{a,b}.wav`` through the Mimi encoder on the
+model's device. Otherwise the model serves random weights from ``seed``
+with the dev tokenizer and no default context.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..codecs.mimi import (MimiConfig, init_mimi, mimi_decode_chunk,
-                           mimi_encode, mimi_init_cache)
+from ..codecs.mimi import (MimiConfig, init_mimi, load_mimi_encoder_params,
+                           load_mimi_params, mimi_decode_chunk, mimi_encode,
+                           mimi_init_cache)
 from ..models.backbone import (BackboneConfig, _init_linear,
                                init_backbone_params, linear,
                                seeded_generator)
@@ -41,7 +46,8 @@ from ..models.depth import (DepthConfig, depth_forward, init_depth_kv,
                             init_depth_params)
 from ..sampling import SamplingConfig, sample
 from ..utils import get_logger, load_audio_mono
-from ..weights import load_text_tokenizer
+from ..weights import (load_llama_family_backbone, load_safetensors_state,
+                       load_text_tokenizer, resolve_model_dir, to_device)
 
 AUDIO_VOCAB = 2051
 TEXT_VOCAB = 128256
@@ -82,12 +88,87 @@ class CSMLM(BaseLMWithDepth):
         self._init_params(seed)
         self.sampling_config = self.default_sampling_config
 
+    def _load_checkpoint(self) -> dict | None:
+        """Map the sesame/csm-1b checkpoint into the parameter tree on the
+        model's device, with the Mimi codec and encoder when the snapshot
+        has ``codec_model.*``; None (random init) when none resolves or the
+        mapping fails."""
+        model_dir = resolve_model_dir(self.model_name)
+        if model_dir is None:
+            return None
+        try:
+            state = load_safetensors_state(model_dir)
+            cfg, dcfg, dev, dt = (self._cfg, self._depth_cfg, self.device,
+                                  self.dtype)
+
+            def arr(n, transpose=False):
+                return to_device(state[n], dev, dt, transpose=transpose)
+
+            params = {
+                "backbone": load_llama_family_backbone(
+                    state, cfg.num_layers, prefix="backbone_model.",
+                    dtype=dt, device=dev),
+                "audio_embed": arr(
+                    "backbone_model.embed_tokens.embed_audio_tokens.weight"),
+                "text_embed": arr("embed_text_tokens.weight"),
+                "lm_head": arr("lm_head.weight", transpose=True),
+                "depth": {
+                    "backbone": load_llama_family_backbone(
+                        state, dcfg.num_layers,
+                        prefix="depth_decoder.model.", dtype=dt,
+                        device=dev),
+                    "proj": {"w": arr("depth_decoder.model."
+                                      "inputs_embeds_projector.weight",
+                                      transpose=True)},
+                    "embeds": arr("depth_decoder.model.embed_tokens.weight"),
+                    # (n_cb - 1, depth_hidden, vocab), applied as h @ W[i]
+                    "heads": arr("depth_decoder.codebooks_head.weight"),
+                },
+            }
+            codec = encoder = None
+            if any(k.startswith("codec_model.") for k in state):
+                try:
+                    codec = load_mimi_params(state, self._mimi_cfg,
+                                             prefix="codec_model.",
+                                             device=dev)
+                    encoder = load_mimi_encoder_params(
+                        state, self._mimi_cfg, prefix="codec_model.",
+                        device=dev)
+                except Exception as e:
+                    get_logger("csm").warning(
+                        "mimi codec mapping failed (%s); random init",
+                        type(e).__name__)
+                    codec = encoder = None
+            return {"params": params, "codec": codec, "encoder": encoder,
+                    "model_dir": model_dir}
+        except Exception as e:
+            get_logger("csm").warning(
+                "checkpoint mapping failed (%s); random init",
+                type(e).__name__)
+            return None
+
     def _init_params(self, seed: int) -> None:
-        """Random init at the configured widths (the JAX random branch's
-        shapes and scales; the numbers come from a torch generator)."""
+        """The checkpoint when one resolves (then the default context from
+        its prompt WAVs), else random init at the configured widths (the
+        JAX random branch's shapes and scales; the numbers come from a
+        torch generator)."""
         cfg, dcfg = self._cfg, self._depth_cfg
         dev, dt = self.device, self.dtype
         g = seeded_generator(dev, seed)
+        loaded = self._load_checkpoint()
+        self.backbone_loaded = loaded is not None
+        if loaded is not None:
+            self.params = loaded["params"]
+            self.codec_assets_available = loaded["codec"] is not None
+            self.codec_params = (loaded["codec"] if loaded["codec"]
+                                 is not None else
+                                 init_mimi(self._mimi_cfg, g, dev))
+            self.encoder_params = loaded["encoder"]
+            if self.encoder_params is not None:
+                self.set_default_context(loaded["model_dir"])
+            return
+        self.assets_available = False
+        self.codec_assets_available = False
         H = cfg.hidden_size
 
         def normal(shape):
@@ -112,6 +193,14 @@ class CSMLM(BaseLMWithDepth):
             },
         }
         self.codec_params = init_mimi(self._mimi_cfg, g, dev)
+
+    @property
+    def checkpoint_parts(self) -> dict:
+        """Which parts came from a checkpoint (True) and which from random
+        init (False)."""
+        return {"backbone": self.backbone_loaded,
+                "codec": self.codec_assets_available,
+                "codec_encoder": self.encoder_params is not None}
 
     # ---- metadata ----------------------------------------------------------
     @property

@@ -15,9 +15,12 @@ vox_serve_tpu/models/orpheus.py).
 The backbone is Llama-3.2-3B at its published widths (28 x 3072, 24 heads
 over 8 KV heads, so a GQA group of 3; head dim 128, MLP 8192, vocab
 156,940, rope theta 5e5 with Llama-3.1 scaling as the JAX package has it).
-Checkpoint loading is not ported: the model serves random weights from
-``seed`` (separate embedding and head, as the JAX package's random branch
-has) with the dev tokenizer.
+The backbone, embedding and head come from the checkpoint when one
+resolves (HF Llama names; a checkpoint without ``lm_head`` ties the head
+to the embedding), the SNAC decoder from the hubertsiuzdak/snac_24khz
+snapshot (safetensors, or its ``pytorch_model.bin``); otherwise each
+serves random weights from ``seed`` (a separate embedding and head, as the
+JAX package's random branch has), with the dev tokenizer.
 """
 
 from __future__ import annotations
@@ -25,12 +28,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codecs.snac import SNACConfig, init_snac_decoder, snac_decode
+from ..codecs.snac import (SNACConfig, init_snac_decoder, load_snac_params,
+                           snac_decode)
 from ..models.backbone import (BackboneConfig, init_backbone_params,
                                seeded_generator)
 from ..models.base import BaseLM, PreprocessOutput
+from ..params import tree_to_torch
 from ..sampling import SamplingConfig
-from ..weights import load_text_tokenizer
+from ..utils import get_logger
+from ..weights import (load_embedding, load_head, load_llama_family_backbone,
+                       load_safetensors_state, load_text_tokenizer,
+                       resolve_model_dir)
 
 VOICES = ["tara", "leah", "jess", "leo", "dan", "mia", "zac", "zoe"]
 
@@ -61,21 +69,83 @@ class OrpheusLM(BaseLM):
         self.sampling_config = self.default_sampling_config
 
     def _init_params(self, seed: int) -> None:
-        """Random init at the configured widths (the JAX random branch's
-        shapes and scales; the numbers come from a torch generator)."""
+        """The checkpoint when one resolves, else random init at the
+        configured widths (the JAX random branch's shapes and scales; the
+        numbers come from a torch generator); then the SNAC decoder the
+        same way."""
         cfg, dev, dt = self._cfg, self.device, self.dtype
         g = seeded_generator(dev, seed)
+        self.params = self._load_params()
+        self.backbone_loaded = self.params is not None
+        if self.params is None:
+            def normal(shape):
+                return (torch.randn(shape, generator=g, device=dev,
+                                    dtype=torch.float32) * 0.02).to(dt)
 
-        def normal(shape):
-            return (torch.randn(shape, generator=g, device=dev,
-                                dtype=torch.float32) * 0.02).to(dt)
+            self.params = {
+                "backbone": init_backbone_params(cfg, g, dev),
+                "embed": normal((cfg.vocab_size, cfg.hidden_size)),
+                "head": normal((cfg.hidden_size, cfg.vocab_size)),
+            }
+            self.assets_available = False
+        snac = self._load_snac()
+        self.codec_assets_available = snac is not None
+        self.codec_params = (snac if snac is not None else
+                             init_snac_decoder(self._snac_cfg, g, dev))
 
-        self.params = {
-            "backbone": init_backbone_params(cfg, g, dev),
-            "embed": normal((cfg.vocab_size, cfg.hidden_size)),
-            "head": normal((cfg.hidden_size, cfg.vocab_size)),
-        }
-        self.codec_params = init_snac_decoder(self._snac_cfg, g, dev)
+    def _load_params(self) -> dict | None:
+        model_dir = resolve_model_dir(self.model_name)
+        if model_dir is None:
+            return None
+        try:
+            state = load_safetensors_state(model_dir)
+            dev, dt = self.device, self.dtype
+            return {
+                "backbone": load_llama_family_backbone(
+                    state, self._cfg.num_layers, dtype=dt, device=dev),
+                "embed": load_embedding(state, "model.embed_tokens.weight",
+                                        dt, device=dev),
+                "head": load_head(state, "lm_head.weight",
+                                  "model.embed_tokens.weight", dt,
+                                  device=dev),
+            }
+        except Exception as e:
+            get_logger("orpheus").warning(
+                "checkpoint mapping failed (%s); random init",
+                type(e).__name__)
+            return None
+
+    def _load_snac(self) -> dict | None:
+        """The published SNAC decoder (hubertsiuzdak/snac_24khz: safetensors
+        or ``pytorch_model.bin``), float32 on the device; None under debug
+        dims or without a snapshot."""
+        if self._snac_cfg != SNACConfig():
+            return None  # debug dims cannot take real weights
+        model_dir = resolve_model_dir("hubertsiuzdak/snac_24khz")
+        if model_dir is None:
+            return None
+        try:
+            try:
+                sd = load_safetensors_state(model_dir)
+            except FileNotFoundError:
+                sd = torch.load(str(model_dir / "pytorch_model.bin"),
+                                map_location="cpu", weights_only=True)
+            sd = {k: (v.float() if v.is_floating_point() else v).numpy()
+                  for k, v in sd.items()}
+            return tree_to_torch(load_snac_params(sd, self._snac_cfg),
+                                 self.device)
+        except Exception as e:
+            get_logger("orpheus").warning(
+                "snac checkpoint mapping failed (%s); random init",
+                type(e).__name__)
+            return None
+
+    @property
+    def checkpoint_parts(self) -> dict:
+        """Which parts came from a checkpoint (True) and which from random
+        init (False)."""
+        return {"backbone": self.backbone_loaded,
+                "codec": self.codec_assets_available}
 
     # ---- metadata --------------------------------------------------------
     @property

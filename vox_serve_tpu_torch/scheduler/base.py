@@ -70,8 +70,9 @@ class Scheduler:
         self.logger = RankLogger(get_logger("scheduler"), rank)
         # latency/throughput regime latch (see _throughput_regime)
         self._regime_fused = False
-        #: the last completed requests' audio-token counts and finish
-        #: reasons, for the daemon's stats file (bounded: a server runs on)
+        #: the last completed requests' prompt lengths, audio-token counts
+        #: and finish reasons, for the daemon's stats file (bounded: a
+        #: server runs on)
         self.completed: collections.deque = collections.deque(maxlen=256)
 
         model = model_worker.model
@@ -535,7 +536,11 @@ class Scheduler:
         sel: list[Request] = []
         for req in prefill:
             est = req.input_length or self._estimate_prompt_len(req)
-            if est <= budget and worker.can_admit(est):
+            # a request deferred after preprocessing (its prompt overflowed
+            # the last prefill batch) holds its slot; asking for a free one
+            # (the JAX scheduler's check) starves it until a stream ends
+            if est <= budget and worker.can_admit(
+                    est, holds_slot=req.slot is not None):
                 sel.append(req)
                 budget -= est
                 if len(sel) >= cap:
@@ -632,6 +637,7 @@ class Scheduler:
         req.extras["completion_sent"] = True
         self.completed.append({
             "request_id": req.request_id,
+            "prompt_tokens": req.input_length,
             "audio_tokens": len(req.lm_output_audio_tokens),
             "finish_reason": req.finish_reason})
 

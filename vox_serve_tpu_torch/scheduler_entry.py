@@ -26,13 +26,16 @@ ordinal of each kind's replays, decode steps taken, eager step calls on
 the card per kind, the kernel counts one replay of each graph adds,
 capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
-graph pool's size), the last completed requests' audio-token counts and
-finish reasons, and the configuration it served (model, scheduler type, KV
-layout and pool dtype, whether the codec ran the fused residual-unit
-stacks, the codec's tensor dtypes as read from its parameters and cache,
-the watermark it applied ("spectral", "silentcipher" or null), the KV
-reserve fraction, the fused-decode, pipeline, first-chunk and
-bucket settings) there as JSON: how a caller that drives the daemon over
+graph pool's size), the last completed requests' prompt lengths,
+audio-token counts and finish reasons, and the configuration it served
+(model, scheduler type, KV layout and pool dtype, whether the codec ran
+the fused residual-unit stacks, the codec's tensor dtypes as read from
+its parameters and cache, the watermark it applied ("spectral",
+"silentcipher" or null), which of the model's parts came from a
+checkpoint and which from random init (``checkpoint``: talker or
+backbone, codec, codec encoder, speaker encoder) and whether the
+tokenizer did (``tokenizer_loaded``), the KV reserve fraction, the
+fused-decode, pipeline, first-chunk and bucket settings) there as JSON: how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
 """
@@ -142,6 +145,9 @@ def _run_scheduler_daemon(args) -> None:
             "fused_resunit": use_fused_resunit(),
             "codec_dtypes": worker.codec_dtypes(),
             "watermark": watermark_kind(worker.watermark_params),
+            "checkpoint": dict(model.checkpoint_parts),
+            "tokenizer_loaded": bool(getattr(model, "assets_available",
+                                             False)),
             "kv_reserve_fraction": wcfg.kv_reserve_fraction,
             "async_scheduling": args.async_scheduling,
             "fused_decode_steps": wcfg.fused_decode_steps,

@@ -7,9 +7,10 @@ carrier decoder (96-channel gated convs -> a residual magnitude), hann
 1024/512 STFT / ISTFT, VCTK power normalization and SDR scaling; the
 message decoder reads the symbols back for round-trip tests. 24 kHz
 serving audio reaches the model rate through a windowed-sinc resample
-(24k -> 44.1k -> 24k). The checkpoint loader
-(``load_silentcipher_params``) is not ported yet; ``init_silentcipher``
-gives random parameters at the published shapes.
+(24k -> 44.1k -> 24k). ``load_silentcipher_params`` maps the published
+checkpoint directory (``enc_c.ckpt`` / ``dec_c.ckpt`` / ``dec_m_0.ckpt``,
+plain torch state dicts) onto the tree ``init_silentcipher`` makes (random
+parameters at the published shapes).
 """
 
 from __future__ import annotations
@@ -98,6 +99,49 @@ def init_silentcipher(cfg: SilentCipherConfig, generator: torch.Generator,
         "dec_m": {"main": msg,
                   "linear": _init_linear(g, cfg.message_band_size, 1,
                                          torch.float32, device, bias=True)},
+    }
+
+
+def load_silentcipher_params(ckpt_dir, cfg: SilentCipherConfig, *,
+                             device) -> dict:
+    """Map the published checkpoint directory (``enc_c.ckpt``,
+    ``dec_c.ckpt``, ``dec_m_0.ckpt``: torch state dicts, ``module.``
+    prefixes dropped) onto ``init_silentcipher``'s tree, float32 on
+    ``device``. Each gated layer that has a conv is taken, in index
+    order."""
+    import os
+
+    def sd(name):
+        raw = torch.load(os.path.join(ckpt_dir, name), map_location="cpu")
+        return {k.replace("module.", ""): v for k, v in raw.items()}
+
+    def f32(t):
+        return t.to(device=device, dtype=torch.float32,
+                    copy=True).contiguous()
+
+    def gated_stack(d):
+        idxs = sorted({int(k.split(".")[1]) for k in d
+                       if k.startswith("main.") and ".conv." in k})
+        return [{
+            "conv": {"w": f32(d[f"main.{i}.conv.weight"]),
+                     "b": f32(d[f"main.{i}.conv.bias"])},
+            "gate": {"w": f32(d[f"main.{i}.gate.weight"]),
+                     "b": f32(d[f"main.{i}.gate.bias"])},
+            "bn_w": f32(d[f"main.{i}.bn.weight"]),
+            "bn_b": f32(d[f"main.{i}.bn.bias"]),
+            "bn_mean": f32(d[f"main.{i}.bn.running_mean"]),
+            "bn_var": f32(d[f"main.{i}.bn.running_var"]),
+        } for i in idxs]
+
+    def linear_of(d):
+        return {"w": f32(d["linear.weight"].T), "b": f32(d["linear.bias"])}
+
+    enc_d, dec_d, msg_d = (sd("enc_c.ckpt"), sd("dec_c.ckpt"),
+                           sd("dec_m_0.ckpt"))
+    return {
+        "enc_c": {"main": gated_stack(enc_d), "linear": linear_of(enc_d)},
+        "dec_c": {"main": gated_stack(dec_d)},
+        "dec_m": {"main": gated_stack(msg_d), "linear": linear_of(msg_d)},
     }
 
 

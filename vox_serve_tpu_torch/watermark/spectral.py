@@ -16,8 +16,11 @@ device by kernels (the hann window, the frame views, the overlap-add), so
 it runs inside a captured CUDA graph; ``torch.fft`` takes float32, so the
 caller passes float32 audio. With SilentCipher parameters (``"sc"``, from
 ``watermark/silentcipher.py``) the chunk is resampled to the 44.1 kHz
-model rate, embedded and resampled back; loading the published checkpoint
-is not ported yet, and neither is the Perth branch.
+model rate, embedded and resampled back. ``init_watermarker`` serves them
+when a ``sony/silentcipher`` snapshot resolves (the 44.1 kHz checkpoint
+and its ``hparams.yaml``, read with ``yaml`` when it can be imported, else
+by a reader of its flat ``KEY: scalar`` lines); the Perth branch is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -58,11 +61,92 @@ def _message_pattern(cfg: WatermarkConfig, n_bins: int) -> np.ndarray:
     return pat / np.linalg.norm(pat)
 
 
+def read_hparams(path) -> dict:
+    """A SilentCipher ``hparams.yaml``: through ``yaml`` when it can be
+    imported, else its top-level ``KEY: scalar`` lines (ints, floats,
+    booleans, null, quoted or bare strings), which is all the loader
+    reads."""
+    text = open(path).read()
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    if yaml is not None:
+        return yaml.safe_load(text) or {}
+    out = {}
+    for line in text.splitlines():
+        line = line.split(" #", 1)[0].rstrip()
+        if not line or line[0] in " \t-#" or ":" not in line:
+            continue
+        key, _, val = line.partition(":")
+        out[key.strip()] = _scalar(val.strip())
+    return out
+
+
+def _scalar(v: str):
+    if v in ("", "~", "null", "Null", "NULL"):
+        return None
+    if v in ("true", "True", "TRUE"):
+        return True
+    if v in ("false", "False", "FALSE"):
+        return False
+    if len(v) >= 2 and v[0] == v[-1] and v[0] in "'\"":
+        return v[1:-1]
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return v
+
+
+def _try_load_real_silentcipher(cfg: WatermarkConfig, device):
+    """The published sony/silentcipher 44.1 kHz checkpoint when a snapshot
+    resolves, as ``apply_watermark``'s ``"sc"`` parameters; else None."""
+    try:
+        from ..weights import resolve_model_dir
+
+        model_dir = resolve_model_dir("sony/silentcipher")
+        if model_dir is None:
+            return None
+        ckpt = model_dir / "44_1_khz" / "73999_iteration"
+        if not (ckpt / "enc_c.ckpt").exists():
+            return None
+        from .silentcipher import (SilentCipherConfig,
+                                   load_silentcipher_params,
+                                   message_to_symbols)
+
+        hp = read_hparams(ckpt / "hparams.yaml")
+        sc_cfg = SilentCipherConfig(
+            n_fft=hp.get("N_FFT", 1024), hop=hp.get("HOP_LENGTH", 512),
+            sr=hp.get("SR", 44100),
+            message_dim=hp.get("message_dim", 5),
+            message_len=hp.get("message_len", 21),
+            message_band_size=hp.get("message_band_size", 1024),
+            message_sdr=hp.get("message_sdr", 36.0),
+            frame_level_normalization=hp.get("frame_level_normalization",
+                                             True))
+        params = load_silentcipher_params(str(ckpt), sc_cfg, device=device)
+        onehot = message_to_symbols(list(cfg.message), sc_cfg)
+        return {"sc": params,
+                "sc_msg": torch.from_numpy(onehot).to(device),
+                "_sc_cfg": sc_cfg}
+    except Exception as e:
+        get_logger("watermark").warning(
+            "silentcipher checkpoint load failed (%s)", type(e).__name__)
+        return None
+
+
 def init_watermarker(cfg: WatermarkConfig, generator: torch.Generator,
                      device) -> dict:
-    """The dev spectral marker's parameters on ``device`` (the published
-    checkpoints are not loaded by the port yet), with the JAX package's
-    warning: the marks are non-standard."""
+    """SilentCipher's published weights when a snapshot resolves (style
+    "silentcipher"); otherwise the dev spectral marker's parameters on
+    ``device``, with the JAX package's warning: the marks are
+    non-standard."""
+    if cfg.style == "silentcipher":
+        real = _try_load_real_silentcipher(cfg, device)
+        if real is not None:
+            return real
     get_logger("watermark").warning(
         "published %s weights unavailable; serving with the NON-STANDARD dev "
         "spectral watermark — reference detectors will NOT read these marks",
@@ -100,14 +184,14 @@ def hann(n: int, device) -> torch.Tensor:
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """(B, T) -> (B, T + 2 pad), numpy's "reflect" padding (the JAX
-    package's ``jnp.pad``), also where pad >= T, which ``F.pad`` refuses:
-    the periodic extension of period 2 (T - 1), gathered by indices made on
-    the device."""
+    """(..., T) -> (..., T + 2 pad), numpy's "reflect" padding of the last
+    axis (the JAX package's ``jnp.pad``), also where pad >= T, which
+    ``F.pad`` refuses: the periodic extension of period 2 (T - 1), gathered
+    by indices made on the device."""
     n = x.shape[-1]
     period = max(2 * (n - 1), 1)
     i = torch.remainder(torch.arange(-pad, n + pad, device=x.device), period)
-    return x[:, torch.where(i >= n, period - i, i)]
+    return x[..., torch.where(i >= n, period - i, i)]
 
 
 def overlap_add(frames: torch.Tensor, window: torch.Tensor, hop: int,

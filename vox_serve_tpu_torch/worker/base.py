@@ -489,12 +489,17 @@ class ModelWorker:
         pages = cdiv(budget, self.config.page_size) + 1
         return int(np.ceil(pages * self.config.kv_reserve_fraction))
 
-    def can_admit(self, num_prompt_tokens: int) -> bool:
+    def can_admit(self, num_prompt_tokens: int,
+                  holds_slot: bool = False) -> bool:
+        """Whether a prompt can be prefilled now: a free slot (unless the
+        request already holds one: a request whose prompt overflowed the
+        last prefill batch keeps the slot it took) and pages for the prompt
+        and its generation reserve."""
         prompt_pages = cdiv(max(num_prompt_tokens, 1), self.config.page_size)
         reserve = self._gen_reserve_pages(num_prompt_tokens,
                                           self.model.max_tokens)
-        return bool(self._free_slots) and self.allocator.can_reserve(
-            prompt_pages + reserve)
+        return (holds_slot or bool(self._free_slots)) and \
+            self.allocator.can_reserve(prompt_pages + reserve)
 
     def admit(self, req: Request) -> None:
         if req.slot is not None:
@@ -879,6 +884,7 @@ class ModelWorker:
         ready: list[Request] = []
         for req in admitted_set:
             if req.input_tokens is None:
+                t0 = time.perf_counter()
                 try:
                     po = model.preprocess(req.prompt, req.audio_path,
                                           **req.model_kwargs)
@@ -893,6 +899,10 @@ class ModelWorker:
                 except Exception as e:  # fail only this request
                     self.fail_request(req, f"preprocess failed: {e}")
                     continue
+                finally:
+                    # host prompt construction, with a voice clone's
+                    # speaker and codec encoders
+                    self._stat("preprocess", t0)
             if req.input_length > self.max_prefill_tokens:
                 self.fail_request(
                     req, f"prompt of {req.input_length} tokens exceeds the "
