@@ -17,15 +17,18 @@ exits non-zero without printing a result:
    times of both: K1 over the combined bf16 pool, K1q over int8 and float8
    e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
    Then K1 at Orpheus-3B's heads (H=24, KH=8: a GQA group of 3) at B=4 and
-   64, at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4, and at
-   CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64.
+   64, at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4, at
+   CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, and at
+   CosyVoice2's Qwen2-0.5B (H=14, KH=2, head dim 64: a group of 7) at B=4
+   and 64.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
    and its library yardstick (one ``scaled_dot_product_attention`` call
    with the block-diagonal causal mask; the port never calls it). Then K3
-   at G = 3 (T=168 and 1024), G = 7 (T=1024) and CSM's G = 4 at head dim
-   64 (T=168 and 1024).
+   at G = 3 (T=168 and 1024), G = 7 (T=1024), CSM's G = 4 at head dim
+   64 (T=168 and 1024) and CosyVoice2's G = 7 at head dim 64 (T=168 and
+   1024).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -90,6 +93,19 @@ exits non-zero without printing a result:
    what the trim rule gives for the audio tokens its daemon reports (with
    K's ramp, whole or half a frame short); each prints frames/s per stream
    against real time (12.5).
+   Run O serves ``--model cosyvoice2`` (CosyVoice2-0.5B: a 24 x 896
+   Qwen2 talker with q/k/v biases, 14 heads over 2 KV heads at head dim
+   64; detokenize graphs holding the flow, 10 cosine Euler steps with
+   classifier-free guidance on a doubled batch, and streaming HiFT, over
+   overlapped 28-token windows every 25 tokens and the 53- and 103-token
+   catch-up windows, with the flow cache in the slot; the codec in
+   float32; random weights from the seed) with A's flags and
+   ``--max-tokens 160``: K1 and K3 only, 24 launches per decode step and
+   prefill; each stream's PCM is what the overlap rule gives (24,000
+   samples per 25 tokens, the last window trimmed), at least 4 windows; it
+   prints TTFA, windows/s against real time (1 per stream), the decode
+   and detokenize replay times and the detokenize graphs' capture seconds
+   and pool growth.
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -141,12 +157,21 @@ exits non-zero without printing a result:
    talker without a speaker encoder, two ``instruct`` streams; run N, J's
    configuration from the sesame/csm-1b snapshot (``--max-tokens 1072``:
    every prompt carries the default two-speaker context built from the
-   prompt WAVs through the Mimi encoder on the card). Each must report
-   every part of its model loaded from the checkpoint (a mapping that fell
-   back to random init fails the run), K1 and K3 launched in graphs as in
-   A, each stream's PCM by the trim rule, and each prompt exactly as long
-   as its variant's rows (L's ICL prompts hold the reference's 38 frames,
-   M's have no speaker row, N's the context).
+   prompt WAVs through the Mimi encoder on the card). Last,
+   FunAudioLLM/CosyVoice2-0.5B (the LM in ``model.safetensors`` with its
+   text table, ``flow.pt``, ``hift.pt`` under ``generator.``, the full S3
+   v2 as ``speech_tokenizer_v2.onnx`` and CAMPPlus as ``campplus.onnx``,
+   written by the script's own protobuf writer) is loaded on the card
+   through the model's constructor, and run P serves O's configuration
+   from it: two voice clones (the 3 s reference WAV uploaded as ``audio``
+   and a ``ref_text``), a clone without ``ref_text`` and a request without
+   audio (``--max-tokens 280``). Each must report every part of its model
+   loaded from the checkpoint (a mapping that fell back to random init
+   fails the run), K1
+   and K3 launched in graphs as in A, each stream's PCM by the trim rule,
+   and each prompt exactly as long as its variant's rows (L's ICL prompts
+   hold the reference's 38 frames, M's have no speaker row, N's the
+   context, P's clones the reference's 75 S3 v2 tokens).
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -866,12 +891,14 @@ CSM_ID = "sesame/csm-1b"
 ORPHEUS_ID = "canopylabs/orpheus-3b-0.1-ft"
 SNAC_ID = "hubertsiuzdak/snac_24khz"
 SC_ID = "sony/silentcipher"
-#: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M
-#: and N by published id, from the checkpoint phase's hub cache
+COSY_ID = "FunAudioLLM/CosyVoice2-0.5B"
+#: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
+#: N and P by published id, from the checkpoint phase's hub cache
 MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
-            "M": QWEN3_DESIGN, "N": CSM_ID}
+            "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID}
 #: the family of a served id (its layers, audio unit and form fields)
-FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm"}
+FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
+          "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2"}
 
 
 def family(config: str) -> str:
@@ -882,39 +909,48 @@ def family(config: str) -> str:
 #: default budget: L's ICL prompts carry 38 reference frames and the
 #: reference transcript, M's the instruct text, N's the default
 #: two-speaker context (its two transcripts, 946 characters through the
-#: char-level dev tokenizer, and two 0.96 s prompt WAVs)
-MAX_TOKENS = {"L": 200, "M": 140, "N": 1072}
+#: char-level dev tokenizer, and two 0.96 s prompt WAVs), P's clones the
+#: reference's 75 S3 v2 tokens and its transcript (prompts of up to 151
+#: tokens; 280 leaves each stream at least 128 audio tokens, 5 windows)
+MAX_TOKENS = {"L": 200, "M": 140, "N": 1072, "P": 280}
 
 
 def max_tokens(config: str) -> int:
     return MAX_TOKENS.get(config, MODELS[family(config)]["max_tokens"])
 #: per model: ``--max-tokens`` (absolute positions), and the audio unit a
 #: run counts with its samples: a Qwen3 codec frame (42-token prompts ->
-#: ~60 frames), or one Orpheus window (7 tokens; 42-token prompts -> ~119
-#: tokens, 14 overlapped windows)
+#: ~60 frames), one Orpheus window (7 tokens; 42-token prompts -> ~119
+#: tokens, 14 overlapped windows) or one CosyVoice2 window (25 tokens, 1 s;
+#: 33-token prompts -> ~127 tokens, 5 overlapped windows)
 MODELS = {
     "qwen3-tts": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
     "orpheus": {"max_tokens": 160, "unit": "windows", "unit_samples": 2048},
     "csm": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
+    "cosyvoice2": {"max_tokens": 160, "unit": "windows",
+                   "unit_samples": 24000},
 }
 #: per model: backbone layers (each decode step launches the decode kernel
 #: once per layer, each prefill K3 once per layer)
-LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16}
+LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24}
 #: per model: the /generate form fields besides the text (CSM's speaker is
 #: an integer id)
 FORM = {"csm": {"speaker": "0"}}
 #: Qwen3's and CSM's detokenize interval (frames) and samples per frame
 FRAME_WINDOWS = (10, 1920)
-#: Orpheus's detokenize window, overlap and samples kept per window
-ORPHEUS_WINDOW = (28, 21, 2048)
+#: the overlap codecs: detokenize window, overlap and samples emitted per
+#: window (Orpheus keeps 2048 of SNAC's 8192; CosyVoice2 emits 25 tokens =
+#: 50 mel frames = 1 s), and the windows each served stream must reach
+OVERLAP_WINDOWS = {"orpheus": (28, 21, 2048), "cosyvoice2": (28, 3, 24000)}
+MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4}
 
 
 def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
                         window: int = 2048) -> int:
     """The PCM a stream of ``n_tokens`` audio tokens must emit under the
-    overlap trim rule: windows every ``interval - overlap`` tokens until
-    one reaches the last token, ``window`` samples each, a last window of
-    fewer than ``interval - overlap`` tokens trimmed (the worker's
+    overlap trim rule of an overlap codec (``OVERLAP_WINDOWS``: Orpheus's
+    by default): windows every ``interval - overlap`` tokens until one
+    reaches the last token, ``window`` samples each, a last window of fewer
+    than ``interval - overlap`` tokens trimmed (the worker's
     ``_resolve_detok`` and the scheduler's window selection)."""
     step, s, total = interval - overlap, 0, 0
     while True:
@@ -1029,9 +1065,29 @@ CONFIGS.update({
                    "checkpoint": {"backbone": True, "codec": True,
                                   "codec_encoder": True}}, {K1, K3}),
 })
+#: what P loads from its snapshot: every part, or the run fails
+COSY_LOADED = {"backbone": True, "flow": True, "hift": True, "s3v2": True,
+               "campplus": True}
+CONFIGS.update({
+    # CosyVoice2-0.5B (MODEL_OF): the Qwen2 talker with q/k/v biases, G = 7
+    # at D=64 in K1 and K3; detokenize graphs that hold the flow (10 CFG
+    # Euler steps on a doubled batch) and streaming HiFT over overlapped
+    # 28-token windows and their catch-up windows, the flow cache in the
+    # slot; A's flags
+    "O": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32},
+          {K1, K3}),
+    # O's configuration from the FunAudioLLM/CosyVoice2-0.5B snapshot: two
+    # voice clones (an uploaded WAV + ref_text), a clone without ref_text,
+    # a request without audio; S3 v2 and CAMPPlus on the card
+    "P": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False, "checkpoint": COSY_LOADED},
+          {K1, K3}),
+})
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJK"
+RANDOM_RUNS = "ABCDEFGHIJKO"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,)}
@@ -1051,6 +1107,10 @@ REQUESTS = {
           {"fields": {"language": "english"}}],
     "M": [{"fields": {"language": "english", "instruct": i}}
           for i in INSTRUCTS],
+    "P": [{"fields": {"ref_text": REF_TEXTS[0]}, "audio": True},
+          {"fields": {"ref_text": REF_TEXTS[1]}, "audio": True},
+          {"fields": {}, "audio": True},
+          {"fields": {}}],
 }
 #: the reference clip L uploads: 3 s at 24 kHz
 REF_SAMPLES = 72000
@@ -1096,6 +1156,16 @@ def synth_wav(n_samples: int, seed: int) -> bytes:
     return buf.getvalue()
 
 
+def s3_tokens(n_samples: int) -> int:
+    """S3 v2 tokens of a 24 kHz clip: resampled to 16 kHz, Whisper frames
+    at hop 160 less the dropped last one, two stride-2 convs (pad 1, k 3);
+    at most 150 in a prompt."""
+    n = (int(round(n_samples * 16000 / SAMPLE_RATE)) // 160 + 1) - 1
+    for _ in range(2):
+        n = (n - 1) // 2 + 1
+    return min(n, 150)
+
+
 def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     """The prompt length request ``i`` of a run must have under the
     char-level dev tokenizer (every snapshot here ships none): Qwen3's role
@@ -1104,7 +1174,13 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     its reference transcript and the reference's codec frames; VoiceDesign
     adds its instruct template and has no speaker row. CSM: the default
     two-speaker context ("[spk]transcript" rows, each prompt WAV's Mimi
-    frames and an EOS frame), then "[0]text"."""
+    frames and an EOS frame), then "[0]text". CosyVoice2: [sos] + the
+    reference transcript + the text + [task_id] + the reference's S3 v2
+    tokens."""
+    if family(config) == "cosyvoice2":
+        req = REQUESTS[config][i]
+        return (2 + len(req["fields"].get("ref_text", "")) + len(text)
+                + (s3_tokens(REF_SAMPLES) if req.get("audio") else 0))
     if family(config) == "csm":
         from vox_serve_tpu_torch.models.csm import CSMLM
 
@@ -1123,7 +1199,7 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
 
 
 #: the runs whose prompts are held to ``expected_prompt_tokens``
-PROMPT_LENGTHS = ("L", "M", "N")
+PROMPT_LENGTHS = ("L", "M", "N", "P")
 
 
 def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
@@ -1141,7 +1217,9 @@ def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
         got.append(n)
     log(f"[{config}] prompt lengths {got} as their rows give"
         + (f" (ICL: {mimi_frames(REF_SAMPLES)} reference frames each)"
-           if config == "L" else ""))
+           if config == "L" else "")
+        + (f" (clones: {s3_tokens(REF_SAMPLES)} S3 v2 tokens each)"
+           if config == "P" else ""))
 
 
 def free_port() -> int:
@@ -1298,8 +1376,9 @@ def serve_wave(config: str, port: int, prompts: list[str],
 
     spec = MODELS[family(config)]
     unit, per = spec["unit"], spec["unit_samples"]
-    max_samples = (overlap_pcm_samples(max_tokens(config))
-                   if family(config) == "orpheus"
+    max_samples = (overlap_pcm_samples(max_tokens(config),
+                                       *OVERLAP_WINDOWS[family(config)])
+                   if family(config) in OVERLAP_WINDOWS
                    else max_tokens(config) * per)
 
     results = [{} for _ in prompts]
@@ -1442,7 +1521,7 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
     check_run(config, card, stats, out)
-    if fam == "orpheus":
+    if fam in OVERLAP_WINDOWS:
         check_overlap_windows(config, stats, out)
     else:
         check_frame_streams(config, stats, out, fam == "csm")
@@ -1512,12 +1591,14 @@ def check_frame_streams(config: str, stats: dict, out: dict,
 
 
 def check_overlap_windows(config: str, stats: dict, out: dict) -> None:
-    """Each Orpheus stream's PCM is exactly what the overlap rule gives for
-    the audio tokens its daemon generated (a window dropped or emitted
-    twice fails), at least 6 windows each; prints the run's TTFA, windows/s
-    against real time (11.72 windows/s per stream) and the decode and
-    detokenize replay times."""
-    interval, overlap, window = ORPHEUS_WINDOW
+    """Each stream of an overlap codec (Orpheus, CosyVoice2) emits exactly
+    the PCM the overlap rule gives for the audio tokens its daemon
+    generated (a window dropped or emitted twice fails), at least
+    ``MIN_WINDOWS`` windows each; prints the run's TTFA, windows/s against
+    real time and the decode and detokenize replay times, and for
+    CosyVoice2 the detokenize graphs' capture seconds and pool growth."""
+    fam = family(config)
+    interval, overlap, window = OVERLAP_WINDOWS[fam]
     done = {r["request_id"][:8]: r for r in stats["requests"]}
     for i, st in enumerate(out["streams"]):
         req = done.get(st["rid8"])
@@ -1531,25 +1612,38 @@ def check_overlap_windows(config: str, stats: dict, out: dict) -> None:
                 f"[{config}] stream {i}: {st['samples']} samples for "
                 f"{req['audio_tokens']} audio tokens, the overlap rule gives "
                 f"{want}")
-        if want < 6 * window:
-            raise AssertionError(f"[{config}] stream {i}: {want // window} "
-                                 "windows, expected at least 6")
+        if want < MIN_WINDOWS[fam] * window:
+            raise AssertionError(f"[{config}] stream {i}: "
+                                 f"{want / window:.2f} windows, expected at "
+                                 f"least {MIN_WINDOWS[fam]}")
         log(f"[{config}] stream {i} ({st['rid8']}): {req['audio_tokens']} "
             f"audio tokens ({req['finish_reason']}) -> {st['samples']} "
-            f"samples = {st['samples'] // window} windows (overlap rule: "
+            f"samples = {st['samples'] / window:.2f} windows (overlap rule: "
             f"{want}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
             f"{st['samples'] / window / st['wall_s']:.2f} windows/s")
     realtime = SAMPLE_RATE / window
-    probe = stats["steps"]["probe_ms"]
+    steps = stats["steps"]
+    probe = steps["probe_ms"]
     dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
     det = {k: v for k, v in probe.items() if k.startswith("detok ")}
     ph = stats["phase_stats"]
     det_t, det_n = ph.get("detokenize", (0.0, 0))
-    log(f"[{config}] Orpheus-3B: TTFA median {out['ttfa_median_s'] * 1e3:.1f}"
+    name = {"orpheus": "Orpheus-3B", "cosyvoice2": "CosyVoice2-0.5B"}[fam]
+    log(f"[{config}] {name}: TTFA median {out['ttfa_median_s'] * 1e3:.1f}"
         f" ms; {out['frames_per_s']:.2f} windows/s aggregate over 4 streams "
         f"(real time: {realtime:.2f} per stream, {4 * realtime:.2f} for 4); "
         f"decode replay ms (probe) {dec}; detokenize replay ms (probe) {det};"
         f" detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} ms per call")
+    if fam == "cosyvoice2":
+        cap, mib = steps["capture_s_by_kind"], steps["pool_mib_by_kind"]
+        log(f"[{config}] detokenize graphs (flow + HiFT): "
+            f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured "
+            f"in {cap.get('detok', 0.0):.2f} s, the shared pool grew "
+            f"{mib.get('detok', 0.0):.1f} MiB while they were captured; "
+            f"capture s by kind {cap}; pool MiB by kind {mib}; replays per "
+            f"detokenize length " + str({
+                k: c["replays"] for k, c in steps["captured"].items()
+                if k.startswith("detok ")}))
 
 
 def check_run(config: str, card: str, stats: dict, out: dict) -> None:
@@ -1828,6 +1922,70 @@ def _drop_snapshot(cache: Path, model_id: str) -> None:
                   ignore_errors=True)
 
 
+def cosy_files(lm, text, flow, hift, s3, camp) -> dict:
+    """Every tensor of a CosyVoice2 snapshot by ``file:name`` (the
+    exporters of ``synthetic_checkpoints.py``)."""
+    import synthetic_checkpoints as synth
+
+    files = {"model.safetensors": synth.export_cosy_lm(lm, text),
+             "flow.pt": synth.export_cosy_flow(flow),
+             "hift.pt": synth.export_hift(hift),
+             "speech_tokenizer_v2.onnx": synth.export_s3v2(s3),
+             "campplus.onnx": synth.export_campplus(camp)}
+    return {f"{f}:{k}": v for f, sd in files.items() for k, v in sd.items()}
+
+
+def cosy_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
+    """Write the FunAudioLLM/CosyVoice2-0.5B snapshot at the published
+    widths (the 24 x 896 Qwen2 LM in bf16 with its 151,936-row text table,
+    the default flow and HiFT in float32, the full S3 v2 and CAMPPlus as
+    ONNX), load it on the card through the model's constructor, hold every
+    tensor bit-equal to the one written, and serve run P from it."""
+    import torch
+
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.codecs.cosyvoice_flow import (CosyFlowConfig,
+                                                           init_cosy_flow)
+    from vox_serve_tpu_torch.codecs.hifigan import HiFTConfig, init_hift
+    from vox_serve_tpu_torch.encoders.campplus import load_campplus_params
+    from vox_serve_tpu_torch.encoders.s3_exact import (S3V2Config,
+                                                       init_s3v2_params)
+    from vox_serve_tpu_torch.models.backbone import seeded_generator
+    from vox_serve_tpu_torch.models.cosyvoice2 import CosyVoice2LM
+
+    src = CosyVoice2LM(COSY_ID, device=dev, seed=51)
+    g = seeded_generator(dev, 52)
+    flow = init_cosy_flow(CosyFlowConfig(), g, dev)
+    hift = init_hift(HiFTConfig(), g, dev)
+    s3 = init_s3v2_params(g, S3V2Config(), dev)
+    camp_sd = synth.campplus_state(torch.Generator().manual_seed(53))
+    camp = load_campplus_params(camp_sd, device=dev)
+    snap = synth.snapshot_dir(cache, COSY_ID)
+    t0 = time.perf_counter()
+    synth.write_cosyvoice2(snap, src.params, src.text_embed, flow, hift, s3,
+                           camp_sd)
+    ws = time.perf_counter() - t0
+    written = cosy_files(src.params, src.text_embed, flow, hift, s3, camp)
+    del src, flow, hift, s3, camp, camp_sd
+    _free()
+
+    def load():
+        m = CosyVoice2LM(COSY_ID, device=dev)
+        if not all(m.checkpoint_parts.values()):
+            raise AssertionError(f"[load] {COSY_ID}: parts from random init:"
+                                 f" {m.checkpoint_parts}")
+        return m
+
+    load_r = timed_load(
+        COSY_ID, _files(snap), load, written,
+        lambda m: cosy_files(m.params, m.text_embed, m.codec_params["flow"],
+                             m.codec_params["hift"], m.s3v2[0], m.campplus),
+        ws)
+    del written
+    _free()
+    return load_r, end_to_end(card, "P", hub=str(cache))
+
+
 def checkpoint_phase(card: str) -> tuple[dict, dict]:
     """Write synthetic checkpoints at the published widths and names
     (random weights from seeds, through ``synthetic_checkpoints.py``'s
@@ -1991,6 +2149,11 @@ def checkpoint_phase(card: str) -> tuple[dict, dict]:
                 spectral.WatermarkConfig(), dev),
             {k: v.to(dev) for k, v in written.items()}, sc_reexport, ws)
         _drop_snapshot(cache, SC_ID)
+        del scp, written
+
+        # -- CosyVoice2-0.5B: the LM, flow.pt, hift.pt, S3 v2, CAMPPlus ----
+        loads[COSY_ID], runs["P"] = cosy_checkpoint(card, cache, dev)
+        _drop_snapshot(cache, COSY_ID)
     finally:
         if saved_env is None:
             os.environ.pop("HF_HUB_CACHE", None)
@@ -2043,6 +2206,10 @@ def main(argv=None) -> int:
     # CSM-1B's served heads: a GQA group of 4 at head dim 64
     check_decode(kernels, "K1", H=32, KH=8, batches=(4, 64), D=64)
     check_k3(kernels, H=32, KH=8, shapes=((168, 4), (1024, 5)), D=64)
+    # CosyVoice2's Qwen2-0.5B: 14 heads over 2 (G = 7: two decode CTAs of
+    # 4 + 3 heads per KV head) at head dim 64
+    check_decode(kernels, "K1", H=14, KH=2, batches=(4, 64), D=64)
+    check_k3(kernels, H=14, KH=2, shapes=((168, 4), (1024, 5)), D=64)
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -2064,7 +2231,7 @@ def main(argv=None) -> int:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
-    marks.append(("checkpoints, L, M, N", time.perf_counter()))
+    marks.append(("checkpoints, L, M, N, P", time.perf_counter()))
     runs.update(ckpt_runs)
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)

@@ -4,9 +4,11 @@ No published weights can be fetched where this repository is tested, so
 the loaders are held to checkpoints made from the port's own parameter
 trees (random weights from a seed, at any width): each ``export_*`` here is
 the inverse of a mapper of ``vox_serve_tpu_torch`` (``weights.py``,
-``codecs/``, ``encoders/ecapa.py``, ``watermark/silentcipher.py``) and
+``codecs/``, ``encoders/``, ``watermark/silentcipher.py``, the models) and
 returns ``{published tensor name: tensor}`` (HF ``(out, in)`` linear
-layouts, per-layer and per-codebook tensors unstacked). The tests check the
+layouts, per-layer and per-codebook tensors unstacked). ``write_onnx``
+writes the ONNX-only checkpoints (CosyVoice2's S3 v2 tokenizer and
+CAMPPlus) with a minimal protobuf writer of its own. The tests check the
 exporters by having the JAX package's loaders read their output back to the
 same tree; ``chip_smoke.py`` writes full-width snapshots with them into a
 temporary Hugging Face hub cache and holds every tensor the port loads on
@@ -448,3 +450,359 @@ def write_silentcipher(snapshot: Path, params: dict, cfg) -> int:
         f"frame_level_normalization: "
         f"{str(cfg.frame_level_normalization).lower()}\n")
     return sum(os.path.getsize(ckpt / f) for f in os.listdir(ckpt))
+
+
+# ---------------------------------------------------------------------------
+# CosyVoice2 (FunAudioLLM/CosyVoice2-0.5B)
+# ---------------------------------------------------------------------------
+
+
+def export_cosy_flow(params: dict) -> dict:
+    """Inverse of ``load_cosy_flow_params``: ``flow.pt``'s names
+    (``CausalMaskedDiffWithXvec.state_dict()``)."""
+    out: dict = {}
+
+    def ln(name, p):
+        out[name + ".weight"] = p["w"]
+        out[name + ".bias"] = p["b"]
+
+    def causal_block(pre, p):
+        _conv(out, f"{pre}.block.0", p["conv"])
+        ln(f"{pre}.block.2", p["norm"])
+
+    def causal_resnet(pre, p):
+        _lin(out, f"{pre}.mlp.1", p["mlp"])
+        causal_block(f"{pre}.block1", p["block1"])
+        causal_block(f"{pre}.block2", p["block2"])
+        _conv(out, f"{pre}.res_conv", p["res_conv"])
+
+    def est_block(pre, p):
+        ln(f"{pre}.norm1", p["norm1"])
+        for n in ("to_q", "to_k", "to_v"):
+            _lin(out, f"{pre}.attn1.{n}", p["attn1"][n])
+        _lin(out, f"{pre}.attn1.to_out.0", p["attn1"]["to_out"])
+        ln(f"{pre}.norm3", p["norm3"])
+        _lin(out, f"{pre}.ff.net.0.proj", p["ff"]["proj"])
+        _lin(out, f"{pre}.ff.net.2", p["ff"]["out"])
+
+    def conformer(pre, p):
+        a = p["self_attn"]
+        for n in ("linear_q", "linear_k", "linear_v", "linear_out",
+                  "linear_pos"):
+            _lin(out, f"{pre}.self_attn.{n}", a[n])
+        out[f"{pre}.self_attn.pos_bias_u"] = a["pos_bias_u"]
+        out[f"{pre}.self_attn.pos_bias_v"] = a["pos_bias_v"]
+        _lin(out, f"{pre}.feed_forward.w_1", p["feed_forward"]["w_1"])
+        _lin(out, f"{pre}.feed_forward.w_2", p["feed_forward"]["w_2"])
+        ln(f"{pre}.norm_mha", p["norm_mha"])
+        ln(f"{pre}.norm_ff", p["norm_ff"])
+
+    out["input_embedding.weight"] = params["input_embedding"]
+    _lin(out, "spk_embed_affine_layer", params["spk_embed_affine_layer"])
+    enc = params["encoder"]
+    _lin(out, "encoder.embed.out.0", enc["embed_out"])
+    ln("encoder.embed.out.1", enc["embed_norm"])
+    _lin(out, "encoder.up_embed.out.0", enc["up_embed_out"])
+    ln("encoder.up_embed.out.1", enc["up_embed_norm"])
+    for n in ("conv1", "conv2"):
+        _conv(out, f"encoder.pre_lookahead_layer.{n}",
+              enc["pre_lookahead"][n])
+    for i, p in enumerate(enc["encoders"]):
+        conformer(f"encoder.encoders.{i}", p)
+    _conv(out, "encoder.up_layer.conv", enc["up_layer_conv"])
+    for i, p in enumerate(enc["up_encoders"]):
+        conformer(f"encoder.up_encoders.{i}", p)
+    ln("encoder.after_norm", enc["after_norm"])
+    _lin(out, "encoder_proj", params["encoder_proj"])
+
+    e, est = "decoder.estimator", params["estimator"]
+    _lin(out, f"{e}.time_mlp.linear_1", est["time_mlp"]["linear_1"])
+    _lin(out, f"{e}.time_mlp.linear_2", est["time_mlp"]["linear_2"])
+    d0 = est["down"][0]
+    causal_resnet(f"{e}.down_blocks.0.0", d0["resnet"])
+    for j, b in enumerate(d0["blocks"]):
+        est_block(f"{e}.down_blocks.0.1.{j}", b)
+    _conv(out, f"{e}.down_blocks.0.2", d0["downsample"])
+    for i, m in enumerate(est["mid"]):
+        causal_resnet(f"{e}.mid_blocks.{i}.0", m["resnet"])
+        for j, b in enumerate(m["blocks"]):
+            est_block(f"{e}.mid_blocks.{i}.1.{j}", b)
+    u0 = est["up"][0]
+    causal_resnet(f"{e}.up_blocks.0.0", u0["resnet"])
+    for j, b in enumerate(u0["blocks"]):
+        est_block(f"{e}.up_blocks.0.1.{j}", b)
+    _conv(out, f"{e}.up_blocks.0.2", u0["upsample"])
+    causal_block(f"{e}.final_block", est["final_block"])
+    _conv(out, f"{e}.final_proj", est["final_proj"])
+    return out
+
+
+def export_hift(params: dict, prefix: str = "generator.") -> dict:
+    """Inverse of ``load_hift_params`` in ``hift.pt``'s layout: the
+    weight-normed convs as parametrized ``original0`` / ``original1``
+    pairs, every name under ``prefix`` (the published file's
+    ``generator.``, which the model strips)."""
+    out: dict = {}
+
+    def wn(name, c):
+        g, v = weight_norm_pair(c["w"])
+        out[prefix + name + ".parametrizations.weight.original0"] = g
+        out[prefix + name + ".parametrizations.weight.original1"] = v
+        if "b" in c:
+            out[prefix + name + ".bias"] = c["b"]
+
+    def conv(name, c):
+        _conv(out, prefix + name, c)
+
+    def resblock(name, r):
+        for j in range(len(r["convs1"])):
+            wn(f"{name}.convs1.{j}", r["convs1"][j])
+            wn(f"{name}.convs2.{j}", r["convs2"][j])
+            out[f"{prefix}{name}.activations1.{j}.alpha"] = (
+                r["alpha1"][j].reshape(1, -1, 1))
+            out[f"{prefix}{name}.activations2.{j}.alpha"] = (
+                r["alpha2"][j].reshape(1, -1, 1))
+
+    for i, c in enumerate(params["f0_convs"]):
+        wn(f"f0_predictor.condnet.{2 * i}", c)
+    out[prefix + "f0_predictor.classifier.weight"] = _t(params["f0_out_w"])
+    out[prefix + "f0_predictor.classifier.bias"] = params["f0_out_b"]
+    out[prefix + "m_source.l_linear.weight"] = _t(params["source_linear_w"])
+    out[prefix + "m_source.l_linear.bias"] = params["source_linear_b"]
+    wn("conv_pre", params["conv_pre"])
+    for i, c in enumerate(params["ups"]):
+        wn(f"ups.{i}", c)
+    for i, c in enumerate(params["source_downs"]):
+        conv(f"source_downs.{i}", c)
+    for i, r in enumerate(params["source_resblocks"]):
+        resblock(f"source_resblocks.{i}", r)
+    for i, r in enumerate(params["resblocks"]):
+        resblock(f"resblocks.{i}", r)
+    wn("conv_post", params["conv_post"])
+    return out
+
+
+def export_cosy_lm(params: dict, text_embed: torch.Tensor) -> dict:
+    """Inverse of ``CosyVoice2LM._load_lm``: the Qwen2 layers under
+    ``model.*`` (q/k/v biases), ``model.embed_tokens.weight`` (the text
+    table), and the speech tables and head (``speech_embedding``,
+    ``llm_embedding``, ``llm_decoder``)."""
+    out = export_llama_backbone(params["backbone"], "model.")
+    out["model.embed_tokens.weight"] = text_embed
+    out["speech_embedding.weight"] = params["speech_embed"]
+    out["llm_embedding.weight"] = params["llm_embed"]
+    out["llm_decoder.weight"] = _t(params["head"])
+    return out
+
+
+def export_s3v2(params: dict) -> dict:
+    """Inverse of ``load_s3v2_params`` (``speech_tokenizer_v2``'s names;
+    its linear weights are already ``(out, in)``)."""
+    out = {"encoder.conv1.weight": params["conv1"]["w"],
+           "encoder.conv1.bias": params["conv1"]["b"],
+           "encoder.conv2.weight": params["conv2"]["w"],
+           "encoder.conv2.bias": params["conv2"]["b"]}
+    for i, lp in enumerate(params["layers"]):
+        pre = f"encoder.blocks.{i}"
+        for name, key in (("attn.query", "q"), ("attn.key", "k"),
+                          ("attn.value", "v"), ("attn.out", "o"),
+                          ("mlp.0", "fc1"), ("mlp.2", "fc2")):
+            _conv(out, f"{pre}.{name}", lp[key])
+        out[f"{pre}.attn.fsmn_block.weight"] = lp["fsmn_w"]
+        out[f"{pre}.attn_ln.weight"] = lp["ln1_w"]
+        out[f"{pre}.attn_ln.bias"] = lp["ln1_b"]
+        out[f"{pre}.mlp_ln.weight"] = lp["ln2_w"]
+        out[f"{pre}.mlp_ln.bias"] = lp["ln2_b"]
+    _conv(out, "quantizer._codebook.project_down", params["fsq_proj"])
+    return out
+
+
+def campplus_state(generator: torch.Generator, feat_dim: int = 80,
+                   m_channels: int = 32, embed_dim: int = 192) -> dict:
+    """A random CAMPPlus state dict at the published widths and names
+    (``campplus.onnx``'s initializers): the FCM head (32 channels, two
+    2-block residual stages), the TDNN stem (-> 128), the three CAM dense
+    blocks (12 / 24 / 16 layers, growth 32, bottleneck 128) with their
+    transits (-> 256, 512, 512), and the dense layer to ``embed_dim``.
+    Batch norms carry running statistics; weights are drawn at a fan-in
+    scale so that activations stay O(1)."""
+    from vox_serve_tpu_torch.encoders.campplus import (BLOCK_SPECS, BN_SIZE,
+                                                       GROWTH, INIT_CHANNELS)
+
+    sd: dict = {}
+
+    def w(name, shape):
+        fan_in = int(np.prod(shape[1:]))
+        sd[name] = torch.randn(shape, generator=generator) / fan_in ** 0.5
+
+    def b(name, n):
+        sd[name] = torch.randn((n,), generator=generator) * 0.02
+
+    def bn(name, n, affine=True):
+        sd[name + ".running_mean"] = torch.randn((n,), generator=generator
+                                                 ) * 0.1
+        sd[name + ".running_var"] = 0.5 + torch.rand((n,),
+                                                     generator=generator)
+        if affine:
+            sd[name + ".weight"] = 1.0 + 0.1 * torch.randn(
+                (n,), generator=generator)
+            sd[name + ".bias"] = 0.1 * torch.randn((n,), generator=generator)
+
+    m = m_channels
+    w("head.conv1.weight", (m, 1, 3, 3))
+    bn("head.bn1", m)
+    for layer in ("layer1", "layer2"):
+        for i in range(2):
+            pre = f"head.{layer}.{i}"
+            w(f"{pre}.conv1.weight", (m, m, 3, 3))
+            bn(f"{pre}.bn1", m)
+            w(f"{pre}.conv2.weight", (m, m, 3, 3))
+            bn(f"{pre}.bn2", m)
+            if i == 0:  # stride 2: a 1x1 shortcut
+                w(f"{pre}.shortcut.0.weight", (m, m, 1, 1))
+                bn(f"{pre}.shortcut.1", m)
+    w("head.conv2.weight", (m, m, 3, 3))
+    bn("head.bn2", m)
+    ch = INIT_CHANNELS
+    w("xvector.tdnn.linear.weight", (ch, m * (feat_dim // 8), 5))
+    bn("xvector.tdnn.nonlinear.batchnorm", ch)
+    bn_ch = BN_SIZE * GROWTH
+    for bi, (n_layers, kernel, _) in enumerate(BLOCK_SPECS, start=1):
+        for j in range(n_layers):
+            pre = f"xvector.block{bi}.tdnnd{j + 1}"
+            cin = ch + j * GROWTH
+            bn(f"{pre}.nonlinear1.batchnorm", cin)
+            w(f"{pre}.linear1.weight", (bn_ch, cin, 1))
+            bn(f"{pre}.nonlinear2.batchnorm", bn_ch)
+            w(f"{pre}.cam_layer.linear_local.weight",
+              (GROWTH, bn_ch, kernel))
+            w(f"{pre}.cam_layer.linear1.weight", (bn_ch // 2, bn_ch, 1))
+            b(f"{pre}.cam_layer.linear1.bias", bn_ch // 2)
+            w(f"{pre}.cam_layer.linear2.weight", (GROWTH, bn_ch // 2, 1))
+            b(f"{pre}.cam_layer.linear2.bias", GROWTH)
+        ch += n_layers * GROWTH
+        bn(f"xvector.transit{bi}.nonlinear.batchnorm", ch)
+        w(f"xvector.transit{bi}.linear.weight", (ch // 2, ch, 1))
+        ch //= 2
+    bn("xvector.out_nonlinear.batchnorm", ch)
+    w("xvector.dense.linear.weight", (embed_dim, 2 * ch, 1))
+    bn("xvector.dense.nonlinear.batchnorm", embed_dim, affine=False)
+    return sd
+
+
+# -- a minimal ONNX writer: ModelProto.graph(7).initializer(5) TensorProtos
+
+_ONNX_TYPES = {np.dtype(np.float32): 1, np.dtype(np.int64): 7,
+               np.dtype(np.float16): 10, np.dtype(np.int32): 6}
+
+
+def _varint(v: int) -> bytes:
+    out = b""
+    while True:
+        byte = v & 0x7F
+        v >>= 7
+        if v:
+            out += bytes([byte | 0x80])
+        else:
+            return out + bytes([byte])
+
+
+def _field(num: int, wire: int, payload: bytes) -> bytes:
+    head = _varint((num << 3) | wire)
+    if wire == 2:
+        return head + _varint(len(payload)) + payload
+    return head + payload
+
+
+def write_onnx(path: Path, tensors: dict) -> int:
+    """Write ``tensors`` as the initializers of an otherwise empty ONNX
+    model (TensorProto: dims (1), data_type (2), name (8), raw_data (9),
+    little-endian); returns the bytes written."""
+    msgs = []
+    for name, t in tensors.items():
+        a = (t.detach().cpu().numpy() if torch.is_tensor(t)
+             else np.asarray(t))
+        a = np.ascontiguousarray(a)
+        body = b"".join(_field(1, 0, _varint(d)) for d in a.shape)
+        body += _field(2, 0, _varint(_ONNX_TYPES[a.dtype]))
+        body += _field(8, 2, name.encode())
+        body += _field(9, 2, a.astype(a.dtype.newbyteorder("<")).tobytes())
+        msgs.append(_field(5, 2, body))
+    model = _field(1, 0, _varint(8)) + _field(7, 2, b"".join(msgs))
+    Path(path).write_bytes(model)
+    return len(model)
+
+
+def write_cosyvoice2(snapshot: Path, lm: dict, text_embed: torch.Tensor,
+                     flow: dict, hift: dict, s3v2: Optional[dict],
+                     campplus: dict) -> dict:
+    """The FunAudioLLM/CosyVoice2-0.5B layout the loaders read:
+    ``model.safetensors`` (the LM), ``flow.pt``,
+    ``hift.pt`` (``generator.`` names), ``campplus.onnx`` and
+    ``speech_tokenizer_v2.onnx`` (unless ``s3v2`` is None); returns bytes
+    per file."""
+    from vox_serve_tpu_torch.weights import save_safetensors
+
+    snapshot = Path(snapshot)
+    sizes = {"model.safetensors": save_safetensors(
+        export_cosy_lm(lm, text_embed), snapshot / "model.safetensors")}
+
+    def save(name, sd):
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   snapshot / name)
+        sizes[name] = os.path.getsize(snapshot / name)
+
+    save("flow.pt", export_cosy_flow(flow))
+    save("hift.pt", export_hift(hift))
+    sizes["campplus.onnx"] = write_onnx(snapshot / "campplus.onnx", campplus)
+    if s3v2 is not None:
+        sizes["speech_tokenizer_v2.onnx"] = write_onnx(
+            snapshot / "speech_tokenizer_v2.onnx", export_s3v2(s3v2))
+    return sizes
+
+
+def export_campplus(params: dict) -> dict:
+    """Inverse of ``load_campplus_params``: ``campplus.onnx``'s names."""
+    out: dict = {}
+
+    def bn(name, p):
+        out[name + ".running_mean"] = p["mean"]
+        out[name + ".running_var"] = p["var"]
+        if "scale" in p:
+            out[name + ".weight"] = p["scale"]
+            out[name + ".bias"] = p["bias"]
+
+    h = params["head"]
+    for n in ("conv1", "conv2"):
+        _conv(out, f"head.{n}", h[n])
+    bn("head.bn1", h["bn1"])
+    bn("head.bn2", h["bn2"])
+    for layer in ("layer1", "layer2"):
+        for i, r in enumerate(h[layer]):
+            pre = f"head.{layer}.{i}"
+            _conv(out, f"{pre}.conv1", r["conv1"])
+            bn(f"{pre}.bn1", r["bn1"])
+            _conv(out, f"{pre}.conv2", r["conv2"])
+            bn(f"{pre}.bn2", r["bn2"])
+            if "sc_conv" in r:
+                _conv(out, f"{pre}.shortcut.0", r["sc_conv"])
+                bn(f"{pre}.shortcut.1", r["sc_bn"])
+    xv = params["xvector"]
+    _conv(out, "xvector.tdnn.linear", xv["tdnn_conv"])
+    bn("xvector.tdnn.nonlinear.batchnorm", xv["tdnn_bn"])
+    for bi, (blk, tr) in enumerate(zip(xv["blocks"], xv["transits"]),
+                                   start=1):
+        for j, lp in enumerate(blk):
+            pre = f"xvector.block{bi}.tdnnd{j + 1}"
+            bn(f"{pre}.nonlinear1.batchnorm", lp["nl1"])
+            _conv(out, f"{pre}.linear1", lp["lin1"])
+            bn(f"{pre}.nonlinear2.batchnorm", lp["nl2"])
+            for k, n in (("local", "linear_local"), ("cam1", "linear1"),
+                         ("cam2", "linear2")):
+                _conv(out, f"{pre}.cam_layer.{n}", lp[k])
+        bn(f"xvector.transit{bi}.nonlinear.batchnorm", tr["nl"])
+        _conv(out, f"xvector.transit{bi}.linear", tr["lin"])
+    bn("xvector.out_nonlinear.batchnorm", xv["out_bn"])
+    _conv(out, "xvector.dense.linear", xv["dense_lin"])
+    bn("xvector.dense.nonlinear.batchnorm", xv["dense_bn"])
+    return out

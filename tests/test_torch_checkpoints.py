@@ -414,3 +414,71 @@ def test_hparams_reader_without_yaml_matches_yaml(hub, monkeypatch):
     flat = {k: v for k, v in want.items() if not isinstance(v, (dict, list))}
     assert {k: got[k] for k in flat} == flat
     assert got["SR"] == 44100 and got["frame_level_normalization"] is True
+
+
+# -- CosyVoice2 ---------------------------------------------------------------
+
+
+def test_cosyvoice2_snapshot_matches_jax(tmp_path, monkeypatch):
+    """``write_cosyvoice2``'s snapshot at the small widths (the LM in
+    ``model.safetensors`` with q/k/v biases, ``flow.pt``, ``hift.pt`` under
+    ``generator.``, ``campplus.onnx``), read by both packages' constructors:
+    every tree equal leaf for leaf to JAX's and to what was written, each
+    part reported from the checkpoint (S3 v2, not written, from the dev
+    config); then a corrupt ``hift.pt`` falls back to random init in both,
+    and the port reports it."""
+    from test_torch_cosyvoice2 import BB as C_BB
+    from test_torch_cosyvoice2 import FLOW, HIFT, small_model
+    from vox_serve_tpu.codecs.cosyvoice_flow import CosyFlowConfig as JFlow
+    from vox_serve_tpu.codecs.hifigan import HiFTConfig as JHiFT
+    from vox_serve_tpu.models import cosyvoice2 as jcosy_mod
+    from vox_serve_tpu_torch.codecs.cosyvoice_flow import CosyFlowConfig
+    from vox_serve_tpu_torch.codecs.hifigan import HiFTConfig
+    from vox_serve_tpu_torch.models.cosyvoice2 import CosyVoice2LM
+
+    src = small_model(seed=9)
+    camp = synth.campplus_state(torch.Generator().manual_seed(2),
+                                embed_dim=FLOW["spk_dim"])
+    model_dir = tmp_path / "cosy"
+    model_dir.mkdir()
+    sizes = synth.write_cosyvoice2(
+        model_dir, src.params, src.text_embed, src.codec_params["flow"],
+        src.codec_params["hift"], None, camp)
+    assert set(sizes) == {"model.safetensors", "flow.pt", "hift.pt",
+                          "campplus.onnx"}
+
+    def load_both():
+        _dev_tokenizers(monkeypatch, jcosy_mod)
+        jm = jcosy_mod.CosyVoice2LM(
+            str(model_dir), dtype=jnp.float32,
+            debug_backbone=JBB(**C_BB, dtype=jnp.float32),
+            debug_flow=JFlow(**FLOW), debug_hift=JHiFT(**HIFT))
+        tm = CosyVoice2LM(str(model_dir), dtype=torch.float32, device="cpu",
+                          debug_backbone=BackboneConfig(
+                              **C_BB, dtype=torch.float32),
+                          debug_flow=CosyFlowConfig(**FLOW),
+                          debug_hift=HiFTConfig(**HIFT))
+        return jm, tm
+
+    jm, tm = load_both()
+    assert tm.checkpoint_parts == {"backbone": True, "flow": True,
+                                   "hift": True, "s3v2": False,
+                                   "campplus": True}
+    jparams = _np(jm.params)
+    assert_trees_equal(tm.text_embed, jparams.pop("text_embed"))
+    assert_trees_equal(tm.params, jparams)
+    assert_trees_equal(tm.params, _torch_np(src.params))
+    assert_trees_equal(tm.text_embed, src.text_embed.numpy())
+    assert_trees_equal(tm.codec_params, _np(jm.codec_params))
+    assert_trees_equal(tm.codec_params, _torch_np(src.codec_params))
+    assert_trees_equal(tm.campplus, _np(jm._campplus))
+
+    (model_dir / "hift.pt").write_bytes(b"corrupt")
+    jm, tm = load_both()
+    assert tm.checkpoint_parts["hift"] is False
+    assert tm.checkpoint_parts["flow"] is True
+    assert_trees_equal(tm.codec_params["flow"], _np(jm.codec_params["flow"]))
+    assert (jax.tree.structure(jax.tree.map(lambda a: 0,
+                                            jm.codec_params["hift"]))
+            == jax.tree.structure(tparams.tree_map(
+                lambda t: 0, tm.codec_params["hift"])))

@@ -5,7 +5,9 @@ at start-up; and the checkpoint loaders work with the card's installation,
 which has none of safetensors, huggingface_hub, transformers, yaml or
 ml_dtypes (a fresh interpreter in which they cannot be imported resolves
 and reads a bf16 snapshot through the hub cache and loads a Qwen3
-checkpoint, a SilentCipher snapshot and the dev tokenizer)."""
+checkpoint, a SilentCipher snapshot and the dev tokenizer; another loads a
+CosyVoice2 snapshot: the LM from safetensors, ``flow.pt``, ``hift.pt`` and
+CAMPPlus from ONNX)."""
 
 import pathlib
 import re
@@ -44,6 +46,16 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.codecs.qwen3_codec",
     "vox_serve_tpu_torch.scheduler.input_streaming",
     "vox_serve_tpu_torch.scheduler.offline",
+    "vox_serve_tpu_torch.models.cosyvoice2",
+    "vox_serve_tpu_torch.models.flow_common",
+    "vox_serve_tpu_torch.codecs.cosyvoice_flow",
+    "vox_serve_tpu_torch.codecs.hifigan",
+    "vox_serve_tpu_torch.encoders.s3_exact",
+    "vox_serve_tpu_torch.encoders.campplus",
+    "vox_serve_tpu_torch.encoders.whisper_exact",
+    "vox_serve_tpu_torch.encoders.mel",
+    "vox_serve_tpu_torch.encoders.speaker",
+    "vox_serve_tpu_torch.onnx_reader",
 ]
 
 
@@ -266,5 +278,50 @@ print("ok")
 def test_loaders_work_without_the_sandbox_only_packages():
     out = subprocess.run([sys.executable, "-c", _CARD_INSTALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+_COSY_CARD_INSTALL = _CARD_INSTALL.split("g = torch.Generator()")[0] + """
+from vox_serve_tpu_torch.codecs.cosyvoice_flow import CosyFlowConfig
+from vox_serve_tpu_torch.codecs.hifigan import HiFTConfig
+from vox_serve_tpu_torch.models.cosyvoice2 import CosyVoice2LM
+
+kw = dict(
+    dtype=torch.float32, device="cpu",
+    debug_backbone=BackboneConfig(vocab_size=512, hidden_size=32,
+                                  num_layers=2, num_heads=2, num_kv_heads=1,
+                                  head_dim=16, intermediate_size=48,
+                                  qkv_bias=True, dtype=torch.float32),
+    debug_flow=CosyFlowConfig(input_size=16, output_size=16, heads=2,
+                              linear_units=32, num_blocks=1, up_blocks=1,
+                              spk_dim=8, mel_dim=8, est_channels=8,
+                              est_head_dim=4, est_heads=2, est_n_blocks=1,
+                              est_mid_blocks=1, n_timesteps=2),
+    debug_hift=HiFTConfig(in_channels=8, base_channels=16, nb_harmonics=2,
+                          f0_cond_channels=8))
+src = CosyVoice2LM(**kw)
+name = "FunAudioLLM/CosyVoice2-0.5B"
+synth.write_cosyvoice2(
+    synth.snapshot_dir(cache, name), src.params, src.text_embed,
+    src.codec_params["flow"], src.codec_params["hift"], None,
+    synth.campplus_state(torch.Generator().manual_seed(0), embed_dim=8))
+m = CosyVoice2LM(name, **kw)
+parts = m.checkpoint_parts
+assert parts == {"backbone": True, "flow": True, "hift": True,
+                 "s3v2": False, "campplus": True}, parts
+for a, b in ((m.params, src.params), (m.codec_params, src.codec_params)):
+    assert all(tree_leaves(tree_map(torch.equal, a, b)))
+assert torch.equal(m.text_embed, src.text_embed)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in MISSING)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_cosyvoice2_loads_without_the_optional_packages():
+    out = subprocess.run([sys.executable, "-c", _COSY_CARD_INSTALL],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")

@@ -9,7 +9,10 @@ the JAX package's vox_serve_tpu/weights.py, on the CPU.
 * ``resolve_model_dir`` against JAX's on a local directory, on a fake hub
   cache through ``HF_HUB_CACHE`` (``refs/main`` -> ``snapshots/<commit>``;
   JAX's goes through ``huggingface_hub.snapshot_download``) and on a
-  missing id;
+  missing id; the cache's place by every variable ``huggingface_hub``
+  reads (``HF_HUB_CACHE``, ``HUGGINGFACE_HUB_CACHE``, ``HF_HOME``,
+  ``XDG_CACHE_HOME``, ``HOME``; ``~`` and ``$VAR`` forms), the JAX
+  package's side in a fresh interpreter;
 * ``load_llama_family_backbone`` (with and without q/k norms and qkv
   biases), ``load_embedding`` and ``load_head`` (own and tied) on the same
   state: leaf for leaf equal to JAX's, in the tree ``init_backbone_params``
@@ -19,6 +22,8 @@ the JAX package's vox_serve_tpu/weights.py, on the CPU.
 """
 
 import json
+import os
+from pathlib import Path
 
 import jax
 import ml_dtypes
@@ -144,6 +149,83 @@ def test_hub_cache_dir_order(tmp_path, monkeypatch):
                                        / "hub")
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "c"))
     assert weights.hub_cache_dir() == tmp_path / "c"
+
+
+#: one hub cache per case: (environment, where the cache then lies);
+#: ``{t}`` is the test's directory, and each case sets HOME to ``{t}/home``
+HUB_ENV_CASES = {
+    "HF_HUB_CACHE": ({"HF_HUB_CACHE": "{t}/a"}, "{t}/a"),
+    "HUGGINGFACE_HUB_CACHE": ({"HUGGINGFACE_HUB_CACHE": "{t}/b"}, "{t}/b"),
+    "both, HF_HUB_CACHE first": ({"HF_HUB_CACHE": "{t}/a2",
+                                  "HUGGINGFACE_HUB_CACHE": "{t}/b2"},
+                                 "{t}/a2"),
+    "HF_HOME": ({"HF_HOME": "{t}/hfhome",
+                 "XDG_CACHE_HOME": "{t}/unused"}, "{t}/hfhome/hub"),
+    "XDG_CACHE_HOME": ({"XDG_CACHE_HOME": "{t}/xdg"},
+                       "{t}/xdg/huggingface/hub"),
+    "HOME": ({}, "{t}/home/.cache/huggingface/hub"),
+    "~ in HF_HUB_CACHE": ({"HF_HUB_CACHE": "~/tilde"}, "{t}/home/tilde"),
+    "$VAR in HF_HUB_CACHE": ({"VOX_T": "{t}", "HF_HUB_CACHE": "$VOX_T/var"},
+                             "{t}/var"),
+    "$VAR in HF_HOME": ({"VOX_T": "{t}", "HF_HOME": "${VOX_T}/h2"},
+                        "{t}/h2/hub"),
+    "~ in XDG_CACHE_HOME": ({"XDG_CACHE_HOME": "~/xdg2"},
+                            "{t}/home/xdg2/huggingface/hub"),
+}
+_HF_VARS = ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE", "HF_HOME",
+            "XDG_CACHE_HOME", "VOX_T")
+
+
+def test_hub_cache_env_rule_matches_jax(tmp_path, monkeypatch):
+    """Each variable huggingface_hub reads, in its order and with ``~`` and
+    ``$VAR`` expanded: a snapshot in that cache resolves in the port as in
+    the JAX package (whose ``snapshot_download`` reads the variables once,
+    when ``huggingface_hub.constants`` is imported: so each case runs it
+    in one fresh interpreter, reloading the constants per case)."""
+    import subprocess
+    import sys
+
+    t = str(tmp_path)
+    cases = {}
+    for i, (name, (env, where)) in enumerate(HUB_ENV_CASES.items()):
+        env = {k: v.replace("{t}", t) for k, v in env.items()}
+        env["HOME"] = f"{t}/home"
+        snap = _fake_hub(Path(where.replace("{t}", t)), f"Org/Case-{i}")
+        cases[name] = (env, f"Org/Case-{i}", str(snap))
+    for name, (env, model_id, snap) in cases.items():
+        for k in _HF_VARS:
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        got = weights.resolve_model_dir(model_id)
+        assert str(got) == snap, name
+        # a snapshot elsewhere does not resolve
+        other = next(m for n, (_, m, _) in cases.items() if n != name)
+        assert weights.resolve_model_dir(other) is None, name
+    script = (
+        "import importlib, json, os, sys\n"
+        "import huggingface_hub.constants as c\n"
+        "from vox_serve_tpu import weights\n"
+        "cases = json.loads(sys.argv[1])\n"
+        "out = {}\n"
+        "for name, (env, model_id, _) in cases.items():\n"
+        f"    for k in {_HF_VARS!r}:\n"
+        "        os.environ.pop(k, None)\n"
+        "    os.environ.update(env)\n"
+        "    importlib.reload(c)\n"
+        "    out[name] = str(weights.resolve_model_dir(model_id))\n"
+        "print(json.dumps(out))\n")
+    env = {k: v for k, v in os.environ.items() if k not in _HF_VARS}
+    env["HF_HUB_OFFLINE"] = "1"
+    run = subprocess.run([sys.executable, "-c", script, json.dumps(cases)],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(Path(__file__).resolve().parents[1]),
+                         timeout=120)
+    assert run.returncode == 0, run.stderr
+    jax_dirs = json.loads(run.stdout.strip().splitlines()[-1])
+    for name, (_, _, snap) in cases.items():
+        assert os.path.realpath(jax_dirs[name]) == os.path.realpath(snap), \
+            name
 
 
 def _r(*shape):

@@ -501,3 +501,34 @@ def test_graph_counters_carry_every_kernel_counter():
     assert k2.stacks == before["fused_resunit_stack", "stacks"] + 6
     assert k2.launches == before["fused_resunit_stack", "launches"] + 54
     kernels.set_counters(before)
+
+
+def test_completed_stream_reselected_plans_no_window():
+    """The online scheduler's second detokenize selection of a round (the
+    light-load branch) can re-select a stream it completed earlier in that
+    round: its slot is freed and its last window still named. The worker
+    plans no window for a done stream (planning one decoded that window
+    again, from no slot, and failed the batch and every stream in it)."""
+    w = _worker()
+    interval = w.detokenize_interval
+    done = Request(request_id="done")
+    w.admit(done)
+    done.lm_output_audio_tokens = [np.zeros((1,), np.int32)] * interval
+    done.done_lm_generation = True
+    done.next_audio_decode_idx = [0]
+    w.run_detokenize([done])
+    w.flush_detokenize()
+    assert done.done_all
+    first = _drain_pcm(done)
+    assert len(first) > 0
+    w.free_kv_cache(done)  # the scheduler's completion frees the slot
+    assert done.slot is None
+    live = Request(request_id="live")
+    w.admit(live)
+    live.lm_output_audio_tokens = [np.ones((1,), np.int32)] * interval
+    live.next_audio_decode_idx = [0]
+    touched = w.run_detokenize([done, live])
+    touched += w.flush_detokenize()
+    assert done in touched and live in touched
+    assert _drain_pcm(done) == b"" and len(_drain_pcm(live)) == len(first)
+    assert done.finish_reason is None and not live.done_all

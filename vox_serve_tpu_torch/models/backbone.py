@@ -38,6 +38,9 @@ class BackboneConfig:
     rope_dim: Optional[int] = None  # partial rotary if < head_dim
     llama31_rope_scaling: bool = False  # Llama-3.1 frequency scaling
     rms_eps: float = 1e-6
+    qkv_bias: bool = False  # Qwen2-style
+    o_bias: bool = False
+    mlp_bias: bool = False
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
     attn_scale: Optional[float] = None
     dtype: torch.dtype = torch.bfloat16
@@ -104,22 +107,23 @@ def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
     hd = cfg.resolved_head_dim
     L, Hs, dt = cfg.num_layers, cfg.hidden_size, cfg.dtype
 
-    def lin(d_in, d_out):
-        return _init_linear(generator, d_in, d_out, dt, device, stack=L)
+    def lin(d_in, d_out, bias=False):
+        return _init_linear(generator, d_in, d_out, dt, device, bias=bias,
+                            stack=L)
 
     attn = {
-        "q": lin(Hs, cfg.num_heads * hd),
-        "k": lin(Hs, cfg.num_kv_heads * hd),
-        "v": lin(Hs, cfg.num_kv_heads * hd),
-        "o": lin(cfg.num_heads * hd, Hs),
+        "q": lin(Hs, cfg.num_heads * hd, cfg.qkv_bias),
+        "k": lin(Hs, cfg.num_kv_heads * hd, cfg.qkv_bias),
+        "v": lin(Hs, cfg.num_kv_heads * hd, cfg.qkv_bias),
+        "o": lin(cfg.num_heads * hd, Hs, cfg.o_bias),
     }
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones((L, hd), dtype=dt, device=device)
         attn["k_norm"] = torch.ones((L, hd), dtype=dt, device=device)
     mlp = {
-        "gate": lin(Hs, cfg.intermediate_size),
-        "up": lin(Hs, cfg.intermediate_size),
-        "down": lin(cfg.intermediate_size, Hs),
+        "gate": lin(Hs, cfg.intermediate_size, cfg.mlp_bias),
+        "up": lin(Hs, cfg.intermediate_size, cfg.mlp_bias),
+        "down": lin(cfg.intermediate_size, Hs, cfg.mlp_bias),
     }
     return {
         "layers": {

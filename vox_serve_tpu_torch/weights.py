@@ -3,9 +3,10 @@ checkpoint, reading safetensors, mapping Hugging Face layouts into the
 port's stacked parameter trees, and the text tokenizer.
 
 * ``resolve_model_dir``: a local directory, else the snapshot of the
-  Hugging Face hub cache (``HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
-  ``~/.cache/huggingface/hub``): ``models--{org}--{name}/refs/main`` names
-  a commit and ``snapshots/<commit>/`` is its snapshot, which is what
+  Hugging Face hub cache (``hub_cache_dir``: the environment variables
+  ``huggingface_hub`` reads, in its order). There
+  ``models--{org}--{name}/refs/main`` names a commit and
+  ``snapshots/<commit>/`` is its snapshot, which is what
   ``huggingface_hub.snapshot_download(local_files_only=True)`` returns.
   The cache is read directly, so ``huggingface_hub`` is not needed. The
   JAX package's ``VOX_ALLOW_DOWNLOAD`` branch is left out on purpose: the
@@ -52,13 +53,20 @@ logger = get_logger("weights")
 
 
 def hub_cache_dir() -> Path:
-    """The Hugging Face hub cache: ``HF_HUB_CACHE``, else ``$HF_HOME/hub``,
-    else ``~/.cache/huggingface/hub``."""
-    if os.environ.get("HF_HUB_CACHE"):
-        return Path(os.environ["HF_HUB_CACHE"])
-    home = os.environ.get("HF_HOME") or os.path.join(
-        os.path.expanduser("~"), ".cache", "huggingface")
-    return Path(home) / "hub"
+    """The Hugging Face hub cache, by ``huggingface_hub.constants``' rule:
+    ``HF_HUB_CACHE``, else ``HUGGINGFACE_HUB_CACHE``, else
+    ``$HF_HOME/hub``, else ``$XDG_CACHE_HOME/huggingface/hub``, else
+    ``~/.cache/huggingface/hub``; ``~`` and ``$VAR`` expanded."""
+    def expand(p: str) -> str:
+        return os.path.expandvars(os.path.expanduser(p))
+
+    env = os.environ
+    home = expand(env.get("HF_HOME", os.path.join(
+        env.get("XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"),
+                                               ".cache")),
+        "huggingface")))
+    legacy = env.get("HUGGINGFACE_HUB_CACHE", os.path.join(home, "hub"))
+    return Path(expand(env.get("HF_HUB_CACHE", legacy)))
 
 
 def _cached_snapshot(model_id: str) -> Optional[Path]:

@@ -1523,6 +1523,8 @@ class ModelWorker:
         }
         if self.device.type == "cuda":
             out["pool_mib"] = steps.pool_bytes() / 2**20
+            out["capture_s_by_kind"] = dict(steps.capture_s_by_kind)
+            out["pool_mib_by_kind"] = dict(steps.pool_mib_by_kind)
         return out
 
     def reset_step_stats(self) -> None:
@@ -1615,6 +1617,15 @@ class ModelWorker:
         by_len: dict[int, tuple[list, list]] = {}
         finish_check: list[Request] = []
         for req in requests:
+            if req.done_all:
+                # nothing left to decode (every setter of done_all says so):
+                # here for its completion only. The online scheduler's
+                # second selection of a round re-selects a stream it
+                # completed earlier in that round, its slot already freed
+                # and its last window still named: planning that window
+                # again would decode it twice, from no slot.
+                finish_check.append(req)
+                continue
             try:
                 self._plan_detok_windows(req, by_len, interval, step)
             except Exception as e:

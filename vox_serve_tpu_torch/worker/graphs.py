@@ -172,6 +172,10 @@ class StepCache:
         self.capturing = False
         #: seconds spent capturing (warm-up call, capture, instantiation)
         self.capture_s = 0.0
+        #: per step kind: capture seconds, and MiB the shared pool grew by
+        #: while its graphs were captured (card only)
+        self.capture_s_by_kind: dict[str, float] = {}
+        self.pool_mib_by_kind: dict[str, float] = {}
         #: key -> device ms per replay from the start-up probe
         self.probe_ms: dict[tuple, float] = {}
         #: kind -> [first, last] ordinal of its runs among all runs since
@@ -192,6 +196,7 @@ class StepCache:
                 step = EagerStep(body, self.device)
             else:
                 t0 = time.perf_counter()
+                pool0 = self.pool_bytes()
                 self.capturing = True
                 try:
                     step = StepGraph(body, warm_inputs, self.device,
@@ -199,7 +204,14 @@ class StepCache:
                                      self._generator, self._n_staging)
                 finally:
                     self.capturing = False
-                self.capture_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.capture_s += dt
+                kind = key[0]
+                self.capture_s_by_kind[kind] = (
+                    self.capture_s_by_kind.get(kind, 0.0) + dt)
+                self.pool_mib_by_kind[kind] = (
+                    self.pool_mib_by_kind.get(kind, 0.0)
+                    + (self.pool_bytes() - pool0) / 2**20)
             self.steps[key] = step
         return step
 
