@@ -18,17 +18,18 @@ exits non-zero without printing a result:
    e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
    Then K1 at Orpheus-3B's heads (H=24, KH=8: a GQA group of 3) at B=4 and
    64, at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4, at
-   CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, and at
+   CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, at
    CosyVoice2's Qwen2-0.5B (H=14, KH=2, head dim 64: a group of 7) at B=4
-   and 64.
+   and 64, and at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
+   16, four CTAs of 4 heads per KV head) at B=4 and 64.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
    and its library yardstick (one ``scaled_dot_product_attention`` call
    with the block-diagonal causal mask; the port never calls it). Then K3
    at G = 3 (T=168 and 1024), G = 7 (T=1024), CSM's G = 4 at head dim
-   64 (T=168 and 1024) and CosyVoice2's G = 7 at head dim 64 (T=168 and
-   1024).
+   64 (T=168 and 1024), CosyVoice2's G = 7 at head dim 64 (T=168 and
+   1024) and GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -106,6 +107,26 @@ exits non-zero without printing a result:
    prints TTFA, windows/s against real time (1 per stream), the decode
    and detokenize replay times and the detokenize graphs' capture seconds
    and pool growth.
+   Run Q serves ``--model glm`` (GLM-4-Voice-9B: the 40 x 4096 GLM-4
+   backbone with ChatGLM's interleaved partial rope, 32 heads over 2 KV
+   heads at head dim 128, q/k/v biases, vocab 168,960; detokenize graphs
+   holding the GLM flow (a block conformer, the regulator, 10 CFG Euler
+   steps of a U-Net on a doubled batch) and 22.05 kHz HiFT with its cache
+   in the slot, over 25-token windows with no overlap and the 50- and
+   100-token catch-up windows; random weights from the seed) with A's
+   flags and ``--max-tokens 1600``: two streams upload a 3 s WAV and no
+   text (speech to speech: the Whisper-VQ encoder on the card in
+   preprocess, 38 speech tokens inlined as ``<|audio_k|>`` strings), two
+   send text. K1 and K3 only, 40 launches per decode step and prefill;
+   each prompt exactly as long as its template (this process encodes the
+   same WAV with the same Whisper-VQ weights); each stream's PCM is what
+   the trim rule gives over the windows its daemon reports (44,032
+   samples per full 25-token window, 22,050 Hz), at least two full
+   windows for every stream that ran to its cap (a stream that sampled a
+   stop id earlier is printed); it prints TTFA (random weights: ~240
+   decode steps a window), windows/s against real time, the decode and
+   detokenize replay times, the detokenize graphs' capture and the
+   daemon's memory after the model's init.
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -165,13 +186,23 @@ exits non-zero without printing a result:
    through the model's constructor, and run P serves O's configuration
    from it: two voice clones (the 3 s reference WAV uploaded as ``audio``
    and a ``ref_text``), a clone without ``ref_text`` and a request without
-   audio (``--max-tokens 280``). Each must report every part of its model
-   loaded from the checkpoint (a mapping that fell back to random init
-   fails the run), K1
+   audio (``--max-tokens 280``). Last, GLM-4-Voice-9B: zai-org/glm-4-voice-9b
+   in the ChatGLM layout (fused q/k/v with random biases, fused gate/up,
+   bf16) at full width but 4 of its 40 layers, loaded through the model's
+   LM loader and then dropped; zai-org/glm-4-voice-decoder (``flow.pt``,
+   ``hift.pt`` under ``generator.``) and zai-org/glm-4-voice-tokenizer
+   (the Whisper-VQ safetensors), each loaded bit-equal through the
+   model's loaders; run R serves Q's configuration with those two in the
+   cache, so the backbone is random (its repo is absent, as the JAX
+   package then serves it) and the stats file must report ``flow``,
+   ``hift`` and ``vq_encoder`` loaded. Each of L-P must report every part
+   of its model loaded from the checkpoint (a mapping that fell back to
+   random init fails the run), K1
    and K3 launched in graphs as in A, each stream's PCM by the trim rule,
    and each prompt exactly as long as its variant's rows (L's ICL prompts
    hold the reference's 38 frames, M's have no speaker row, N's the
-   context, P's clones the reference's 75 S3 v2 tokens).
+   context, P's clones the reference's 75 S3 v2 tokens, R's uploads their
+   38 Whisper-VQ tokens).
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -892,13 +923,18 @@ ORPHEUS_ID = "canopylabs/orpheus-3b-0.1-ft"
 SNAC_ID = "hubertsiuzdak/snac_24khz"
 SC_ID = "sony/silentcipher"
 COSY_ID = "FunAudioLLM/CosyVoice2-0.5B"
+GLM_ID = "zai-org/glm-4-voice-9b"
+GLM_DECODER = "zai-org/glm-4-voice-decoder"
+GLM_TOKENIZER = "zai-org/glm-4-voice-tokenizer"
 #: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
 #: N and P by published id, from the checkpoint phase's hub cache
 MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
-            "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID}
+            "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
+            "Q": "glm", "R": GLM_ID}
 #: the family of a served id (its layers, audio unit and form fields)
 FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
-          "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2"}
+          "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2", "glm": "glm",
+          GLM_ID: "glm"}
 
 
 def family(config: str) -> str:
@@ -928,10 +964,18 @@ MODELS = {
     "csm": {"max_tokens": 100, "unit": "frames", "unit_samples": 1920},
     "cosyvoice2": {"max_tokens": 160, "unit": "windows",
                    "unit_samples": 24000},
+    # GLM-4-Voice: one 25-token window = 172 mel frames = 44,032 samples.
+    # Under random weights about a tenth of the sampled ids are audio ids,
+    # so a window takes ~240 decode steps: 1,600 positions leave the
+    # speech-upload streams (prompts of ~870 tokens) ~730 steps, ~75 audio
+    # tokens (at least 50, two full windows, but for a 0.3% tail), and the
+    # text streams (~315) ~1,290 steps
+    "glm": {"max_tokens": 1600, "unit": "windows", "unit_samples": 44032},
 }
 #: per model: backbone layers (each decode step launches the decode kernel
 #: once per layer, each prefill K3 once per layer)
-LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24}
+LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24,
+          "glm": 40}
 #: per model: the /generate form fields besides the text (CSM's speaker is
 #: an integer id)
 FORM = {"csm": {"speaker": "0"}}
@@ -960,6 +1004,43 @@ def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
         if s + interval >= n_tokens:
             return total
         s += step
+
+#: GLM-4-Voice's windows: 25 tokens, no overlap; a window of L tokens
+#: decodes feat_len(L) mel frames of 256 samples (44,032 per 25 tokens; a
+#: 100-token catch-up window 689 frames, not 4 x 172)
+GLM_INTERVAL = 25
+MIN_GLM_WINDOWS = 2
+
+
+def glm_window_samples(n_tokens: int) -> int:
+    """The samples a GLM detokenize window of ``n_tokens`` tokens decodes:
+    int(L / 12.5 Hz x 22,050 / 256) mel frames of 256 samples."""
+    return int(n_tokens / 12.5 * 22050 / 256) * 256
+
+
+def window_pcm_samples(n_tokens: int, windows, samples_of=glm_window_samples
+                       ) -> int:
+    """The PCM a stream of a codec without overlap (GLM-4-Voice) must emit
+    for ``n_tokens`` audio tokens over the detokenize ``windows`` its
+    daemon reports ((first token, length) pairs, the interval or a
+    catch-up window): the windows must tile the tokens from 0 with no gap
+    or repeat; each emits ``samples_of(length)`` samples, a last window
+    holding fewer tokens than its length int(samples x (tokens - 0.5) /
+    length) (the worker's trim)."""
+    total = pos = 0
+    for start, L in sorted(tuple(w) for w in windows):
+        if start != pos or start >= n_tokens:
+            raise AssertionError(f"windows {windows} do not tile "
+                                 f"{n_tokens} tokens (at token {pos})")
+        last = min(L, n_tokens - start)
+        S = samples_of(L)
+        total += S if last >= L else max(int(S * (last - 0.5) / L), 0)
+        pos = start + L
+    if pos < n_tokens:
+        raise AssertionError(f"windows {windows} do not cover {n_tokens} "
+                             "tokens")
+    return total
+
 
 K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
                "paged_decode_attention_pair")
@@ -1085,9 +1166,33 @@ CONFIGS.update({
                    "tokenizer_loaded": False, "checkpoint": COSY_LOADED},
           {K1, K3}),
 })
+#: what Q and R load: Q nothing (random weights from the seed); R the
+#: decoder and the speech tokenizer from their snapshots, the backbone from
+#: random init (its repo is not in the cache), as the JAX package serves it
+GLM_RANDOM = {"backbone": False, "flow": False, "hift": False,
+              "vq_encoder": False}
+CONFIGS.update({
+    # GLM-4-Voice-9B (MODEL_OF): the 40 x 4096 GLM-4 backbone with the
+    # interleaved partial rope, K1/K3 at G = 16 and D=128; the GLM flow and
+    # 22.05 kHz HiFT inside the detokenize graphs over 25-token windows with
+    # no overlap, the HiFT cache in the slot; two speech uploads (the
+    # Whisper-VQ encoder on the card in preprocess) and two text streams;
+    # A's flags
+    "Q": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False, "checkpoint": GLM_RANDOM},
+          {K1, K3}),
+    # Q's configuration with the decoder and tokenizer snapshots in the hub
+    # cache: flow, HiFT and the Whisper-VQ encoder from them
+    "R": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": {**GLM_RANDOM, "flow": True, "hift": True,
+                                  "vq_encoder": True}}, {K1, K3}),
+})
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJKO"
+RANDOM_RUNS = "ABCDEFGHIJKOQ"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,)}
@@ -1111,7 +1216,11 @@ REQUESTS = {
           {"fields": {"ref_text": REF_TEXTS[1]}, "audio": True},
           {"fields": {}, "audio": True},
           {"fields": {}}],
+    # speech to speech: two uploads without text, then two text streams
+    "Q": [{"fields": {}, "audio": True, "text": ""}] * 2
+    + [{"fields": {}}] * 2,
 }
+REQUESTS["R"] = REQUESTS["Q"]
 #: the reference clip L uploads: 3 s at 24 kHz
 REF_SAMPLES = 72000
 #: the prompt WAVs of the synthetic sesame/csm-1b snapshot: 0.96 s each
@@ -1166,6 +1275,46 @@ def s3_tokens(n_samples: int) -> int:
     return min(n, 150)
 
 
+#: the Whisper-VQ weights a GLM run's daemon serves, where they are not
+#: the random init from ``VQ_SEED`` (R: the tokenizer snapshot's), and the
+#: speech tokens of the uploaded WAV under each run's weights
+GLM_VQ_PARAMS: dict = {}
+_GLM_TOKENS: dict = {}
+#: the speech tokens of the 3 s upload: 300 mel frames at 16 kHz / 8
+GLM_UPLOAD_TOKENS = 38
+
+
+def glm_speech_tokens(config: str):
+    """The speech tokens the daemon of GLM run ``config`` makes of the
+    uploaded WAV: the same Whisper-VQ weights (the random init from
+    ``VQ_SEED``, or the snapshot's) through the same encoder on the card,
+    in this process."""
+    if config not in _GLM_TOKENS:
+        import tempfile
+
+        import torch
+
+        from vox_serve_tpu_torch.encoders.whisper_exact import (
+            GLMVQConfig, init_glm_vq_params)
+        from vox_serve_tpu_torch.models.backbone import seeded_generator
+        from vox_serve_tpu_torch.models.glm_voice import (
+            VQ_SEED, encode_speech_tokens)
+
+        dev = torch.device("cuda")
+        params = GLM_VQ_PARAMS.get(config) or init_glm_vq_params(
+            seeded_generator(dev, VQ_SEED), GLMVQConfig(), dev)
+        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+            f.write(synth_wav(REF_SAMPLES, seed=0))
+            f.flush()
+            toks = encode_speech_tokens(params, GLMVQConfig(), f.name, dev)
+        if len(toks) != GLM_UPLOAD_TOKENS:
+            raise AssertionError(f"[{config}] {len(toks)} speech tokens of "
+                                 f"the 3 s upload, expected "
+                                 f"{GLM_UPLOAD_TOKENS}")
+        _GLM_TOKENS[config] = toks
+    return _GLM_TOKENS[config]
+
+
 def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     """The prompt length request ``i`` of a run must have under the
     char-level dev tokenizer (every snapshot here ships none): Qwen3's role
@@ -1176,7 +1325,14 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     two-speaker context ("[spk]transcript" rows, each prompt WAV's Mimi
     frames and an EOS frame), then "[0]text". CosyVoice2: [sos] + the
     reference transcript + the text + [task_id] + the reference's S3 v2
-    tokens."""
+    tokens. GLM-4-Voice: the chat template in text mode, or in audio mode
+    with the upload's speech tokens as ``<|audio_k|>`` strings."""
+    if family(config) == "glm":
+        from vox_serve_tpu_torch.models.glm_voice import glm_prompt_text
+
+        if REQUESTS[config][i].get("audio"):
+            return len(glm_prompt_text(None, glm_speech_tokens(config)))
+        return len(glm_prompt_text(text))
     if family(config) == "cosyvoice2":
         req = REQUESTS[config][i]
         return (2 + len(req["fields"].get("ref_text", "")) + len(text)
@@ -1199,7 +1355,7 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
 
 
 #: the runs whose prompts are held to ``expected_prompt_tokens``
-PROMPT_LENGTHS = ("L", "M", "N", "P")
+PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R")
 
 
 def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
@@ -1219,7 +1375,10 @@ def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
         + (f" (ICL: {mimi_frames(REF_SAMPLES)} reference frames each)"
            if config == "L" else "")
         + (f" (clones: {s3_tokens(REF_SAMPLES)} S3 v2 tokens each)"
-           if config == "P" else ""))
+           if config == "P" else "")
+        + (f" (speech uploads: {GLM_UPLOAD_TOKENS} Whisper-VQ tokens each, "
+           f"{[int(t) for t in _GLM_TOKENS[config][:8]]}...)"
+           if config in _GLM_TOKENS else ""))
 
 
 def free_port() -> int:
@@ -1376,10 +1535,13 @@ def serve_wave(config: str, port: int, prompts: list[str],
 
     spec = MODELS[family(config)]
     unit, per = spec["unit"], spec["unit_samples"]
-    max_samples = (overlap_pcm_samples(max_tokens(config),
-                                       *OVERLAP_WINDOWS[family(config)])
-                   if family(config) in OVERLAP_WINDOWS
-                   else max_tokens(config) * per)
+    if family(config) in OVERLAP_WINDOWS:
+        max_samples = overlap_pcm_samples(max_tokens(config),
+                                          *OVERLAP_WINDOWS[family(config)])
+    elif family(config) == "glm":  # a 100-token window: 689 frames
+        max_samples = -(-max_tokens(config) // 100) * glm_window_samples(100)
+    else:
+        max_samples = max_tokens(config) * per
 
     results = [{} for _ in prompts]
     reqs = REQUESTS.get(config) or [
@@ -1388,7 +1550,7 @@ def serve_wave(config: str, port: int, prompts: list[str],
     threads = [threading.Thread(
         target=stream_text_input if i < text_streams else stream_generate,
         args=(port, p, r) if i < text_streams else (
-            port, p, r, reqs[i].get("fields"),
+            port, reqs[i].get("text", p), r, reqs[i].get("fields"),
             ref if reqs[i].get("audio") else None))
         for i, (p, r) in enumerate(zip(prompts, results))]
     t0 = time.perf_counter()
@@ -1523,6 +1685,8 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     check_run(config, card, stats, out)
     if fam in OVERLAP_WINDOWS:
         check_overlap_windows(config, stats, out)
+    elif fam == "glm":
+        check_glm_windows(config, stats, out)
     else:
         check_frame_streams(config, stats, out, fam == "csm")
     if config in PROMPT_LENGTHS:
@@ -1644,6 +1808,70 @@ def check_overlap_windows(config: str, stats: dict, out: dict) -> None:
             f"detokenize length " + str({
                 k: c["replays"] for k, c in steps["captured"].items()
                 if k.startswith("detok ")}))
+
+
+def check_glm_windows(config: str, stats: dict, out: dict) -> None:
+    """Each GLM-4-Voice stream emits exactly the PCM the trim rule gives
+    over the windows its daemon reports (``window_pcm_samples``: they
+    must tile the stream's audio tokens), and every stream that ran to its
+    length cap reached two full windows (50 audio tokens), so the HiFT
+    cache carried across windows; a stream that sampled a stop id earlier
+    is printed. Prints TTFA (under random weights: ~240 decode steps per
+    window), windows/s against real time, the decode and detokenize replay
+    times, the detokenize graphs' capture and the init memory."""
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    window = glm_window_samples(GLM_INTERVAL)
+    for i, st in enumerate(out["streams"]):
+        req = done.get(st["rid8"])
+        if req is None:
+            raise AssertionError(f"[{config}] stream {i} ({st['rid8']}) not "
+                                 f"among the daemon's requests {list(done)}")
+        n, wins = req["audio_tokens"], req["detok_windows"]
+        want = window_pcm_samples(n, wins)
+        if st["samples"] != want:
+            raise AssertionError(
+                f"[{config}] stream {i}: {st['samples']} samples for {n} "
+                f"audio tokens over windows {wins}, the trim rule gives "
+                f"{want}")
+        short = n < MIN_GLM_WINDOWS * GLM_INTERVAL
+        if short and req["finish_reason"] != "stop":
+            raise AssertionError(f"[{config}] stream {i}: {n} audio tokens "
+                                 f"({req['finish_reason']}), fewer than "
+                                 f"{MIN_GLM_WINDOWS} full windows")
+        early = ", sampled a stop id early" if short else ""
+        log(f"[{config}] stream {i} ({st['rid8']}): {n} audio tokens after "
+            f"a {req['prompt_tokens']}-token prompt ({req['finish_reason']}"
+            f"{early}) -> windows (start, length) {wins} -> {st['samples']} "
+            "samples "
+            f"= {st['samples'] / window:.2f} windows at 22,050 Hz (rule: "
+            f"{want}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
+            f"{st['samples'] / window / st['wall_s']:.3f} windows/s")
+    if all(done[st["rid8"]]["audio_tokens"] < MIN_GLM_WINDOWS * GLM_INTERVAL
+           for st in out["streams"]):
+        raise AssertionError(f"[{config}] no stream reached "
+                             f"{MIN_GLM_WINDOWS} windows")
+    steps = stats["steps"]
+    probe = steps["probe_ms"]
+    dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
+    det = {k: v for k, v in probe.items() if k.startswith("detok ")}
+    ph = stats["phase_stats"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    pp_t, pp_n = ph.get("preprocess", (0.0, 0))
+    cap, mib = steps["capture_s_by_kind"], steps["pool_mib_by_kind"]
+    realtime = 22050 / window
+    log(f"[{config}] GLM-4-Voice-9B (random LM weights: TTFA counts ~240 "
+        f"decode steps a window): TTFA median "
+        f"{out['ttfa_median_s'] * 1e3:.1f} ms; {out['frames_per_s']:.3f} "
+        f"windows/s aggregate over 4 streams (real time: {realtime:.3f} per "
+        f"stream); decode replay ms (probe) {dec}; detokenize replay ms "
+        f"(probe) {det}; detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} "
+        f"ms per call; preprocess wall (Whisper-VQ on the card for uploads) "
+        f"{pp_t / max(pp_n, 1) * 1e3:.1f} ms x {pp_n}; detokenize graphs "
+        f"(flow + HiFT): "
+        f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
+        f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
+        f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
+        " GB")
 
 
 def check_run(config: str, card: str, stats: dict, out: dict) -> None:
@@ -1986,6 +2214,95 @@ def cosy_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
     return load_r, end_to_end(card, "P", hub=str(cache))
 
 
+def glm_decoder_files(flow, hift) -> dict:
+    """Every tensor of the zai-org/glm-4-voice-decoder snapshot by
+    ``file:name``."""
+    import synthetic_checkpoints as synth
+
+    files = {"flow.pt": synth.export_glm_flow(flow),
+             "hift.pt": synth.export_hift(hift)}
+    return {f"{f}:{k}": v for f, sd in files.items() for k, v in sd.items()}
+
+
+def glm_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
+    """Write GLM-4-Voice's three repos at the published widths and names:
+    zai-org/glm-4-voice-9b in the ChatGLM layout (fused q/k/v with random
+    biases and fused gate/up, bf16) at 4 of its 40 layers, then
+    zai-org/glm-4-voice-decoder (``flow.pt``, ``hift.pt`` under
+    ``generator.``) and zai-org/glm-4-voice-tokenizer (the Whisper-VQ
+    encoder's safetensors); load each on the card through the model's
+    loaders, every tensor bit-equal to the one written; drop the LM
+    snapshot and serve run R from the other two."""
+    import torch
+
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.codecs.glm_flow import init_glm_flow
+    from vox_serve_tpu_torch.codecs.hifigan import init_hift
+    from vox_serve_tpu_torch.encoders.whisper_exact import init_glm_vq_params
+    from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
+                                                     seeded_generator)
+    from vox_serve_tpu_torch.models.glm_voice import GLMVoiceLM
+    from vox_serve_tpu_torch.weights import save_safetensors
+
+    loads = {}
+    cfg4 = BackboneConfig(
+        vocab_size=168960, hidden_size=4096, num_layers=4, num_heads=32,
+        num_kv_heads=2, head_dim=128, intermediate_size=13696,
+        qkv_bias=True, rope_dim=64, rope_interleaved=True,
+        rms_eps=1.5625e-07)
+    src = GLMVoiceLM(GLM_ID, device=dev, seed=61, debug_backbone=cfg4)
+    g = seeded_generator(dev, 62)
+    for n in ("q", "k", "v"):
+        src.params["backbone"]["layers"]["attn"][n]["b"].normal_(generator=g)
+    state = synth.export_glm(src.params)
+    snap = synth.snapshot_dir(cache, GLM_ID)
+    t0 = time.perf_counter()
+    synth.write_shards(snap, state, 2)
+    loads[GLM_ID + " (4 of 40 layers)"] = timed_load(
+        GLM_ID, _files(snap), src._load_lm, state, synth.export_glm,
+        time.perf_counter() - t0)
+    _drop_snapshot(cache, GLM_ID)
+    del state
+
+    flow = init_glm_flow(src.flow_config, g, dev)
+    hift = init_hift(src.hift_config, g, dev)
+    dsnap = synth.snapshot_dir(cache, GLM_DECODER)
+    t0 = time.perf_counter()
+    synth.write_glm_decoder(dsnap, flow, hift)
+    ws = time.perf_counter() - t0
+
+    def load_decoder():
+        f, h = src._load_decoder()
+        return None if f is None or h is None else (f, h)
+
+    loads[GLM_DECODER] = timed_load(
+        GLM_DECODER, _files(dsnap), load_decoder,
+        glm_decoder_files(flow, hift), lambda fh: glm_decoder_files(*fh), ws)
+
+    vq = init_glm_vq_params(seeded_generator(dev, 63), src.vq_config, dev)
+    vstate = synth.export_glm_vq(vq)
+    tsnap = synth.snapshot_dir(cache, GLM_TOKENIZER)
+    t0 = time.perf_counter()
+    save_safetensors(vstate, tsnap / "model.safetensors")
+    ws = time.perf_counter() - t0
+
+    def load_vq():
+        p = src._load_vq()
+        return p if src.checkpoint_parts["vq_encoder"] else None
+
+    loads[GLM_TOKENIZER] = timed_load(GLM_TOKENIZER, _files(tsnap), load_vq,
+                                      vstate, synth.export_glm_vq, ws)
+    GLM_VQ_PARAMS["R"] = vq
+    del src, flow, hift, vstate
+    _free()
+    try:
+        run = end_to_end(card, "R", hub=str(cache))
+    finally:
+        GLM_VQ_PARAMS.pop("R", None)
+        _free()
+    return loads, run
+
+
 def checkpoint_phase(card: str) -> tuple[dict, dict]:
     """Write synthetic checkpoints at the published widths and names
     (random weights from seeds, through ``synthetic_checkpoints.py``'s
@@ -2154,6 +2471,13 @@ def checkpoint_phase(card: str) -> tuple[dict, dict]:
         # -- CosyVoice2-0.5B: the LM, flow.pt, hift.pt, S3 v2, CAMPPlus ----
         loads[COSY_ID], runs["P"] = cosy_checkpoint(card, cache, dev)
         _drop_snapshot(cache, COSY_ID)
+
+        # -- GLM-4-Voice-9B: the LM (4 of 40 layers), the decoder, the
+        # Whisper-VQ tokenizer; run R from the last two -------------------
+        glm_loads, runs["R"] = glm_checkpoint(card, cache, dev)
+        loads.update(glm_loads)
+        _drop_snapshot(cache, GLM_DECODER)
+        _drop_snapshot(cache, GLM_TOKENIZER)
     finally:
         if saved_env is None:
             os.environ.pop("HF_HUB_CACHE", None)
@@ -2210,6 +2534,10 @@ def main(argv=None) -> int:
     # 4 + 3 heads per KV head) at head dim 64
     check_decode(kernels, "K1", H=14, KH=2, batches=(4, 64), D=64)
     check_k3(kernels, H=14, KH=2, shapes=((168, 4), (1024, 5)), D=64)
+    # GLM-4-Voice-9B: 32 heads over 2 (G = 16: four decode CTAs of 4 heads
+    # per KV head; 2 or 4 tokens per K3 tile) at head dim 128
+    check_decode(kernels, "K1", H=32, KH=2, batches=(4, 64))
+    check_k3(kernels, H=32, KH=2, shapes=((168, 4), (1024, 5)))
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -2231,7 +2559,7 @@ def main(argv=None) -> int:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
-    marks.append(("checkpoints, L, M, N, P", time.perf_counter()))
+    marks.append(("checkpoints, L, M, N, P, R", time.perf_counter()))
     runs.update(ckpt_runs)
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Split one GLM-4-Voice-9B decode step of the PyTorch port into its parts
+on the card: the embedding gather, the 40-layer backbone (K1 over a bf16
+pool), the 168,960-wide head and the top-p sampler, each captured in a CUDA
+graph and timed by its replays, beside the whole step (``lm_step``) and
+each part's bound (the bytes it must move over 3.35 TB/s).
+
+    PYTHONPATH=. python3 scripts/torch_glm_decode_split.py [--batch 4]
+        [--context 1000]
+
+Random weights at the published widths (seed 0); every row attends to
+``--context`` tokens of a random KV pool. Needs one card (~1 min with the
+kernels' build).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+import torch
+
+import chip_smoke as c
+from vox_serve_tpu_torch.models.glm_voice import GLMVoiceLM
+from vox_serve_tpu_torch.ops import kernels
+from vox_serve_tpu_torch.ops.attention import AttnMetadata
+from vox_serve_tpu_torch.sampling import sample_and_update
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--context", type=int, default=1000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    kernels.build()
+    dev = torch.device("cuda")
+    m = GLMVoiceLM(device=dev, seed=0)
+    cfg = m.backbone_config
+    B, n, page = args.batch, args.context, 16
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    maxp = -(-n // page)
+    pool = torch.randn((L, B * maxp + 1, page, 2 * KH, D), device=dev,
+                       dtype=torch.bfloat16)
+    tables = (torch.arange(B * maxp, device=dev, dtype=torch.int32)
+              .reshape(B, maxp) + 1)
+    seq = torch.full((B,), n, dtype=torch.int32, device=dev)
+    meta = AttnMetadata(
+        False, tables[:, (n - 1) // page].contiguous(),
+        torch.full((B,), (n - 1) % page, dtype=torch.int32, device=dev),
+        block_tables=tables, seq_lens=seq,
+        decode_scratch=kernels.DecodeScratch(dev, B, cfg.num_heads, KH, D,
+                                             maxp))
+    ids = torch.randint(0, cfg.vocab_size, (B, 1), device=dev,
+                        dtype=torch.int32)
+    pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    gen = None  # the default CUDA generator: graph capture tracks it
+    x = m.embed(m.params, ids, None, None)
+    h = torch.randn((B, cfg.hidden_size), device=dev, dtype=torch.bfloat16)
+    logits = m.logits(m.params, h)
+    from vox_serve_tpu_torch.models.backbone import backbone_forward
+
+    parts = {
+        "embed": (lambda: m.embed(m.params, ids, None, None),
+                  B * cfg.hidden_size * 2),
+        "backbone (40 layers, K1)": (
+            lambda: backbone_forward(m.params["backbone"], cfg, x, pos, meta,
+                                     pool),
+            sum(t.numel() * t.element_size() for t in
+                _leaves(m.params["backbone"]))
+            + 2 * B * n * L * KH * D * 2),
+        "head": (lambda: m.logits(m.params, h),
+                 m.params["head"].numel() * 2 + B * cfg.vocab_size * 2),
+        "sample (top-p 0.8, T 0.8)": (
+            lambda: sample_and_update(logits, m.sampling_config, gen, None),
+            B * cfg.vocab_size * 2 + B * 4),
+        "lm_step (all of it)": (
+            lambda: m.lm_step(m.params, ids, pos, None, None, meta, pool,
+                              None, gen, None),
+            sum(t.numel() * t.element_size() for t in _leaves(m.params))
+            - m.params["embed"].numel() * 2 + 2 * B * n * L * KH * D * 2),
+    }
+    for name, (fn, nbytes) in parts.items():
+        ms = c.cuda_time_ms(fn, graph=True)
+        bound = nbytes / c.HBM_BYTES_PER_S * 1e3
+        print(f"GLM decode B={B} context={n}: {name}: {ms:.3f} ms, bound "
+              f"{bound:.3f} ms (bytes {nbytes / 1e9:.3f} GB), share "
+              f"{bound / ms:.2f}")
+
+
+def _leaves(tree):
+    from vox_serve_tpu_torch.params import tree_leaves
+
+    return tree_leaves(tree)
+
+
+if __name__ == "__main__":
+    main()

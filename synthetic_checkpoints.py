@@ -806,3 +806,154 @@ def export_campplus(params: dict) -> dict:
     _conv(out, "xvector.dense.linear", xv["dense_lin"])
     bn("xvector.dense.nonlinear.batchnorm", xv["dense_bn"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# GLM-4-Voice: the ChatGLM LM, the decoder repo, the Whisper-VQ tokenizer
+# ---------------------------------------------------------------------------
+
+
+def export_glm(params: dict, prefix: str = "transformer.") -> dict:
+    """Inverse of ``load_glm_backbone`` and ``GLMVoiceLM._load_lm``: the
+    ChatGLM layout (``transformer.encoder.layers.{i}.*`` with the fused
+    ``self_attention.query_key_value`` weight and bias in q, k, v row
+    order and the fused ``mlp.dense_h_to_4h`` in gate, up order;
+    ``final_layernorm``; ``transformer.embedding.word_embeddings`` and
+    ``transformer.output_layer``)."""
+    bb = params["backbone"]
+    L = bb["layers"]["input_norm"].shape[0]
+    a, m = bb["layers"]["attn"], bb["layers"]["mlp"]
+    enc = prefix + "encoder."
+    out: dict = {}
+    for i in range(L):
+        pre = f"{enc}layers.{i}."
+        out[pre + "self_attention.query_key_value.weight"] = torch.cat(
+            [_t(a[n]["w"][i]) for n in ("q", "k", "v")])
+        out[pre + "self_attention.query_key_value.bias"] = torch.cat(
+            [a[n]["b"][i] for n in ("q", "k", "v")])
+        out[pre + "self_attention.dense.weight"] = _t(a["o"]["w"][i])
+        out[pre + "mlp.dense_h_to_4h.weight"] = torch.cat(
+            [_t(m["gate"]["w"][i]), _t(m["up"]["w"][i])])
+        out[pre + "mlp.dense_4h_to_h.weight"] = _t(m["down"]["w"][i])
+        out[pre + "input_layernorm.weight"] = bb["layers"]["input_norm"][i]
+        out[pre + "post_attention_layernorm.weight"] = (
+            bb["layers"]["post_norm"][i])
+    out[enc + "final_layernorm.weight"] = bb["final_norm"]
+    out[prefix + "embedding.word_embeddings.weight"] = params["embed"]
+    out[prefix + "output_layer.weight"] = _t(params["head"])
+    return out
+
+
+def export_glm_flow(params: dict) -> dict:
+    """Inverse of ``load_glm_flow_params``: ``flow.pt``'s names
+    (``GLMFlowModel.state_dict()`` of zai-org/glm-4-voice-decoder)."""
+    out: dict = {}
+
+    def ln(name, p):
+        out[name + ".weight"] = p["w"]
+        out[name + ".bias"] = p["b"]
+
+    def gn_block(pre, p):
+        _conv(out, f"{pre}.block.0", p["conv"])
+        out[f"{pre}.block.1.weight"] = p["gn_w"]
+        out[f"{pre}.block.1.bias"] = p["gn_b"]
+
+    def resnet(pre, p):
+        _lin(out, f"{pre}.mlp.1", p["mlp"])
+        gn_block(f"{pre}.block1", p["block1"])
+        gn_block(f"{pre}.block2", p["block2"])
+        _conv(out, f"{pre}.res_conv", p["res_conv"])
+
+    def tblocks(pre, blocks):
+        for j, p in enumerate(blocks):
+            b = f"{pre}.{j}"
+            ln(f"{b}.norm1", p["norm1"])
+            for n in ("to_q", "to_k", "to_v"):
+                _lin(out, f"{b}.attn1.{n}", p["attn1"][n])
+            _lin(out, f"{b}.attn1.to_out.0", p["attn1"]["to_out"])
+            ln(f"{b}.norm3", p["norm3"])
+            _lin(out, f"{b}.ff.net.0.proj", p["ff"]["proj"])
+            _lin(out, f"{b}.ff.net.2", p["ff"]["out"])
+
+    out["input_embedding.weight"] = params["input_embedding"]
+    _lin(out, "spk_embed_affine_layer", params["spk_embed_affine_layer"])
+    enc = params["encoder"]
+    _lin(out, "encoder.embed.out.0", enc["embed_out"])
+    ln("encoder.embed.out.1", enc["embed_norm"])
+    for i, p in enumerate(enc["encoders"]):
+        pre = f"encoder.encoders.{i}"
+        sa = p["self_attn"]
+        for n in ("linear_q", "linear_k", "linear_v", "linear_out",
+                  "linear_pos"):
+            _lin(out, f"{pre}.self_attn.{n}", sa[n])
+        out[f"{pre}.self_attn.pos_bias_u"] = sa["pos_bias_u"]
+        out[f"{pre}.self_attn.pos_bias_v"] = sa["pos_bias_v"]
+        _lin(out, f"{pre}.feed_forward.w_1", p["feed_forward"]["w_1"])
+        _lin(out, f"{pre}.feed_forward.w_2", p["feed_forward"]["w_2"])
+        ln(f"{pre}.norm_mha", p["norm_mha"])
+        ln(f"{pre}.norm_ff", p["norm_ff"])
+    ln("encoder.after_norm", enc["after_norm"])
+    _lin(out, "encoder_proj", params["encoder_proj"])
+    reg = params["length_regulator"]
+    for i, c in enumerate(reg["convs"]):
+        _conv(out, f"length_regulator.model.{3 * i}", c["conv"])
+        out[f"length_regulator.model.{3 * i + 1}.weight"] = c["gn_w"]
+        out[f"length_regulator.model.{3 * i + 1}.bias"] = c["gn_b"]
+    _conv(out, f"length_regulator.model.{3 * len(reg['convs'])}",
+          reg["out"])
+
+    e, est = "decoder.estimator", params["estimator"]
+    _lin(out, f"{e}.time_mlp.linear_1", est["time_mlp"]["linear_1"])
+    _lin(out, f"{e}.time_mlp.linear_2", est["time_mlp"]["linear_2"])
+    n = len(est["down"])
+    for i, d in enumerate(est["down"]):
+        resnet(f"{e}.down_blocks.{i}.0", d["resnet"])
+        tblocks(f"{e}.down_blocks.{i}.1", d["blocks"])
+        _conv(out, f"{e}.down_blocks.{i}.2" + (".conv" if i != n - 1
+                                               else ""), d["downsample"])
+    for i, mb in enumerate(est["mid"]):
+        resnet(f"{e}.mid_blocks.{i}.0", mb["resnet"])
+        tblocks(f"{e}.mid_blocks.{i}.1", mb["blocks"])
+    for i, u in enumerate(est["up"]):
+        resnet(f"{e}.up_blocks.{i}.0", u["resnet"])
+        tblocks(f"{e}.up_blocks.{i}.1", u["blocks"])
+        _conv(out, f"{e}.up_blocks.{i}.2" + ("" if i == n - 1 else ".conv"),
+              u["upsample"])
+    gn_block(f"{e}.final_block", est["final_block"])
+    _conv(out, f"{e}.final_proj", est["final_proj"])
+    return out
+
+
+def export_glm_vq(params: dict) -> dict:
+    """Inverse of ``load_glm_vq_params``: the Whisper-VQ encoder's names
+    in zai-org/glm-4-voice-tokenizer (its linear weights are already
+    ``(out, in)``)."""
+    out = {"conv1.weight": params["conv1_w"], "conv1.bias": params["conv1_b"],
+           "conv2.weight": params["conv2_w"], "conv2.bias": params["conv2_b"],
+           "embed_positions.weight": params["pos"],
+           "codebook.weight": params["codebook"]}
+    for i, lp in enumerate(params["layers"]):
+        pre = f"layers.{i}"
+        for name, key in (("self_attn.q_proj", "q"), ("self_attn.k_proj", "k"),
+                          ("self_attn.v_proj", "v"),
+                          ("self_attn.out_proj", "o"), ("fc1", "fc1"),
+                          ("fc2", "fc2")):
+            _conv(out, f"{pre}.{name}", lp[key])
+        for name, key in (("self_attn_layer_norm", "ln1"),
+                          ("final_layer_norm", "ln2")):
+            out[f"{pre}.{name}.weight"] = lp[key + "_w"]
+            out[f"{pre}.{name}.bias"] = lp[key + "_b"]
+    return out
+
+
+def write_glm_decoder(snapshot: Path, flow: dict, hift: dict) -> dict:
+    """zai-org/glm-4-voice-decoder's layout: ``flow.pt`` and ``hift.pt``
+    (``generator.`` names), written with ``torch.save``; returns bytes per
+    file."""
+    sizes = {}
+    for name, sd in (("flow.pt", export_glm_flow(flow)),
+                     ("hift.pt", export_hift(hift))):
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   Path(snapshot) / name)
+        sizes[name] = os.path.getsize(Path(snapshot) / name)
+    return sizes

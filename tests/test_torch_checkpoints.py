@@ -482,3 +482,87 @@ def test_cosyvoice2_snapshot_matches_jax(tmp_path, monkeypatch):
                                             jm.codec_params["hift"]))
             == jax.tree.structure(tparams.tree_map(
                 lambda t: 0, tm.codec_params["hift"])))
+
+
+# -- GLM-4-Voice ---------------------------------------------------------------
+
+
+def test_glm_snapshots_match_jax(tmp_path, hub, monkeypatch):
+    """The three GLM-4-Voice repos at the small widths of
+    ``test_torch_glm_voice.py``, written by ``synthetic_checkpoints.py``
+    into a hub cache both packages resolve through: the ChatGLM LM
+    (``export_glm``: fused q/k/v and gate/up, two shards),
+    zai-org/glm-4-voice-decoder (``flow.pt``, ``hift.pt`` under
+    ``generator.``) and zai-org/glm-4-voice-tokenizer (the Whisper-VQ
+    safetensors at its debug config). Each part the port's model loads is
+    equal leaf for leaf to JAX's loader's tree and to what was written, and
+    reported loaded; a corrupt ``flow.pt`` is reported not loaded."""
+    import dataclasses
+
+    from test_torch_glm_voice import BB as G_BB
+    from test_torch_glm_voice import FLOW, HIFT, small_model
+    from vox_serve_tpu.codecs.glm_flow import GLMFlowConfig as JFlow
+    from vox_serve_tpu.codecs.hifigan import HiFTConfig as JHiFT
+    from vox_serve_tpu.encoders import whisper_exact as jw
+    from vox_serve_tpu.models import glm_voice as jglm_mod
+    from vox_serve_tpu.weights import load_safetensors_state as jload
+    from vox_serve_tpu_torch.codecs.glm_flow import load_glm_flow_params
+    from vox_serve_tpu_torch.codecs.hifigan import load_hift_params
+    from vox_serve_tpu_torch.models.glm_voice import GLMVoiceLM
+    from vox_serve_tpu_torch.weights import resolve_model_dir, save_safetensors
+
+    src = small_model(seed=11)
+    lm_id = "zai-org/glm-4-voice-9b"
+    state = synth.export_glm(src.params)
+    assert state["transformer.encoder.layers.0.self_attention."
+                 "query_key_value.weight"].shape == (64 + 2 * 32, 64)
+    assert state["transformer.encoder.layers.1.mlp.dense_h_to_4h.weight"
+                 ].shape == (2 * 128, 64)
+    synth.write_shards(synth.snapshot_dir(hub, lm_id), state, 2)
+    synth.write_glm_decoder(synth.snapshot_dir(hub, GLMVoiceLM.DECODER_REPO),
+                            src.codec_params["flow"], src.codec_params["hift"])
+    tok = synth.snapshot_dir(hub, GLMVoiceLM.ENCODER_REPO)
+    save_safetensors(synth.export_glm_vq(src.vq_params),
+                     tok / "model.safetensors")
+
+    _dev_tokenizers(monkeypatch, jglm_mod)
+    jm = jglm_mod.GLMVoiceLM(lm_id, dtype=jnp.float32,
+                             debug_backbone=JBB(**G_BB, dtype=jnp.float32),
+                             debug_flow=JFlow(**FLOW),
+                             debug_hift=JHiFT(**HIFT))
+    tm = small_model(seed=12)
+    tm.model_name = lm_id
+
+    # the LM: fused q/k/v and gate/up split as JAX splits them
+    lm = tm._load_lm()
+    assert_trees_equal(lm, _np(jm._load_checkpoint()))
+    assert_trees_equal(lm, _torch_np(src.params))
+
+    # the decoder repo: flow.pt and hift.pt through torch.load
+    dec = resolve_model_dir(GLMVoiceLM.DECODER_REPO)
+    flow = tm._load_part("flow", dec, "flow.pt", lambda sd: (
+        load_glm_flow_params(sd, tm.flow_config)))
+    hift = tm._load_part("hift", dec, "hift.pt", lambda sd: load_hift_params(
+        {k.replace("generator.", ""): v for k, v in sd.items()},
+        tm.hift_config))
+    assert tm.checkpoint_parts["flow"] and tm.checkpoint_parts["hift"]
+    for name, got in (("flow", flow), ("hift", hift)):
+        sd = {k: v.numpy() for k, v in torch.load(
+            dec / f"{name}.pt", weights_only=True).items()}
+        ref = jm._load_flow(sd) if name == "flow" else jm._load_hift(sd)
+        assert_trees_equal(got, _np(ref))
+        assert_trees_equal(got, _torch_np(src.codec_params[name]))
+
+    # the tokenizer repo (its gate is a backbone of width 1024 or more)
+    monkeypatch.setattr(tm, "_cfg",
+                        dataclasses.replace(tm._cfg, hidden_size=1024))
+    vq = tm._load_vq()
+    assert tm.checkpoint_parts["vq_encoder"]
+    jcfg = jw.GLMVQConfig(**dataclasses.asdict(tm.vq_config))
+    assert_trees_equal(vq, _np(jw.load_glm_vq_params(jload(tok), jcfg)))
+    assert_trees_equal(vq, _torch_np(src.vq_params))
+
+    (dec / "flow.pt").write_bytes(b"corrupt")
+    assert tm._load_part("flow", dec, "flow.pt", lambda sd: (
+        load_glm_flow_params(sd, tm.flow_config))) is None
+    assert tm.checkpoint_parts["flow"] is False

@@ -56,6 +56,9 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.encoders.mel",
     "vox_serve_tpu_torch.encoders.speaker",
     "vox_serve_tpu_torch.onnx_reader",
+    "vox_serve_tpu_torch.models.glm_voice",
+    "vox_serve_tpu_torch.models.sts_common",
+    "vox_serve_tpu_torch.codecs.glm_flow",
 ]
 
 

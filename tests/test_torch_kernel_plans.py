@@ -117,6 +117,22 @@ def test_kernels_take_the_orpheus_head_group():
         kernels._check_heads(66, 1, 128, kernels.MAX_GROUP)
 
 
+def test_kernels_take_the_glm_head_group():
+    """GLM-4-Voice-9B: 32 query heads over 2 KV heads (G = 16) at head dim
+    128. K3's tile holds 2 tokens of 16 heads at two warps (T = 168) and 4
+    at four (T = 1024); the decode kernel runs 4 CTAs of 4 heads per KV
+    head, split over the tokens where the grid does not fill the card."""
+    assert kernels.plan_prefill_tiles(168, 32, 2, N_SM) == (2, 2, 84)
+    assert kernels.plan_prefill_tiles(1024, 32, 2, N_SM) == (4, 4, 256)
+    kernels._check_heads(32, 2, 128, kernels.MAX_GROUP)
+    assert kernels.decode_heads_per_cta(32, 2) == 4
+    assert kernels.decode_head_groups(32, 2) == 4
+    # B = 4 over ~1,000-token streams (prompt ~850 + generation): 32 CTAs
+    # split 5 ways (160 CTAs); B = 64 fills the card unsplit
+    assert kernels.plan_decode_splits(4, 2, 63, N_SM, 16, 4) == 5
+    assert kernels.plan_decode_splits(64, 2, 63, N_SM, 16, 4) == 1
+
+
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16])
 def test_decode_head_groups_cover_every_head_once(G):
     """The kernel's head index arithmetic (hgroups = ceil(G / kG), heads
@@ -203,10 +219,12 @@ def _merge(states):
     (2, 70, 32, 3, 16),        # pages hold two tiles
     (4, 120, 16, None, 24),    # Orpheus's G = 3 at the served batch
     (1, 500, 16, None, 24),
+    (4, 700, 16, None, 32),    # GLM-4-Voice's G = 16 (KH = 2 below)
 ])
 def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits, H):
     rng = np.random.default_rng(B * 1000 + seq_max)
-    KH, D, L, P = 8, 64, 2, 200
+    KH = 2 if H == 32 else 8
+    D, L, P = 64, 2, 200
     maxp = -(-seq_max // page)
     pool = torch.from_numpy(rng.standard_normal(
         (L, P, page, 2 * KH, D)).astype(np.float32))
@@ -216,7 +234,8 @@ def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits, H):
     tables = torch.from_numpy(rng.permutation(P - 1)[: B * maxp].reshape(
         B, maxp).astype(np.int32) + 1)
     if splits is None:
-        splits = kernels.plan_decode_splits(B, KH, maxp, N_SM, page)
+        splits = kernels.plan_decode_splits(
+            B, KH, maxp, N_SM, page, kernels.decode_head_groups(H, KH))
         assert splits > 1
     got = _emulated_decode(q, pool, 1, tables, seq, splits)
     ref = kernels.paged_decode_attention_plain(q, pool, 1, tables, seq)

@@ -1,9 +1,11 @@
 """HiFT (NSF-HiFiGAN + ISTFTNet) vocoder (port of
-vox_serve_tpu/codecs/hifigan.py): the mel -> waveform stage of CosyVoice2.
+vox_serve_tpu/codecs/hifigan.py): the mel -> waveform stage of CosyVoice2
+and GLM-4-Voice.
 
 A conv F0 predictor -> a harmonic sine source (NSF) -> the upsampling
 HiFiGAN trunk with Snake residual blocks and STFT-domain source injection
--> an inverse-STFT head (magnitude = exp, phase = sin; hann window, n_fft
+(CosyVoice2's three upsample levels at 24 kHz, GLM-4-Voice's two at 22.05
+kHz; the config sets them) -> an inverse-STFT head (magnitude = exp, phase = sin; hann window, n_fft
 16, hop 4). The source is deterministic (no additive noise, zero initial
 phase), as the JAX package serves it. Streaming keeps the source
 continuous through a cache of the excitation already generated, and
@@ -51,7 +53,9 @@ class HiFTConfig:
 
     @property
     def total_upsample(self) -> int:
-        return int(math.prod(self.upsample_rates)) * self.hop_len  # 480
+        """Samples per mel frame: 480 at CosyVoice2's (8, 5, 3) x hop 4,
+        256 at GLM-4-Voice's (8, 8)."""
+        return int(math.prod(self.upsample_rates)) * self.hop_len
 
     @property
     def source_down(self) -> list[int]:
@@ -182,8 +186,8 @@ def _istft(cfg: HiFTConfig, mag: torch.Tensor, phase: torch.Tensor
 def hift_decode(params: dict, cfg: HiFTConfig, mel: torch.Tensor,
                 source_cache: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """mel (B, in_channels, T) -> (waveform (B, T * 480), source (B, 1, T *
-    480)). ``source_cache`` (B, 1, S_prev): the excitation of the previous
+    """mel (B, in_channels, T) -> (waveform (B, T * total_upsample), source
+    (B, 1, T * total_upsample)). ``source_cache`` (B, 1, S_prev): the excitation of the previous
     chunks, which overwrites the head of this chunk's source (phase
     continuity)."""
     dtype = params["conv_pre"]["w"].dtype
@@ -329,8 +333,8 @@ def _hamming(n: int, device) -> torch.Tensor:
 
 def hift_decode_chunk(params: dict, cfg: HiFTConfig, mel: torch.Tensor,
                       cache: dict) -> tuple[torch.Tensor, dict]:
-    """One streaming chunk: mel (B, C, T) new frames -> (wav (B, T * 480),
-    new cache). Prepends the cached context mel, overwrites the
+    """One streaming chunk: mel (B, C, T) new frames -> (wav (B, T *
+    total_upsample), new cache). Prepends the cached context mel, overwrites the
     regenerated source head with the cached excitation, Hamming-crossfades
     the head into the previous chunk's held-back tail (muted in a slot's
     first chunk, whose head decodes the all-zero context), and holds back

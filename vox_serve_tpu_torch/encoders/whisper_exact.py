@@ -1,12 +1,34 @@
-"""The Whisper log-mel front end (a copy of the two numpy functions of
-vox_serve_tpu/encoders/whisper_exact.py that the port uses: the S3 v2
-tokenizer's input features). The port keeps its own copy so that it
-imports nothing of the JAX package.
+"""The Whisper log-mel front end and GLM-4-Voice's Whisper-VQ speech
+tokenizer (port of vox_serve_tpu/encoders/whisper_exact.py: the S3 v2
+tokenizer's and the Whisper-VQ encoder's input features, and the encoder).
+
+GLM Whisper-VQ (the published ``zai-org/glm-4-voice-tokenizer``): 128-mel
+Whisper features -> two causal convs (left-padded, the second with stride
+2) with exact GELU -> learned positions -> 16 pre-LN transformer layers
+(width 1280, 20 heads, FFN 5120, no bias on the key projection) under a
+block-causal mask (all of the past plus the whole current 200-frame block,
+padded keys masked) -> a x4 average pool -> the nearest of 16,384 codebook
+rows: discrete speech tokens at 12.5 Hz. Linear weights keep torch's
+``(out, in)`` layout, as the JAX package keeps them. It runs eagerly on the
+model's device at preprocess time, in float32 with TF32 off (matmuls and
+cuDNN convolutions), so that the argmin over the codebook sees full
+float32 distances.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.norms import layer_norm
+from ..weights import to_device
+
+NEG = float(np.finfo(np.float32).min)
 
 
 def slaney_mel_filters(n_mels: int, sr: int = 16000,
@@ -68,3 +90,197 @@ def whisper_log_mel(audio: np.ndarray, n_mels: int = 128,
     log_spec = np.log10(np.clip(mel, 1e-10, None))
     log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
     return ((log_spec + 4.0) / 4.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# shared transformer pieces
+# ---------------------------------------------------------------------------
+def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].T
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _attn(lp: dict, x: torch.Tensor, mask, heads: int) -> torch.Tensor:
+    """Pre-LN Whisper attention. mask: (T, T) additive, or None."""
+    B, T, D = x.shape
+    hd = D // heads
+    q, k, v = (_linear(lp[n], x).reshape(B, T, heads, hd).transpose(1, 2)
+               for n in ("q", "k", "v"))
+    s = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+    if mask is not None:
+        s = s + mask[None, None]
+    a = torch.softmax(s, dim=-1) @ v
+    return _linear(lp["o"], a.transpose(1, 2).reshape(B, T, D))
+
+
+def _layer(lp: dict, x: torch.Tensor, mask, heads: int) -> torch.Tensor:
+    h = layer_norm(x, lp["ln1_w"], lp["ln1_b"])
+    x = x + _attn(lp, h, mask, heads)
+    h = layer_norm(x, lp["ln2_w"], lp["ln2_b"])
+    return x + _linear(lp["fc2"], F.gelu(_linear(lp["fc1"], h)))
+
+
+def _causal_conv1d(w, b, x, stride: int) -> torch.Tensor:
+    """CausalConv1d: left pad of k - 1."""
+    return F.conv1d(F.pad(x, (w.shape[-1] - 1, 0)), w, b, stride=stride)
+
+
+def _conv1d(w, b, x, stride: int, padding: int) -> torch.Tensor:
+    return F.conv1d(x, w, b, stride=stride, padding=padding)
+
+
+def _map_layer(sd: dict, pre: str, names, device) -> dict:
+    """One Whisper layer of a torch state dict under ``pre`` (q, k, v, o,
+    ln1, fc1, fc2, ln2 as the published names), float32 on ``device``."""
+    q, k, v, o, ln1, fc1, fc2, ln2 = names
+
+    def arr(n):
+        a = sd[n]
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+        return to_device(t, device, torch.float32)
+
+    def t(n):
+        p = {"w": arr(f"{pre}.{n}.weight")}
+        if f"{pre}.{n}.bias" in sd:
+            p["b"] = arr(f"{pre}.{n}.bias")
+        return p
+
+    return {"q": t(q), "k": t(k), "v": t(v), "o": t(o),
+            "ln1_w": arr(f"{pre}.{ln1}.weight"),
+            "ln1_b": arr(f"{pre}.{ln1}.bias"),
+            "fc1": t(fc1), "fc2": t(fc2),
+            "ln2_w": arr(f"{pre}.{ln2}.weight"),
+            "ln2_b": arr(f"{pre}.{ln2}.bias")}
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Matmuls and cuDNN convolutions in full float32 (TF32 off) inside the
+    block; the previous settings come back after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+# ---------------------------------------------------------------------------
+# GLM Whisper-VQ
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GLMVQConfig:
+    n_mels: int = 128
+    d_model: int = 1280
+    heads: int = 20
+    ffn: int = 5120
+    layers: int = 16              # quantize_position
+    pool: int = 4                 # pooling_kernel_size at pooling_position
+    block: int = 200              # quantize_causal_block_size
+    vocab: int = 16384
+    max_positions: int = 1500
+
+
+def load_glm_vq_params(sd: dict, cfg: GLMVQConfig, *, device="cpu") -> dict:
+    """Map the published tokenizer's state dict (``WhisperVQEncoder``
+    names; torch tensors or numpy arrays) onto ``init_glm_vq_params``'
+    tree, float32 on ``device``."""
+    def arr(n):
+        a = sd[n]
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+        return to_device(t, device, torch.float32)
+
+    return {
+        "conv1_w": arr("conv1.weight"), "conv1_b": arr("conv1.bias"),
+        "conv2_w": arr("conv2.weight"), "conv2_b": arr("conv2.bias"),
+        "pos": arr("embed_positions.weight"),
+        "codebook": arr("codebook.weight"),
+        "layers": [_map_layer(
+            sd, f"layers.{i}",
+            ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+             "self_attn.out_proj", "self_attn_layer_norm", "fc1", "fc2",
+             "final_layer_norm"), device) for i in range(cfg.layers)],
+    }
+
+
+def init_glm_vq_params(generator: torch.Generator, cfg: GLMVQConfig,
+                       device) -> dict:
+    """Random parameters at ``cfg``'s widths (the JAX init's shapes and
+    scales; the numbers come from ``generator``), float32."""
+    g, dev = generator, device
+
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def lin(cin, cout, bias=True):
+        p = {"w": normal((cout, cin), 1.0 / math.sqrt(cin))}
+        if bias:
+            p["b"] = torch.zeros((cout,), device=dev)
+        return p
+
+    D = cfg.d_model
+    ones, zeros = (lambda: torch.ones((D,), device=dev),
+                   lambda: torch.zeros((D,), device=dev))
+    return {
+        "conv1_w": normal((D, cfg.n_mels, 3), 0.05), "conv1_b": zeros(),
+        "conv2_w": normal((D, D, 3), 0.02), "conv2_b": zeros(),
+        "pos": normal((cfg.max_positions, D), 0.02),
+        "codebook": normal((cfg.vocab, D)),
+        "layers": [{
+            "q": lin(D, D), "k": lin(D, D, bias=False), "v": lin(D, D),
+            "o": lin(D, D), "ln1_w": ones(), "ln1_b": zeros(),
+            "fc1": lin(D, cfg.ffn), "fc2": lin(cfg.ffn, D),
+            "ln2_w": ones(), "ln2_b": zeros(),
+        } for _ in range(cfg.layers)],
+    }
+
+
+def glm_vq_block_mask(T: int, block: int, valid_frames: int | None,
+                      device) -> torch.Tensor:
+    """(T, T) additive mask: frame i attends j iff j <= i or j lies in i's
+    ``block``-frame block, and j < ``valid_frames``."""
+    idx = torch.arange(T, device=device)
+    blk = idx // block
+    allowed = (idx[:, None] >= idx[None, :]) | (blk[:, None] == blk[None, :])
+    if valid_frames is not None:
+        allowed = allowed & (idx[None, :] < valid_frames)
+    return torch.where(allowed, 0.0, NEG)
+
+
+def glm_vq_distances(params: dict, cfg: GLMVQConfig, mel: torch.Tensor,
+                     valid_frames: int | None = None) -> torch.Tensor:
+    """mel (B, n_mels, T_mel) -> squared distances (B, T_mel // 8, vocab)
+    of each pooled frame to every codebook row."""
+    with full_float32():
+        x = F.gelu(_causal_conv1d(params["conv1_w"], params["conv1_b"],
+                                  mel.float(), 1))
+        x = F.gelu(_causal_conv1d(params["conv2_w"], params["conv2_b"], x,
+                                  2))
+        x = x.transpose(1, 2)  # (B, T, D)
+        B, T, D = x.shape
+        x = x + params["pos"][:T][None]
+        mask = glm_vq_block_mask(T, cfg.block, valid_frames, x.device)
+        for lp in params["layers"]:
+            x = _layer(lp, x, mask, cfg.heads)
+        # avg-pool x4, the tail zero-padded
+        pad = (-T) % cfg.pool
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        x = x.reshape(B, (T + pad) // cfg.pool, cfg.pool, D).mean(dim=2)
+        cb = params["codebook"]
+        return (torch.sum(x * x, -1, keepdim=True) - 2 * x @ cb.T
+                + torch.sum(cb * cb, -1)[None, None])
+
+
+def glm_vq_encode(params: dict, cfg: GLMVQConfig, mel: torch.Tensor,
+                  valid_frames: int | None = None) -> torch.Tensor:
+    """mel (B, n_mels, T_mel) -> speech tokens (B, T_mel // 8) int32.
+    ``valid_frames``: the encoder frames (after the stride-2 conv) that
+    are not padding."""
+    d = glm_vq_distances(params, cfg, mel, valid_frames)
+    return torch.argmin(d, dim=-1).to(torch.int32)

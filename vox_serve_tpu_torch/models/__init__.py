@@ -1,6 +1,7 @@
 """Model registry of the port (vox_serve_tpu/models/__init__.py, holding the
 families ported so far: ``dummy``, Qwen3-TTS (CustomVoice, Base and
-VoiceDesign at 1.7B and 0.6B), Orpheus-3B, CSM-1B and CosyVoice2-0.5B).
+VoiceDesign at 1.7B and 0.6B), Orpheus-3B, CSM-1B, CosyVoice2-0.5B and
+GLM-4-Voice-9B).
 
 ``load_model`` resolves the class, builds it on the given device, and
 applies CLI sampling overrides onto the model's defaults.
@@ -39,6 +40,9 @@ _register(["orpheus", "canopylabs/orpheus-3b-0.1-ft"],
 _register(["csm", "sesame/csm-1b"], "vox_serve_tpu_torch.models.csm", "CSMLM")
 _register(["cosyvoice2", "cosyvoice2-0.5b", "funaudiollm/cosyvoice2-0.5b"],
           "vox_serve_tpu_torch.models.cosyvoice2", "CosyVoice2LM")
+_register(["glm", "glm-4-voice", "thudm/glm-4-voice-9b",
+           "zai-org/glm-4-voice-9b"],
+          "vox_serve_tpu_torch.models.glm_voice", "GLMVoiceLM")
 
 
 def available_models() -> list[str]:

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from ..ops.attention import (AttnMetadata, paged_attention_decode,
                              ragged_prefill_attention, write_kv_prefill)
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rope, rope_frequencies
+from ..ops.rope import (apply_rope, apply_rope_interleaved,
+                        rope_frequencies)
 from ..params import tree_map
 
 
@@ -36,6 +37,9 @@ class BackboneConfig:
     head_dim: Optional[int] = None  # default hidden_size // num_heads
     rope_theta: float = 10000.0
     rope_dim: Optional[int] = None  # partial rotary if < head_dim
+    #: ChatGLM's convention: rotate interleaved pairs (2i, 2i+1) instead of
+    #: split halves (GLM-4-Voice)
+    rope_interleaved: bool = False
     llama31_rope_scaling: bool = False  # Llama-3.1 frequency scaling
     rms_eps: float = 1e-6
     qkv_bias: bool = False  # Qwen2-style
@@ -72,12 +76,24 @@ def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def _init_linear(generator: torch.Generator, d_in: int, d_out: int,
                  dtype: torch.dtype, device, bias: bool = False,
-                 stack: Optional[int] = None) -> dict:
+                 stack: Optional[int] = None, layerwise: bool = False
+                 ) -> dict:
     """Normal(0, d_in^-1/2) weight (d_in, d_out), zero bias — the JAX
-    init's shapes and scales. ``stack`` adds a leading layer axis."""
+    init's shapes and scales. ``stack`` adds a leading layer axis;
+    ``layerwise`` draws a stacked weight one layer at a time into its
+    ``dtype`` tensor, so the float32 temporary is one layer's, not the
+    stack's."""
     lead = () if stack is None else (stack,)
-    w = _randn(lead + (d_in, d_out), generator, device) * (d_in ** -0.5)
-    p = {"w": w.to(dtype)}
+    if layerwise and stack is not None:
+        w = torch.empty(lead + (d_in, d_out), dtype=dtype, device=device)
+        if w.device.type != "meta":
+            for i in range(stack):
+                w[i].copy_(_randn((d_in, d_out), generator, device)
+                           * (d_in ** -0.5))
+    else:
+        w = (_randn(lead + (d_in, d_out), generator, device)
+             * (d_in ** -0.5)).to(dtype)
+    p = {"w": w}
     if bias:
         p["b"] = torch.zeros(lead + (d_out,), dtype=dtype, device=device)
     return p
@@ -102,14 +118,16 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
-                         device) -> dict:
-    """Random-init stacked params (layer axis leading) on ``device``."""
+                         device, layerwise: bool = False) -> dict:
+    """Random-init stacked params (layer axis leading) on ``device``;
+    ``layerwise``: each weight drawn one layer at a time (``_init_linear``;
+    GLM-4-Voice's 9B stack)."""
     hd = cfg.resolved_head_dim
     L, Hs, dt = cfg.num_layers, cfg.hidden_size, cfg.dtype
 
     def lin(d_in, d_out, bias=False):
         return _init_linear(generator, d_in, d_out, dt, device, bias=bias,
-                            stack=L)
+                            stack=L, layerwise=layerwise)
 
     attn = {
         "q": lin(Hs, cfg.num_heads * hd, cfg.qkv_bias),
@@ -162,6 +180,7 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     inv_freq = rope_frequencies(cfg.rope_dim or hd, cfg.rope_theta,
                                 device=x.device,
                                 llama31_scaling=cfg.llama31_rope_scaling)
+    rope = apply_rope_interleaved if cfg.rope_interleaved else apply_rope
     T = x.shape[0]
     h = x
     for li in range(cfg.num_layers):
@@ -173,7 +192,7 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
         if cfg.qk_norm:
             q = rms_norm(q, lp["attn"]["q_norm"], cfg.rms_eps)
             k = rms_norm(k, lp["attn"]["k_norm"], cfg.rms_eps)
-        q, k = apply_rope(q, k, positions, inv_freq, rope_dim=cfg.rope_dim)
+        q, k = rope(q, k, positions, inv_freq, rope_dim=cfg.rope_dim)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
 
         write_kv_prefill(k_pages, v_pages, li, k, v, meta, kv_scales)

@@ -53,7 +53,8 @@ from ..sampling import SamplingConfig
 from ..utils import get_logger, load_audio_mono
 from ..weights import (load_embedding, load_head, load_llama_family_backbone,
                        load_safetensors_file, load_safetensors_state,
-                       load_text_tokenizer, resolve_model_dir, to_device)
+                       load_text_tokenizer, load_torch_part, load_torch_state,
+                       resolve_model_dir, to_device)
 
 SPEECH_TOKEN_SIZE = 6561
 SOS = 0
@@ -64,11 +65,6 @@ MAX_REF_TOKENS = 150  # the ICL prompt's speech tokens (~6 s at 25 Hz)
 S3V2_DEV = S3V2Config(n_state=256, heads=4, layers=2)
 
 logger = get_logger("cosyvoice2")
-
-
-def _torch_state(path: Path) -> dict:
-    """A ``torch.save`` state dict, on the host."""
-    return torch.load(str(path), map_location="cpu", weights_only=True)
 
 
 class CosyVoice2LM(CosyFlowDecodeMixin, BaseLM):
@@ -184,19 +180,9 @@ class CosyVoice2LM(CosyFlowDecodeMixin, BaseLM):
             return None
 
     def _load_part(self, part: str, model_dir, filename: str, mapper):
-        """One torch-format part of the snapshot (``torch.load`` on the
-        host, then the mapper to the device); None, with a warning where
-        the file exists, when it does not resolve or map."""
-        self.parts[part] = False
-        if model_dir is None or not (Path(model_dir) / filename).exists():
-            return None
-        try:
-            out = mapper(_torch_state(Path(model_dir) / filename))
-        except Exception as e:
-            logger.warning("%s checkpoint mapping failed (%s); random init",
-                           part, type(e).__name__)
-            return None
-        self.parts[part] = True
+        """One torch-format part of the snapshot, recorded in ``parts``."""
+        out = load_torch_part(model_dir, filename, mapper, part)
+        self.parts[part] = out is not None
         return out
 
     def _read_tensors(self, path: Path) -> dict:
@@ -206,7 +192,7 @@ class CosyVoice2LM(CosyFlowDecodeMixin, BaseLM):
             return load_onnx_initializers(path)
         if path.suffix == ".safetensors":
             return load_safetensors_file(path)
-        return _torch_state(path)
+        return load_torch_state(path)
 
     def _init_clone_encoders(self, model_dir, g: torch.Generator) -> None:
         """S3 v2 (``speech_tokenizer_v2``: ``.onnx``, else ``.safetensors``,

@@ -2,8 +2,9 @@
 
 Split-half rotation (HF Llama/Qwen convention) with optional partial rotary
 (``rope_dim < head_dim``); Qwen3 uses theta = 1e6, Orpheus's Llama-3.2-3B
-theta = 5e5 with Llama-3.1 frequency scaling. The interleaved (ChatGLM)
-variant belongs to a family that is not ported yet.
+theta = 5e5 with Llama-3.1 frequency scaling. The interleaved variant
+(``apply_rope_interleaved``: pairs (2i, 2i+1)) is ChatGLM's partial rotary,
+as GLM-4-Voice serves it over the first 64 of 128 head dims.
 """
 
 from __future__ import annotations
@@ -63,6 +64,32 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
                         dim=-1).to(x.dtype)
         if rd < D:
             out = torch.cat([out, xp], dim=-1)
+        return out
+
+    return rot(q), rot(k)
+
+
+def apply_rope_interleaved(q: torch.Tensor, k: torch.Tensor,
+                           positions: torch.Tensor, inv_freq: torch.Tensor,
+                           rope_dim: Optional[int] = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate interleaved pairs (2i, 2i+1) of the first ``rope_dim`` dims
+    (all of them by default); the rest pass through. q: (T, H, D); k: (T,
+    KH, D); positions: (T,) int."""
+    D = q.shape[-1]
+    rd = rope_dim if rope_dim is not None else D
+    angles = positions[:, None].float() * inv_freq[None, :rd // 2]
+    cos = torch.cos(angles)[:, None, :]  # (T, 1, rd/2)
+    sin = torch.sin(angles)[:, None, :]
+
+    def rot(x: torch.Tensor) -> torch.Tensor:
+        T, H, _ = x.shape
+        xf = x[..., :rd].float().reshape(T, H, rd // 2, 2)
+        x1, x2 = xf[..., 0], xf[..., 1]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(T, H, rd).to(x.dtype)
+        if rd < D:
+            out = torch.cat([out, x[..., rd:]], dim=-1)
         return out
 
     return rot(q), rot(k)

@@ -4,8 +4,11 @@ Input: nested dicts/lists of numpy arrays (``np.asarray`` of each JAX leaf;
 bfloat16 leaves arrive as ml_dtypes arrays). The port keeps the JAX
 package's parameter layouts for every module it has — the backbone and
 depth stacks (layers stacked on a leading axis, ``(d_in, d_out)`` linear
-weights), the Qwen3-TTS tree around them, and the codec (torch conv
-layouts) — so one leaf-wise copy converts all four:
+weights), the model trees around them (Qwen3-TTS, GLM-4-Voice's embedding
+and head), the codecs and flows (torch conv layouts; the GLM flow's lists
+of conformer and U-Net blocks) and the encoders (the Whisper-VQ encoder's
+list of layers with ``(out, in)`` linear weights) — so one leaf-wise copy
+converts all of them:
 ``tree_to_torch(tree, device, dtype)``, with floating leaves cast to
 ``dtype`` (bf16 for the LM on the card; the codec stays float32). Used by
 the tests so that both packages compute from the same weights.

@@ -70,9 +70,9 @@ class Scheduler:
         self.logger = RankLogger(get_logger("scheduler"), rank)
         # latency/throughput regime latch (see _throughput_regime)
         self._regime_fused = False
-        #: the last completed requests' prompt lengths, audio-token counts
-        #: and finish reasons, for the daemon's stats file (bounded: a
-        #: server runs on)
+        #: the last completed requests' prompt lengths, audio-token counts,
+        #: detokenize windows (first token, length) and finish reasons, for
+        #: the daemon's stats file (bounded: a server runs on)
         self.completed: collections.deque = collections.deque(maxlen=256)
 
         model = model_worker.model
@@ -639,6 +639,7 @@ class Scheduler:
             "request_id": req.request_id,
             "prompt_tokens": req.input_length,
             "audio_tokens": len(req.lm_output_audio_tokens),
+            "detok_windows": req.extras.get("detok_windows", []),
             "finish_reason": req.finish_reason})
 
     def _send(self, message: bytes) -> None:

@@ -27,7 +27,8 @@ the card per kind, the kernel counts one replay of each graph adds,
 capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
 graph pool's size), the last completed requests' prompt lengths,
-audio-token counts and finish reasons, and the configuration it served
+audio-token counts, detokenize windows and finish reasons, and the
+configuration it served
 (model, scheduler type, KV layout and pool dtype, whether the codec ran
 the fused residual-unit stacks, the codec's tensor dtypes as read from
 its parameters and cache, the watermark it applied ("spectral",
@@ -35,7 +36,9 @@ its parameters and cache, the watermark it applied ("spectral",
 checkpoint and which from random init (``checkpoint``: talker or
 backbone, codec, codec encoder, speaker encoder) and whether the
 tokenizer did (``tokenizer_loaded``), the KV reserve fraction, the
-fused-decode, pipeline, first-chunk and bucket settings) there as JSON: how a caller that drives the daemon over
+fused-decode, pipeline, first-chunk and bucket settings, and the caching
+allocator's peak and reservation after the model's init,
+``init_memory_gb``) there as JSON: how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
 """
@@ -60,6 +63,8 @@ def _run_scheduler_daemon(args) -> None:
     logger.info("scheduler daemon starting (rank %d, model %s, device %s)",
                 args.rank, args.model, args.device)
 
+    import torch
+
     from .models import load_model
     from .ops import kernels
     from .ops.resunit import (fused_resunit_stack, fused_resunit_stack_bf16,
@@ -76,6 +81,12 @@ def _run_scheduler_daemon(args) -> None:
         repetition_window=args.repetition_window, cfg_scale=args.cfg_scale,
         greedy=args.greedy, detokenize_interval=args.detokenize_interval,
     )
+    # the caching allocator's peak and reservation once the weights are in
+    # place, before the KV pool and the graph pool are made
+    init_memory_gb = ({
+        "max_allocated": torch.cuda.max_memory_allocated(model.device) / 1e9,
+        "reserved": torch.cuda.memory_reserved(model.device) / 1e9}
+        if model.device.type == "cuda" else None)
     # --async-scheduling (the reference's overlapped batch selection) maps
     # to decode pipelining, as in the JAX daemon: the graph replays already
     # run ahead of the host, and pipeline_depth defers the sampled-token
@@ -157,6 +168,7 @@ def _run_scheduler_daemon(args) -> None:
             "first_chunk_frames": worker.first_chunk_frames,
             "prefill_token_buckets": list(wcfg.prefill_token_buckets),
             "detok_buckets": list(wcfg.detok_buckets),
+            "init_memory_gb": init_memory_gb,
         }
         kernels.reset_launch_counts()
         worker.reset_step_stats()

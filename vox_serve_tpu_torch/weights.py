@@ -23,7 +23,8 @@ port's stacked parameter trees, and the text tokenizer.
   Llama / Qwen2 / Qwen3 names into the tree ``init_backbone_params`` makes.
   Each stacked leaf is preallocated on the device and filled layer by
   layer; the ``(out, in)`` -> ``(in, out)`` transposes and the dtype casts
-  run on the device.
+  run on the device. ``load_glm_backbone``: the ChatGLM layout
+  (GLM-4-Voice's fused q/k/v and gate/up), the same way.
 * ``load_text_tokenizer``: ``transformers.AutoTokenizer`` from local files
   when ``transformers`` can be imported, else the char-level
   ``DevTokenizer`` and ``assets_available = False``.
@@ -166,6 +167,26 @@ def save_safetensors(tensors: dict[str, torch.Tensor], path) -> int:
     return 8 + len(raw) + offset
 
 
+def load_torch_state(path) -> dict:
+    """A ``torch.save`` state dict, on the host."""
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def load_torch_part(model_dir, filename: str, mapper, part: str):
+    """``mapper`` over the ``torch.save`` file ``filename`` of
+    ``model_dir`` (read on the host; the mapper puts it on the device);
+    None when it does not resolve, or, with a warning, when it does not
+    load or map."""
+    if model_dir is None or not (Path(model_dir) / filename).exists():
+        return None
+    try:
+        return mapper(load_torch_state(Path(model_dir) / filename))
+    except Exception as e:
+        logger.warning("%s checkpoint mapping failed (%s); random init",
+                       part, type(e).__name__)
+        return None
+
+
 # ---------------------------------------------------------------------------
 # mappers
 # ---------------------------------------------------------------------------
@@ -237,6 +258,59 @@ def load_llama_family_backbone(state: dict, num_layers: int,
             "post_norm": stack("post_attention_layernorm.weight"),
         },
         "final_norm": to_device(state[p + "norm.weight"], device, dtype),
+    }
+
+
+def load_glm_backbone(state: dict, num_layers: int, num_heads: int,
+                      num_kv_heads: int, head_dim: int,
+                      prefix: str = "transformer.encoder.",
+                      dtype: torch.dtype = torch.bfloat16, *,
+                      device) -> dict:
+    """Map the ChatGLM layout (zai-org/glm-4-voice-9b) into the stacked
+    backbone tree: the fused ``self_attention.query_key_value`` weight and
+    bias split into q, k and v rows, the fused ``mlp.dense_h_to_4h`` into
+    gate (chunk 0) and up (chunk 1). Every leaf is preallocated on
+    ``device`` and filled layer by layer, so no host copy of a stacked
+    leaf is made."""
+    L, p = num_layers, prefix
+    qd, kd = num_heads * head_dim, num_kv_heads * head_dim
+    H = state[p + "layers.0.input_layernorm.weight"].shape[0]
+    ffn = state[p + "layers.0.mlp.dense_h_to_4h.weight"].shape[0] // 2
+
+    def empty(*shape):
+        return torch.empty((L,) + shape, dtype=dtype, device=device)
+
+    spans = {"q": (0, qd), "k": (qd, qd + kd), "v": (qd + kd, qd + 2 * kd)}
+    attn = {n: {"w": empty(H, hi - lo), "b": empty(hi - lo)}
+            for n, (lo, hi) in spans.items()}
+    gate, up = empty(H, ffn), empty(H, ffn)
+    for i in range(L):
+        pre = p + f"layers.{i}."
+        w = state[pre + "self_attention.query_key_value.weight"].to(device)
+        b = state[pre + "self_attention.query_key_value.bias"].to(device)
+        for n, (lo, hi) in spans.items():
+            attn[n]["w"][i].copy_(w[lo:hi].T)
+            attn[n]["b"][i].copy_(b[lo:hi])
+        h4h = state[pre + "mlp.dense_h_to_4h.weight"].to(device)
+        gate[i].copy_(h4h[:ffn].T)
+        up[i].copy_(h4h[ffn:].T)
+        del w, b, h4h
+
+    def stack(name, transpose=False):
+        return _stack(state, p + "layers.{i}." + name, L, device,
+                      transpose=transpose, dtype=dtype)
+
+    attn["o"] = {"w": stack("self_attention.dense.weight", True)}
+    return {
+        "layers": {
+            "attn": attn,
+            "mlp": {"gate": {"w": gate}, "up": {"w": up},
+                    "down": {"w": stack("mlp.dense_4h_to_h.weight", True)}},
+            "input_norm": stack("input_layernorm.weight"),
+            "post_norm": stack("post_attention_layernorm.weight"),
+        },
+        "final_norm": to_device(state[p + "final_layernorm.weight"], device,
+                                dtype),
     }
 
 

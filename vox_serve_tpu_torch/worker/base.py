@@ -1672,6 +1672,8 @@ class ModelWorker:
             wins, maps = by_len.setdefault(L, ([], []))
             wins.append(arr)
             maps.append((req, start, last_len, L))
+            # (first token, length) of every window, for the stats file
+            req.extras.setdefault("detok_windows", []).append((start, L))
 
     def _dispatch_detok(self, windows: list, slots: list[int], length: int,
                         mapping: list, finish_check: list[Request]
