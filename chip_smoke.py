@@ -17,7 +17,8 @@ exits non-zero without printing a result:
    times of both: K1 over the combined bf16 pool, K1q over int8 and float8
    e4m3 pools (same scales on both sides), K4 over the head-major bf16 pair.
    Then K1 at Orpheus-3B's heads (H=24, KH=8: a GQA group of 3) at B=4 and
-   64, at a group of 7 (H=28, KH=4: 4 + 3 heads per CTA) at B=4, at
+   64, at Step-Audio-2-mini's (H=28, KH=4: a group of 7, 4 + 3 heads per
+   CTA) at B=4 and 64, at
    CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, at
    CosyVoice2's Qwen2-0.5B (H=14, KH=2, head dim 64: a group of 7) at B=4
    and 64, and at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
@@ -27,7 +28,8 @@ exits non-zero without printing a result:
    prefill; valid rows compared); CUDA-event times of K3, its plain version
    and its library yardstick (one ``scaled_dot_product_attention`` call
    with the block-diagonal causal mask; the port never calls it). Then K3
-   at G = 3 (T=168 and 1024), G = 7 (T=1024), CSM's G = 4 at head dim
+   at G = 3 (T=168 and 1024), Step-Audio-2-mini's G = 7 (T=168 and
+   1024), CSM's G = 4 at head dim
    64 (T=168 and 1024), CosyVoice2's G = 7 at head dim 64 (T=168 and
    1024) and GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024).
    Every kernel line also gives its bound: the larger of its bytes over
@@ -127,6 +129,26 @@ exits non-zero without printing a result:
    decode steps a window), windows/s against real time, the decode and
    detokenize replay times, the detokenize graphs' capture and the
    daemon's memory after the model's init.
+   Run S serves ``--model step-audio-2`` (Step-Audio-2-mini: the 28 x
+   3584 Qwen2.5-7B backbone with q/k/v biases, 28 heads over 4 KV heads at
+   head dim 128, vocab 158,720, top-p 0.9 at T 0.7 with a global
+   repetition penalty; detokenize graphs holding the DiT flow (the Cosy
+   conformer with 3 lookahead tokens, 10 CFG Euler steps of 16 adaLN DiT
+   blocks on a doubled batch) and 24 kHz HiFT with its cache in the slot,
+   over 28-token windows every 25 tokens and the 53- and 103-token
+   catch-up windows; random weights from the seed) with A's flags and the
+   family's ``--max-tokens 2048``: two streams upload a 3 s WAV and no
+   text (speech to speech: the Whisper-style encoder and the adaptor on
+   the card in preprocess, 18 rows spliced over the prompt's ``<audio>``
+   markers), two send text. K1 and K3 only, 28 launches per decode step
+   and prefill; each prompt exactly as long as its template and each
+   upload's 18 spliced rows counted by the daemon (``feature_rows``); each
+   stream's PCM is what the overlap rule gives (24,000 samples per 25
+   tokens, the last window trimmed, 24,000 Hz), at least two full windows
+   for every stream that ran to its cap; it prints TTFA (random weights:
+   ~630 decode steps to the first window), windows/s, the decode, prefill
+   and detokenize replay times, the encoder's preprocess wall, the
+   detokenize graphs' capture and the daemon's memory after init.
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -195,14 +217,25 @@ exits non-zero without printing a result:
    model's loaders; run R serves Q's configuration with those two in the
    cache, so the backbone is random (its repo is absent, as the JAX
    package then serves it) and the stats file must report ``flow``,
-   ``hift`` and ``vq_encoder`` loaded. Each of L-P must report every part
+   ``hift`` and ``vq_encoder`` loaded. Last, Step-Audio-2-mini:
+   stepfun-ai/Step-Audio-2-mini with its LM at full width but 4 of its 28
+   layers (q/k/v with random biases, ``lm_head``, bf16) and the full
+   32-layer audio encoder and adaptor (``encoder.*``, ``adapter.*``, bf16)
+   in two safetensors shards, and ``token2wav/flow.pt`` and
+   ``token2wav/hift.pt``: the LM and encoder mappers, then the flow and
+   HiFT mappers, load bit-equal on the card; run T serves S's
+   configuration from that snapshot (one upload, one text stream): its LM
+   does not map at 28 layers, so, as in the JAX package, the backbone and
+   the encoder are random and the stats file must report ``flow`` and
+   ``hift`` loaded, ``backbone`` and ``encoder`` not. Each of L-P must
+   report every part
    of its model loaded from the checkpoint (a mapping that fell back to
    random init fails the run), K1
    and K3 launched in graphs as in A, each stream's PCM by the trim rule,
    and each prompt exactly as long as its variant's rows (L's ICL prompts
    hold the reference's 38 frames, M's have no speaker row, N's the
    context, P's clones the reference's 75 S3 v2 tokens, R's uploads their
-   38 Whisper-VQ tokens).
+   38 Whisper-VQ tokens, T's upload its 18 adaptor rows).
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -926,15 +959,16 @@ COSY_ID = "FunAudioLLM/CosyVoice2-0.5B"
 GLM_ID = "zai-org/glm-4-voice-9b"
 GLM_DECODER = "zai-org/glm-4-voice-decoder"
 GLM_TOKENIZER = "zai-org/glm-4-voice-tokenizer"
+STEP_ID = "stepfun-ai/Step-Audio-2-mini"
 #: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
 #: N and P by published id, from the checkpoint phase's hub cache
 MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
             "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
-            "Q": "glm", "R": GLM_ID}
+            "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID}
 #: the family of a served id (its layers, audio unit and form fields)
 FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
           "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2", "glm": "glm",
-          GLM_ID: "glm"}
+          GLM_ID: "glm", "step-audio-2": "step", STEP_ID: "step"}
 
 
 def family(config: str) -> str:
@@ -971,11 +1005,18 @@ MODELS = {
     # tokens (at least 50, two full windows, but for a 0.3% tail), and the
     # text streams (~315) ~1,290 steps
     "glm": {"max_tokens": 1600, "unit": "windows", "unit_samples": 44032},
+    # Step-Audio-2-mini: one 28-token window every 25 tokens = 50 mel
+    # frames = 24,000 samples. Under random weights 7,024 of the 158,720
+    # ids (4.4%) are audio ids that are not stop ids, so the first window
+    # takes ~630 decode steps and each later one ~565: the family's 2,048
+    # positions leave a ~140-token prompt ~1,900 steps, ~84 audio tokens
+    # (sd ~9), three windows (fewer than two in ~0.03% of streams)
+    "step": {"max_tokens": 2048, "unit": "windows", "unit_samples": 24000},
 }
 #: per model: backbone layers (each decode step launches the decode kernel
 #: once per layer, each prefill K3 once per layer)
 LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24,
-          "glm": 40}
+          "glm": 40, "step": 28}
 #: per model: the /generate form fields besides the text (CSM's speaker is
 #: an integer id)
 FORM = {"csm": {"speaker": "0"}}
@@ -984,8 +1025,9 @@ FRAME_WINDOWS = (10, 1920)
 #: the overlap codecs: detokenize window, overlap and samples emitted per
 #: window (Orpheus keeps 2048 of SNAC's 8192; CosyVoice2 emits 25 tokens =
 #: 50 mel frames = 1 s), and the windows each served stream must reach
-OVERLAP_WINDOWS = {"orpheus": (28, 21, 2048), "cosyvoice2": (28, 3, 24000)}
-MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4}
+OVERLAP_WINDOWS = {"orpheus": (28, 21, 2048), "cosyvoice2": (28, 3, 24000),
+                   "step": (28, 3, 24000)}
+MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4, "step": 2}
 
 
 def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
@@ -1190,12 +1232,37 @@ CONFIGS.update({
                    "checkpoint": {**GLM_RANDOM, "flow": True, "hift": True,
                                   "vq_encoder": True}}, {K1, K3}),
 })
+#: what S and T load: S nothing (random weights from the seed); T the flow
+#: and HiFT from the snapshot's token2wav files, while its LM (4 of 28
+#: layers) does not map, so the backbone and the audio encoder (which
+#: loads only with the LM) are random, as the JAX package serves them
+STEP_RANDOM = {"backbone": False, "encoder": False, "flow": False,
+               "hift": False}
+CONFIGS.update({
+    # Step-Audio-2-mini (MODEL_OF): the 28 x 3584 Qwen2.5-7B backbone with
+    # q/k/v biases, K1/K3 at G = 7 and D=128; the audio encoder and adaptor
+    # on the card in preprocess, their rows spliced over the prompt's
+    # <audio> markers; the DiT flow and streaming HiFT inside the detokenize
+    # graphs over overlapped 28-token windows; two speech uploads and two
+    # text streams; A's flags
+    "S": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False, "checkpoint": STEP_RANDOM},
+          {K1, K3}),
+    # S's configuration from the stepfun-ai/Step-Audio-2-mini snapshot in
+    # the hub cache: one upload, one text stream
+    "T": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": {**STEP_RANDOM, "flow": True,
+                                  "hift": True}}, {K1, K3}),
+})
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJKOQ"
+RANDOM_RUNS = "ABCDEFGHIJKOQS"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
-WAVES = {"F": (1, 4), "M": (2,)}
+WAVES = {"F": (1, 4), "M": (2,), "T": (2,)}
 #: per run, each request's form fields besides the text and whether it
 #: uploads the reference WAV (``audio``); other runs send FORM's fields
 REF_TEXTS = ("A short reference clip for the voice clone.",
@@ -1221,6 +1288,8 @@ REQUESTS = {
     + [{"fields": {}}] * 2,
 }
 REQUESTS["R"] = REQUESTS["Q"]
+REQUESTS["S"] = REQUESTS["Q"]
+REQUESTS["T"] = [{"fields": {}, "audio": True, "text": ""}, {"fields": {}}]
 #: the reference clip L uploads: 3 s at 24 kHz
 REF_SAMPLES = 72000
 #: the prompt WAVs of the synthetic sesame/csm-1b snapshot: 0.96 s each
@@ -1326,7 +1395,17 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     frames and an EOS frame), then "[0]text". CosyVoice2: [sos] + the
     reference transcript + the text + [task_id] + the reference's S3 v2
     tokens. GLM-4-Voice: the chat template in text mode, or in audio mode
-    with the upload's speech tokens as ``<|audio_k|>`` strings."""
+    with the upload's speech tokens as ``<|audio_k|>`` strings.
+    Step-Audio 2: its chat template around the text, or around
+    ``<audio_start>``, one marker per adaptor row and ``<audio_end>``."""
+    if family(config) == "step":
+        from vox_serve_tpu_torch.models.step_audio_2 import (PROMPT_POST,
+                                                             PROMPT_PRE)
+
+        if REQUESTS[config][i].get("audio"):
+            return (len(PROMPT_PRE + "<audio_start><audio_end>" + PROMPT_POST)
+                    + step_upload_rows())
+        return len(PROMPT_PRE + text + PROMPT_POST)
     if family(config) == "glm":
         from vox_serve_tpu_torch.models.glm_voice import glm_prompt_text
 
@@ -1354,8 +1433,16 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     return n
 
 
+def step_upload_rows() -> int:
+    """The adaptor rows (and ``<audio>`` markers) of the 3 s upload at 16
+    kHz: 302 mel frames -> 151 -> 75 -> 18."""
+    from vox_serve_tpu_torch.models.step_audio_2 import step_audio_rows
+
+    return step_audio_rows(REF_SAMPLES * 16000 // SAMPLE_RATE)
+
+
 #: the runs whose prompts are held to ``expected_prompt_tokens``
-PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R")
+PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T")
 
 
 def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
@@ -1378,7 +1465,9 @@ def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
            if config == "P" else "")
         + (f" (speech uploads: {GLM_UPLOAD_TOKENS} Whisper-VQ tokens each, "
            f"{[int(t) for t in _GLM_TOKENS[config][:8]]}...)"
-           if config in _GLM_TOKENS else ""))
+           if config in _GLM_TOKENS else "")
+        + (f" (speech uploads: {step_upload_rows()} adaptor rows each)"
+           if family(config) == "step" else ""))
 
 
 def free_port() -> int:
@@ -1683,7 +1772,9 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
     check_run(config, card, stats, out)
-    if fam in OVERLAP_WINDOWS:
+    if fam == "step":
+        check_step_windows(config, stats, out)
+    elif fam in OVERLAP_WINDOWS:
         check_overlap_windows(config, stats, out)
     elif fam == "glm":
         check_glm_windows(config, stats, out)
@@ -1868,6 +1959,82 @@ def check_glm_windows(config: str, stats: dict, out: dict) -> None:
         f"ms per call; preprocess wall (Whisper-VQ on the card for uploads) "
         f"{pp_t / max(pp_n, 1) * 1e3:.1f} ms x {pp_n}; detokenize graphs "
         f"(flow + HiFT): "
+        f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
+        f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
+        f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
+        " GB")
+
+
+def check_step_windows(config: str, stats: dict, out: dict) -> None:
+    """Each Step-Audio-2 stream emits exactly the PCM the overlap rule
+    gives for the audio tokens its daemon reports (28-token windows every
+    25 tokens, 24,000 samples each, the last trimmed), every stream that
+    ran to its length cap reached ``MIN_WINDOWS`` full windows (a stream
+    that sampled a stop id is held to the rule alone, and printed), and
+    each upload's prompt carried its adaptor rows: the daemon counts the
+    prompt rows that took a feature row (``feature_rows``), which must be
+    the upload's 18 (0 for a text stream). Prints TTFA (random weights:
+    ~630 decode steps to the first window), windows/s against real time,
+    the decode and detokenize replay times, the preprocess wall (the
+    encoder on the card), the detokenize graphs' capture and the init
+    memory."""
+    interval, overlap, window = OVERLAP_WINDOWS["step"]
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    rows = step_upload_rows()
+    full = []
+    for i, st in enumerate(out["streams"]):
+        req = done.get(st["rid8"])
+        if req is None:
+            raise AssertionError(f"[{config}] stream {i} ({st['rid8']}) not "
+                                 f"among the daemon's requests {list(done)}")
+        n = req["audio_tokens"]
+        want = overlap_pcm_samples(n, interval, overlap, window)
+        if st["samples"] != want:
+            raise AssertionError(
+                f"[{config}] stream {i}: {st['samples']} samples for {n} "
+                f"audio tokens, the overlap rule gives {want}")
+        upload = bool(REQUESTS[config][i].get("audio"))
+        if req["feature_rows"] != (rows if upload else 0):
+            raise AssertionError(
+                f"[{config}] stream {i}: {req['feature_rows']} prompt rows "
+                f"took a feature row, expected {rows if upload else 0}")
+        short = want < MIN_WINDOWS["step"] * window
+        if short and req["finish_reason"] != "stop":
+            raise AssertionError(f"[{config}] stream {i}: {n} audio tokens "
+                                 f"({req['finish_reason']}), fewer than "
+                                 f"{MIN_WINDOWS['step']} full windows")
+        full.append(not short)
+        log(f"[{config}] stream {i} ({st['rid8']}, "
+            f"{'upload' if upload else 'text'}): {n} audio tokens after a "
+            f"{req['prompt_tokens']}-token prompt with "
+            f"{req['feature_rows']} spliced rows ({req['finish_reason']}"
+            f"{', sampled a stop id early' if short else ''}) -> "
+            f"{st['samples']} samples = {st['samples'] / window:.2f} windows"
+            f" at 24,000 Hz (overlap rule: {want}; windows "
+            f"{req['detok_windows']}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
+            f"{st['samples'] / window / st['wall_s']:.3f} windows/s")
+    if not any(full):
+        raise AssertionError(f"[{config}] no stream reached "
+                             f"{MIN_WINDOWS['step']} windows")
+    steps = stats["steps"]
+    probe = steps["probe_ms"]
+    dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
+    det = {k: v for k, v in probe.items() if k.startswith("detok ")}
+    pre = {k: v for k, v in probe.items() if k.startswith("prefill ")}
+    ph = stats["phase_stats"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    pp_t, pp_n = ph.get("preprocess", (0.0, 0))
+    cap, mib = steps["capture_s_by_kind"], steps["pool_mib_by_kind"]
+    log(f"[{config}] Step-Audio-2-mini (random LM weights: TTFA counts ~630 "
+        f"decode steps to the first window): TTFA median "
+        f"{out['ttfa_median_s'] * 1e3:.1f} ms; {out['frames_per_s']:.3f} "
+        f"windows/s aggregate over {len(out['streams'])} streams (real time:"
+        f" 1.000 per stream); decode replay ms (probe) {dec}; prefill replay "
+        f"ms (probe) {pre}; detokenize replay ms (probe) {det}; detokenize "
+        f"wall {det_t / max(det_n, 1) * 1e3:.2f} ms per call; preprocess "
+        f"wall (the audio encoder + adaptor on the card for uploads) "
+        f"{pp_t / max(pp_n, 1) * 1e3:.1f} ms x {pp_n}; detokenize graphs "
+        f"(DiT flow + HiFT): "
         f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
         f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
         f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
@@ -2303,6 +2470,92 @@ def glm_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
     return loads, run
 
 
+def step_token2wav_files(flow, hift) -> dict:
+    """Every tensor of the stepfun-ai/Step-Audio-2-mini snapshot's
+    ``token2wav/`` files by ``file:name``."""
+    import synthetic_checkpoints as synth
+
+    files = {"token2wav/flow.pt": synth.export_step_flow(flow),
+             "token2wav/hift.pt": synth.export_hift(hift)}
+    return {f"{f}:{k}": v for f, sd in files.items() for k, v in sd.items()}
+
+
+def step_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
+    """Write stepfun-ai/Step-Audio-2-mini in the published layout: the
+    Qwen2.5 LM at full width but 4 of its 28 layers (q/k/v with random
+    biases, ``lm_head``, bf16) with the full 32-layer audio encoder and the
+    adaptor (``encoder.*``, ``adapter.*``, bf16) in two safetensors
+    shards, and ``token2wav/flow.pt`` and ``token2wav/hift.pt`` (under
+    ``generator.``); load each through the model's loaders onto the card,
+    every tensor bit-equal to the one written; then serve run T from that
+    snapshot (its LM does not map at 28 layers, so the backbone and the
+    encoder are random, as in JAX; the flow and HiFT load)."""
+    import torch
+
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.codecs.hifigan import load_hift_params
+    from vox_serve_tpu_torch.codecs.step_dit import load_step_flow_params
+    from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
+                                                     seeded_generator)
+    from vox_serve_tpu_torch.models.step_audio_2 import StepAudio2LM
+    from vox_serve_tpu_torch.weights import resolve_model_dir
+
+    loads = {}
+    cfg4 = BackboneConfig(
+        vocab_size=158720, hidden_size=3584, num_layers=4, num_heads=28,
+        num_kv_heads=4, intermediate_size=18944, qkv_bias=True,
+        rope_theta=1_000_000.0)
+    src = StepAudio2LM(STEP_ID, device=dev, seed=71, debug_backbone=cfg4)
+    g = seeded_generator(dev, 72)
+    for n in ("q", "k", "v"):
+        src.params["backbone"]["layers"]["attn"][n]["b"].normal_(generator=g)
+    state = synth.export_step(src.params, src.enc_params, torch.bfloat16)
+    snap = synth.snapshot_dir(cache, STEP_ID)
+    t0 = time.perf_counter()
+    synth.write_shards(snap, state, 2)
+    ws = time.perf_counter() - t0
+    lm_files = _files(snap)
+
+    def load_lm():
+        lm, enc = src._load_lm(resolve_model_dir(STEP_ID))
+        return None if lm is None or enc is None else (lm, enc)
+
+    loads[STEP_ID + " LM (4 of 28 layers) + audio encoder"] = timed_load(
+        STEP_ID, lm_files, load_lm, state,
+        lambda le: synth.export_step(le[0], le[1], torch.bfloat16), ws)
+    del state
+
+    flow, hift = src.codec_params["flow"], src.codec_params["hift"]
+    t0 = time.perf_counter()
+    synth.write_step_token2wav(snap, flow, hift)
+    ws = time.perf_counter() - t0
+    model_dir = resolve_model_dir(STEP_ID)
+
+    def load_codec():
+        f = src._load_part("flow", model_dir, "token2wav/flow.pt",
+                           lambda sd: load_step_flow_params(
+                               sd, src.flow_config, device=dev))
+        h = src._load_part("hift", model_dir, "token2wav/hift.pt",
+                           lambda sd: load_hift_params(
+                               {k.replace("generator.", ""): v
+                                for k, v in sd.items()}, src.hift_config,
+                               device=dev))
+        return None if f is None or h is None else (f, h)
+
+    loads[STEP_ID + " token2wav"] = timed_load(
+        STEP_ID + " token2wav", [f for f in _files(snap)
+                                 if f not in lm_files], load_codec,
+        step_token2wav_files(flow, hift),
+        lambda fh: step_token2wav_files(*fh), ws)
+    del src, flow, hift
+    _free()
+    try:
+        run = end_to_end(card, "T", hub=str(cache))
+    finally:
+        _free()
+    return loads, run
+
+
 def checkpoint_phase(card: str) -> tuple[dict, dict]:
     """Write synthetic checkpoints at the published widths and names
     (random weights from seeds, through ``synthetic_checkpoints.py``'s
@@ -2478,6 +2731,12 @@ def checkpoint_phase(card: str) -> tuple[dict, dict]:
         loads.update(glm_loads)
         _drop_snapshot(cache, GLM_DECODER)
         _drop_snapshot(cache, GLM_TOKENIZER)
+
+        # -- Step-Audio-2-mini: the LM (4 of 28 layers) with the audio
+        # encoder, token2wav; run T from that snapshot ---------------------
+        step_loads, runs["T"] = step_checkpoint(card, cache, dev)
+        loads.update(step_loads)
+        _drop_snapshot(cache, STEP_ID)
     finally:
         if saved_env is None:
             os.environ.pop("HF_HUB_CACHE", None)
@@ -2521,12 +2780,13 @@ def main(argv=None) -> int:
 
     decode = {v: check_decode(kernels, v) for v in DECODE_VARIANTS}
     k3 = check_k3(kernels)
-    # Orpheus's GQA group of 3 at its served shapes, and G = 7 (4 + 3 heads
-    # per decode CTA, 9 or 4 tokens per K3 tile) once each
+    # Orpheus's GQA group of 3 at its served shapes; Step-Audio-2-mini's
+    # Qwen2.5-7B: 28 heads over 4 (G = 7: two decode CTAs of 4 + 3 heads
+    # per KV head; 4 or 9 tokens per K3 tile) at head dim 128
     check_decode(kernels, "K1", H=24, KH=8, batches=(4, 64))
-    check_decode(kernels, "K1", H=28, KH=4, batches=(4,))
+    check_decode(kernels, "K1", H=28, KH=4, batches=(4, 64))
     check_k3(kernels, H=24, KH=8, shapes=((168, 4), (1024, 5)))
-    check_k3(kernels, H=28, KH=4, shapes=((1024, 5),))
+    check_k3(kernels, H=28, KH=4, shapes=((168, 4), (1024, 5)))
     # CSM-1B's served heads: a GQA group of 4 at head dim 64
     check_decode(kernels, "K1", H=32, KH=8, batches=(4, 64), D=64)
     check_k3(kernels, H=32, KH=8, shapes=((168, 4), (1024, 5)), D=64)
@@ -2559,7 +2819,7 @@ def main(argv=None) -> int:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
-    marks.append(("checkpoints, L, M, N, P, R", time.perf_counter()))
+    marks.append(("checkpoints, L, M, N, P, R, T", time.perf_counter()))
     runs.update(ckpt_runs)
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Split one GLM-4-Voice-9B decode step of the PyTorch port into its parts
-on the card: the embedding gather, the 40-layer backbone (K1 over a bf16
-pool), the 168,960-wide head and the top-p sampler, each captured in a CUDA
-graph and timed by its replays, beside the whole step (``lm_step``) and
-each part's bound (the bytes it must move over 3.35 TB/s).
+"""Split one decode step of a large-vocabulary model of the PyTorch port
+(GLM-4-Voice-9B, or Step-Audio-2-mini) into its parts on the card: the
+embedding gather, the backbone (K1 over a bf16 pool), the head and the
+sampler (with the model's repetition penalty where it has one), each
+captured in a CUDA graph and timed by its replays, beside the whole step
+(``lm_step``) and each part's bound (the bytes it must move over 3.35
+TB/s).
 
-    PYTHONPATH=. python3 scripts/torch_glm_decode_split.py [--batch 4]
-        [--context 1000]
+    PYTHONPATH=. python3 scripts/torch_decode_split.py [--model glm]
+        [--batch 4] [--context 1000]
 
 Random weights at the published widths (seed 0); every row attends to
 ``--context`` tokens of a random KV pool. Needs one card (~1 min with the
@@ -21,14 +23,17 @@ import subprocess
 import torch
 
 import chip_smoke as c
-from vox_serve_tpu_torch.models.glm_voice import GLMVoiceLM
+from vox_serve_tpu_torch.models import get_model_class
 from vox_serve_tpu_torch.ops import kernels
 from vox_serve_tpu_torch.ops.attention import AttnMetadata
-from vox_serve_tpu_torch.sampling import sample_and_update
+from vox_serve_tpu_torch.sampling import (init_repetition_cache,
+                                          sample_and_update)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="glm",
+                    choices=("glm", "step-audio-2"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--context", type=int, default=1000)
     args = ap.parse_args()
@@ -40,7 +45,7 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0])
     kernels.build()
     dev = torch.device("cuda")
-    m = GLMVoiceLM(device=dev, seed=0)
+    m = get_model_class(args.model)(device=dev, seed=0)
     cfg = m.backbone_config
     B, n, page = args.batch, args.context, 16
     L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -60,6 +65,9 @@ def main() -> None:
                         dtype=torch.int32)
     pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
     gen = None  # the default CUDA generator: graph capture tracks it
+    sc = m.sampling_config
+    rep = (init_repetition_cache(B, sc.cache_window, 1, cfg.vocab_size, dev)
+           if m.use_repetition_penalty else None)
     x = m.embed(m.params, ids, None, None)
     h = torch.randn((B, cfg.hidden_size), device=dev, dtype=torch.bfloat16)
     logits = m.logits(m.params, h)
@@ -68,7 +76,7 @@ def main() -> None:
     parts = {
         "embed": (lambda: m.embed(m.params, ids, None, None),
                   B * cfg.hidden_size * 2),
-        "backbone (40 layers, K1)": (
+        f"backbone ({L} layers, K1)": (
             lambda: backbone_forward(m.params["backbone"], cfg, x, pos, meta,
                                      pool),
             sum(t.numel() * t.element_size() for t in
@@ -76,19 +84,21 @@ def main() -> None:
             + 2 * B * n * L * KH * D * 2),
         "head": (lambda: m.logits(m.params, h),
                  m.params["head"].numel() * 2 + B * cfg.vocab_size * 2),
-        "sample (top-p 0.8, T 0.8)": (
-            lambda: sample_and_update(logits, m.sampling_config, gen, None),
+        f"sample (top-p {sc.top_p}, T {sc.temperature}, repetition "
+        f"{sc.repetition_penalty})": (
+            lambda: sample_and_update(logits, sc, gen, rep),
             B * cfg.vocab_size * 2 + B * 4),
         "lm_step (all of it)": (
             lambda: m.lm_step(m.params, ids, pos, None, None, meta, pool,
-                              None, gen, None),
+                              None, gen, rep),
             sum(t.numel() * t.element_size() for t in _leaves(m.params))
             - m.params["embed"].numel() * 2 + 2 * B * n * L * KH * D * 2),
     }
     for name, (fn, nbytes) in parts.items():
         ms = c.cuda_time_ms(fn, graph=True)
         bound = nbytes / c.HBM_BYTES_PER_S * 1e3
-        print(f"GLM decode B={B} context={n}: {name}: {ms:.3f} ms, bound "
+        print(f"{args.model} decode B={B} context={n}: {name}: {ms:.3f} "
+              f"ms, bound "
               f"{bound:.3f} ms (bytes {nbytes / 1e9:.3f} GB), share "
               f"{bound / ms:.2f}")
 

@@ -457,33 +457,16 @@ def write_silentcipher(snapshot: Path, params: dict, cfg) -> int:
 # ---------------------------------------------------------------------------
 
 
-def export_cosy_flow(params: dict) -> dict:
-    """Inverse of ``load_cosy_flow_params``: ``flow.pt``'s names
-    (``CausalMaskedDiffWithXvec.state_dict()``)."""
+def _ln(out: dict, name: str, p: dict) -> None:
+    out[name + ".weight"] = p["w"]
+    out[name + ".bias"] = p["b"]
+
+
+def export_cosy_encoder_section(params: dict) -> dict:
+    """Inverse of ``load_cosy_encoder_section``: the input embedding, the
+    speaker affine, the upsample conformer encoder and ``encoder_proj``
+    (one key layout in CosyVoice2's and Step-Audio 2's ``flow.pt``)."""
     out: dict = {}
-
-    def ln(name, p):
-        out[name + ".weight"] = p["w"]
-        out[name + ".bias"] = p["b"]
-
-    def causal_block(pre, p):
-        _conv(out, f"{pre}.block.0", p["conv"])
-        ln(f"{pre}.block.2", p["norm"])
-
-    def causal_resnet(pre, p):
-        _lin(out, f"{pre}.mlp.1", p["mlp"])
-        causal_block(f"{pre}.block1", p["block1"])
-        causal_block(f"{pre}.block2", p["block2"])
-        _conv(out, f"{pre}.res_conv", p["res_conv"])
-
-    def est_block(pre, p):
-        ln(f"{pre}.norm1", p["norm1"])
-        for n in ("to_q", "to_k", "to_v"):
-            _lin(out, f"{pre}.attn1.{n}", p["attn1"][n])
-        _lin(out, f"{pre}.attn1.to_out.0", p["attn1"]["to_out"])
-        ln(f"{pre}.norm3", p["norm3"])
-        _lin(out, f"{pre}.ff.net.0.proj", p["ff"]["proj"])
-        _lin(out, f"{pre}.ff.net.2", p["ff"]["out"])
 
     def conformer(pre, p):
         a = p["self_attn"]
@@ -494,16 +477,16 @@ def export_cosy_flow(params: dict) -> dict:
         out[f"{pre}.self_attn.pos_bias_v"] = a["pos_bias_v"]
         _lin(out, f"{pre}.feed_forward.w_1", p["feed_forward"]["w_1"])
         _lin(out, f"{pre}.feed_forward.w_2", p["feed_forward"]["w_2"])
-        ln(f"{pre}.norm_mha", p["norm_mha"])
-        ln(f"{pre}.norm_ff", p["norm_ff"])
+        _ln(out, f"{pre}.norm_mha", p["norm_mha"])
+        _ln(out, f"{pre}.norm_ff", p["norm_ff"])
 
     out["input_embedding.weight"] = params["input_embedding"]
     _lin(out, "spk_embed_affine_layer", params["spk_embed_affine_layer"])
     enc = params["encoder"]
     _lin(out, "encoder.embed.out.0", enc["embed_out"])
-    ln("encoder.embed.out.1", enc["embed_norm"])
+    _ln(out, "encoder.embed.out.1", enc["embed_norm"])
     _lin(out, "encoder.up_embed.out.0", enc["up_embed_out"])
-    ln("encoder.up_embed.out.1", enc["up_embed_norm"])
+    _ln(out, "encoder.up_embed.out.1", enc["up_embed_norm"])
     for n in ("conv1", "conv2"):
         _conv(out, f"encoder.pre_lookahead_layer.{n}",
               enc["pre_lookahead"][n])
@@ -512,8 +495,34 @@ def export_cosy_flow(params: dict) -> dict:
     _conv(out, "encoder.up_layer.conv", enc["up_layer_conv"])
     for i, p in enumerate(enc["up_encoders"]):
         conformer(f"encoder.up_encoders.{i}", p)
-    ln("encoder.after_norm", enc["after_norm"])
+    _ln(out, "encoder.after_norm", enc["after_norm"])
     _lin(out, "encoder_proj", params["encoder_proj"])
+    return out
+
+
+def export_cosy_flow(params: dict) -> dict:
+    """Inverse of ``load_cosy_flow_params``: ``flow.pt``'s names
+    (``CausalMaskedDiffWithXvec.state_dict()``)."""
+    out = export_cosy_encoder_section(params)
+
+    def causal_block(pre, p):
+        _conv(out, f"{pre}.block.0", p["conv"])
+        _ln(out, f"{pre}.block.2", p["norm"])
+
+    def causal_resnet(pre, p):
+        _lin(out, f"{pre}.mlp.1", p["mlp"])
+        causal_block(f"{pre}.block1", p["block1"])
+        causal_block(f"{pre}.block2", p["block2"])
+        _conv(out, f"{pre}.res_conv", p["res_conv"])
+
+    def est_block(pre, p):
+        _ln(out, f"{pre}.norm1", p["norm1"])
+        for n in ("to_q", "to_k", "to_v"):
+            _lin(out, f"{pre}.attn1.{n}", p["attn1"][n])
+        _lin(out, f"{pre}.attn1.to_out.0", p["attn1"]["to_out"])
+        _ln(out, f"{pre}.norm3", p["norm3"])
+        _lin(out, f"{pre}.ff.net.0.proj", p["ff"]["proj"])
+        _lin(out, f"{pre}.ff.net.2", p["ff"]["out"])
 
     e, est = "decoder.estimator", params["estimator"]
     _lin(out, f"{e}.time_mlp.linear_1", est["time_mlp"]["linear_1"])
@@ -956,4 +965,91 @@ def write_glm_decoder(snapshot: Path, flow: dict, hift: dict) -> dict:
         torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
                    Path(snapshot) / name)
         sizes[name] = os.path.getsize(Path(snapshot) / name)
+    return sizes
+
+
+# ---------------------------------------------------------------------------
+# Step-Audio-2-mini: the LM with its audio encoder and adaptor, token2wav
+# ---------------------------------------------------------------------------
+
+
+def export_step_encoder(enc: dict, enc_prefix: str = "encoder.",
+                        ada_prefix: str = "adapter.") -> dict:
+    """Inverse of ``load_step_encoder_params``: the Whisper-style audio
+    encoder (``blocks.{i}.attn.query`` ... ``mlp_ln``; linear weights
+    already ``(out, in)``) and the adaptor."""
+    out = {enc_prefix + "conv1.weight": enc["conv1_w"],
+           enc_prefix + "conv1.bias": enc["conv1_b"],
+           enc_prefix + "conv2.weight": enc["conv2_w"],
+           enc_prefix + "conv2.bias": enc["conv2_b"],
+           enc_prefix + "positional_embedding.weight": enc["pos"]}
+    for i, lp in enumerate(enc["layers"]):
+        pre = f"{enc_prefix}blocks.{i}"
+        for name, key in (("attn.query", "q"), ("attn.key", "k"),
+                          ("attn.value", "v"), ("attn.out", "o"),
+                          ("mlp.0", "fc1"), ("mlp.2", "fc2")):
+            _conv(out, f"{pre}.{name}", lp[key])
+        for name, key in (("attn_ln", "ln1"), ("mlp_ln", "ln2")):
+            out[f"{pre}.{name}.weight"] = lp[key + "_w"]
+            out[f"{pre}.{name}.bias"] = lp[key + "_b"]
+    out[enc_prefix + "after_norm.weight"] = enc["norm_w"]
+    out[enc_prefix + "after_norm.bias"] = enc["norm_b"]
+    out[ada_prefix + "conv.weight"] = enc["ada_conv_w"]
+    out[ada_prefix + "conv.bias"] = enc["ada_conv_b"]
+    _conv(out, ada_prefix + "linear1", enc["ada_l1"])
+    _conv(out, ada_prefix + "linear2", enc["ada_l2"])
+    return out
+
+
+def export_step(params: dict, enc: Optional[dict] = None,
+                enc_dtype: Optional[torch.dtype] = None) -> dict:
+    """Inverse of ``StepAudio2LM._load_lm``: the Qwen2.5 layers under
+    ``model.*`` (q/k/v biases), ``model.embed_tokens.weight``,
+    ``lm_head.weight`` and, where given, the audio encoder and adaptor
+    (``encoder.*``, ``adapter.*``, cast to ``enc_dtype``)."""
+    out = export_llama_backbone(params["backbone"], "model.")
+    out["model.embed_tokens.weight"] = params["embed"]
+    out["lm_head.weight"] = _t(params["head"])
+    if enc is not None:
+        out.update(_cast(export_step_encoder(enc), enc_dtype))
+    return out
+
+
+def export_step_flow(params: dict) -> dict:
+    """Inverse of ``load_step_flow_params``: ``token2wav/flow.pt``'s names
+    (the Cosy encoder section, the DiT under ``decoder.estimator.*``)."""
+    out = export_cosy_encoder_section(params)
+    e, est = "decoder.estimator", params["estimator"]
+    for i, b in enumerate(est["blocks"]):
+        pre = f"{e}.blocks.{i}"
+        for n in ("to_q", "to_k", "to_v", "proj"):
+            _lin(out, f"{pre}.attn.{n}", b["attn"][n])
+        _ln(out, f"{pre}.attn.q_norm", b["attn"]["q_norm"])
+        _ln(out, f"{pre}.attn.k_norm", b["attn"]["k_norm"])
+        _lin(out, f"{pre}.mlp.fc1", b["mlp"]["fc1"])
+        _lin(out, f"{pre}.mlp.fc2", b["mlp"]["fc2"])
+        _conv(out, f"{pre}.conv.block.1", b["conv"]["conv1"])
+        _ln(out, f"{pre}.conv.block.3", b["conv"]["norm"])
+        _conv(out, f"{pre}.conv.block.6", b["conv"]["conv2"])
+        _lin(out, f"{pre}.adaLN_modulation.1", b["adaln"])
+    _lin(out, f"{e}.t_embedder.mlp.0", est["t_mlp1"])
+    _lin(out, f"{e}.t_embedder.mlp.2", est["t_mlp2"])
+    _lin(out, f"{e}.in_proj", est["in_proj"])
+    _lin(out, f"{e}.final_layer.adaLN_modulation.1", est["final_adaln"])
+    _lin(out, f"{e}.final_layer.linear", est["final_linear"])
+    return out
+
+
+def write_step_token2wav(snapshot: Path, flow: dict, hift: dict) -> dict:
+    """stepfun-ai/Step-Audio-2-mini's ``token2wav/flow.pt`` and
+    ``token2wav/hift.pt`` (``generator.`` names), written with
+    ``torch.save``; returns bytes per file."""
+    d = Path(snapshot) / "token2wav"
+    d.mkdir(parents=True, exist_ok=True)
+    sizes = {}
+    for name, sd in (("flow.pt", export_step_flow(flow)),
+                     ("hift.pt", export_hift(hift))):
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   d / name)
+        sizes["token2wav/" + name] = os.path.getsize(d / name)
     return sizes

@@ -17,7 +17,11 @@ trees are equal leaf for leaf (by key path, bits and dtype).
 * SilentCipher: ``load_silentcipher_params`` on ``torch.save`` state
   dicts, ``_try_load_real_silentcipher`` through the hub cache (the
   ``hparams.yaml`` reader with and without ``yaml``), ``init_watermarker``
-  serving it.
+  serving it;
+* CosyVoice2 and GLM-4-Voice snapshots (their own docstrings below);
+* Step-Audio-2-mini: the LM with its audio encoder and adaptor in one
+  safetensors state (``export_step``), ``token2wav/flow.pt``
+  (``export_step_flow``) and ``token2wav/hift.pt`` (``export_hift``).
 
 Every exporter is checked too: the JAX package's loaders read its output
 back to the tree it came from.
@@ -565,4 +569,77 @@ def test_glm_snapshots_match_jax(tmp_path, hub, monkeypatch):
     (dec / "flow.pt").write_bytes(b"corrupt")
     assert tm._load_part("flow", dec, "flow.pt", lambda sd: (
         load_glm_flow_params(sd, tm.flow_config))) is None
+    assert tm.checkpoint_parts["flow"] is False
+
+
+# -- Step-Audio-2-mini ---------------------------------------------------------
+
+
+def test_step_snapshot_matches_jax(tmp_path, hub, monkeypatch):
+    """stepfun-ai/Step-Audio-2-mini at the small widths of
+    ``test_torch_step_audio2.py``, written by ``synthetic_checkpoints.py``
+    into a hub cache both packages resolve through: the LM (``model.*``
+    with q/k/v biases, ``lm_head``) with ``encoder.*`` and ``adapter.*``
+    in two shards (the encoder in bf16, as published), and
+    ``token2wav/flow.pt`` and ``token2wav/hift.pt`` (``generator.``
+    names). Each part the port's model loads is equal leaf for leaf to the
+    JAX loader's tree and to what was written (the encoder to its bf16
+    values), and reported loaded; a corrupt ``flow.pt`` is reported not
+    loaded."""
+    from test_torch_step_audio2 import jax_model, port_model
+    from vox_serve_tpu_torch.codecs.hifigan import load_hift_params
+    from vox_serve_tpu_torch.codecs.step_dit import load_step_flow_params
+    from vox_serve_tpu_torch.weights import resolve_model_dir
+
+    src = port_model(seed=13)
+    g = torch.Generator().manual_seed(14)
+    for n in ("q", "k", "v"):
+        b = src.params["backbone"]["layers"]["attn"][n]["b"]
+        b.copy_(torch.randn(b.shape, generator=g))
+    lm_id = "stepfun-ai/Step-Audio-2-mini"
+    state = synth.export_step(src.params, src.enc_params, torch.bfloat16)
+    assert state["encoder.blocks.0.attn.query.weight"].dtype == \
+        torch.bfloat16
+    assert "encoder.blocks.1.attn.key.bias" not in state
+    assert state["model.layers.1.self_attn.k_proj.bias"].shape == (32,)
+    snap = synth.snapshot_dir(hub, lm_id)
+    synth.write_shards(snap, state, 2)
+    sizes = synth.write_step_token2wav(snap, src.codec_params["flow"],
+                                       src.codec_params["hift"])
+    assert set(sizes) == {"token2wav/flow.pt", "token2wav/hift.pt"}
+
+    jm = jax_model()
+    jm.model_name = lm_id
+    tm = port_model(seed=15)
+    tm.model_name = lm_id
+    model_dir = resolve_model_dir(lm_id)
+
+    lm, enc = tm._load_lm(model_dir)
+    jlm = jm._load_checkpoint()
+    assert tm.parts["backbone"] and tm.parts["encoder"]
+    assert_trees_equal(lm, _np(jlm))
+    assert_trees_equal(lm, _torch_np(src.params))
+    assert_trees_equal(enc, _np(jm._enc_loaded))
+    assert_trees_equal(enc, _torch_np(tparams.tree_map(
+        lambda t: t.to(torch.bfloat16).float(), src.enc_params)))
+
+    flow = tm._load_part("flow", model_dir, "token2wav/flow.pt",
+                         lambda sd: load_step_flow_params(sd, tm.flow_config))
+    hift = tm._load_part("hift", model_dir, "token2wav/hift.pt",
+                         lambda sd: load_hift_params(
+                             {k.replace("generator.", ""): v
+                              for k, v in sd.items()}, tm.hift_config))
+    assert tm.checkpoint_parts["flow"] and tm.checkpoint_parts["hift"]
+    for name, got in (("flow", flow), ("hift", hift)):
+        sd = {k: v.numpy() for k, v in torch.load(
+            model_dir / "token2wav" / f"{name}.pt",
+            weights_only=True).items()}
+        ref = jm._load_flow(sd) if name == "flow" else jm._load_hift(sd)
+        assert_trees_equal(got, _np(ref))
+        assert_trees_equal(got, _torch_np(src.codec_params[name]))
+
+    (model_dir / "token2wav" / "flow.pt").write_bytes(b"corrupt")
+    assert tm._load_part("flow", model_dir, "token2wav/flow.pt",
+                         lambda sd: load_step_flow_params(
+                             sd, tm.flow_config)) is None
     assert tm.checkpoint_parts["flow"] is False

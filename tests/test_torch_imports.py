@@ -59,6 +59,8 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.models.glm_voice",
     "vox_serve_tpu_torch.models.sts_common",
     "vox_serve_tpu_torch.codecs.glm_flow",
+    "vox_serve_tpu_torch.models.step_audio_2",
+    "vox_serve_tpu_torch.codecs.step_dit",
 ]
 
 

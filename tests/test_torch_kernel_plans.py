@@ -133,6 +133,24 @@ def test_kernels_take_the_glm_head_group():
     assert kernels.plan_decode_splits(64, 2, 63, N_SM, 16, 4) == 1
 
 
+def test_kernels_take_the_step_audio2_head_group():
+    """Step-Audio-2-mini's Qwen2.5-7B: 28 query heads over 4 KV heads (G =
+    7) at head dim 128. K3's tile holds 4 tokens of 7 heads (28 of 32
+    rows) at two warps (T = 168: 42 tiles per KV head) and 9 at four (T =
+    1024); the decode kernel runs 2 CTAs (4 + 3 heads) per KV head, split
+    over the tokens at B = 4 and unsplit at B = 64 (512 CTAs)."""
+    assert kernels.plan_prefill_tiles(168, 28, 4, N_SM) == (2, 4, 42)
+    assert kernels.plan_prefill_tiles(1024, 28, 4, N_SM) == (4, 9, 114)
+    kernels._check_heads(28, 4, 128, kernels.MAX_GROUP)
+    assert kernels.decode_heads_per_cta(28, 4) == 4
+    assert kernels.decode_head_groups(28, 4) == 2
+    # B = 4 over ~130-token prompts (8 pages) to 2,048 positions (128)
+    assert kernels.plan_decode_splits(4, 4, 8, N_SM, 16, 2) == 2
+    assert kernels.plan_decode_splits(4, 4, 63, N_SM, 16, 2) == 5
+    for pages in (8, 63, 128):
+        assert kernels.plan_decode_splits(64, 4, pages, N_SM, 16, 2) == 1
+
+
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16])
 def test_decode_head_groups_cover_every_head_once(G):
     """The kernel's head index arithmetic (hgroups = ceil(G / kG), heads
@@ -220,10 +238,11 @@ def _merge(states):
     (4, 120, 16, None, 24),    # Orpheus's G = 3 at the served batch
     (1, 500, 16, None, 24),
     (4, 700, 16, None, 32),    # GLM-4-Voice's G = 16 (KH = 2 below)
+    (4, 700, 16, None, 28),    # Step-Audio 2's G = 7 (KH = 4 below)
 ])
 def test_split_kv_merge_emulation_matches_plain(B, seq_max, page, splits, H):
     rng = np.random.default_rng(B * 1000 + seq_max)
-    KH = 2 if H == 32 else 8
+    KH = {32: 2, 28: 4}.get(H, 8)
     D, L, P = 64, 2, 200
     maxp = -(-seq_max // page)
     pool = torch.from_numpy(rng.standard_normal(

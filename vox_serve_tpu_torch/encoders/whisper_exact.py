@@ -1,6 +1,7 @@
-"""The Whisper log-mel front end and GLM-4-Voice's Whisper-VQ speech
-tokenizer (port of vox_serve_tpu/encoders/whisper_exact.py: the S3 v2
-tokenizer's and the Whisper-VQ encoder's input features, and the encoder).
+"""The Whisper log-mel front end, GLM-4-Voice's Whisper-VQ speech
+tokenizer and Step-Audio 2's audio encoder and adaptor (port of
+vox_serve_tpu/encoders/whisper_exact.py: the S3 v2 tokenizer's and the
+encoders' input features, and the encoders).
 
 GLM Whisper-VQ (the published ``zai-org/glm-4-voice-tokenizer``): 128-mel
 Whisper features -> two causal convs (left-padded, the second with stride
@@ -13,6 +14,14 @@ rows: discrete speech tokens at 12.5 Hz. Linear weights keep torch's
 model's device at preprocess time, in float32 with TF32 off (matmuls and
 cuDNN convolutions), so that the argmin over the codebook sees full
 float32 distances.
+
+Step-Audio 2 (Whisper-large-v3 shaped): 128-mel features -> conv k3 s1 and
+conv k3 s2 (both padded 1, exact GELU) -> learned positions -> 32 pre-LN
+layers (width 1280, 20 heads, FFN 5120, no bias on the key projection)
+under a key-padding mask -> a x2 average pool -> LayerNorm; then the
+adaptor (conv k7 s4, GELU, linear 1280 -> 2048, ReLU, linear -> 3584)
+turns each pooled pair of frames into an LLM embedding row, spliced over
+the prompt's ``<audio>`` marker rows. Also eager, float32, TF32 off.
 """
 
 from __future__ import annotations
@@ -284,3 +293,134 @@ def glm_vq_encode(params: dict, cfg: GLMVQConfig, mel: torch.Tensor,
     are not padding."""
     d = glm_vq_distances(params, cfg, mel, valid_frames)
     return torch.argmin(d, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Step-Audio 2 encoder + adaptor
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StepEncConfig:
+    n_mels: int = 128
+    d_model: int = 1280
+    heads: int = 20
+    layers: int = 32
+    max_positions: int = 1500
+    llm_dim: int = 3584
+    adapter_hidden: int = 2048
+    adapter_kernel: int = 7
+    adapter_stride: int = 4
+
+
+def load_step_encoder_params(sd: dict, cfg: StepEncConfig,
+                             enc_prefix: str = "encoder.",
+                             ada_prefix: str = "adapter.", *,
+                             device="cpu") -> dict:
+    """Map Step-Audio 2's audio encoder (``encoder.*``) and adaptor
+    (``adapter.*``), which sit in the LM's own safetensors, onto
+    ``init_step_encoder_params``' tree, float32 on ``device``."""
+    def arr(n):
+        a = sd[n]
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+        return to_device(t, device, torch.float32)
+
+    return {
+        "conv1_w": arr(f"{enc_prefix}conv1.weight"),
+        "conv1_b": arr(f"{enc_prefix}conv1.bias"),
+        "conv2_w": arr(f"{enc_prefix}conv2.weight"),
+        "conv2_b": arr(f"{enc_prefix}conv2.bias"),
+        "pos": arr(f"{enc_prefix}positional_embedding.weight"),
+        "layers": [_map_layer(
+            sd, f"{enc_prefix}blocks.{i}",
+            ("attn.query", "attn.key", "attn.value", "attn.out",
+             "attn_ln", "mlp.0", "mlp.2", "mlp_ln"), device)
+            for i in range(cfg.layers)],
+        "norm_w": arr(f"{enc_prefix}after_norm.weight"),
+        "norm_b": arr(f"{enc_prefix}after_norm.bias"),
+        "ada_conv_w": arr(f"{ada_prefix}conv.weight"),
+        "ada_conv_b": arr(f"{ada_prefix}conv.bias"),
+        "ada_l1": {"w": arr(f"{ada_prefix}linear1.weight"),
+                   "b": arr(f"{ada_prefix}linear1.bias")},
+        "ada_l2": {"w": arr(f"{ada_prefix}linear2.weight"),
+                   "b": arr(f"{ada_prefix}linear2.bias")},
+    }
+
+
+def init_step_encoder_params(generator: torch.Generator, cfg: StepEncConfig,
+                             device) -> dict:
+    """Random parameters at ``cfg``'s widths (the JAX init's shapes and
+    scales; the numbers come from ``generator``), float32."""
+    g, dev = generator, device
+
+    def normal(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def lin(cin, cout, bias=True):
+        p = {"w": normal((cout, cin), 1.0 / math.sqrt(cin))}
+        if bias:
+            p["b"] = torch.zeros((cout,), device=dev)
+        return p
+
+    D = cfg.d_model
+    ones, zeros = (lambda: torch.ones((D,), device=dev),
+                   lambda: torch.zeros((D,), device=dev))
+    return {
+        "conv1_w": normal((D, cfg.n_mels, 3), 0.05), "conv1_b": zeros(),
+        "conv2_w": normal((D, D, 3), 0.02), "conv2_b": zeros(),
+        "pos": normal((cfg.max_positions, D), 0.02),
+        "layers": [{
+            "q": lin(D, D), "k": lin(D, D, bias=False), "v": lin(D, D),
+            "o": lin(D, D), "ln1_w": ones(), "ln1_b": zeros(),
+            "fc1": lin(D, 4 * D), "fc2": lin(4 * D, D),
+            "ln2_w": ones(), "ln2_b": zeros(),
+        } for _ in range(cfg.layers)],
+        "norm_w": ones(), "norm_b": zeros(),
+        "ada_conv_w": normal((D, D, cfg.adapter_kernel), 0.02),
+        "ada_conv_b": zeros(),
+        "ada_l1": lin(D, cfg.adapter_hidden),
+        "ada_l2": lin(cfg.adapter_hidden, cfg.llm_dim),
+    }
+
+
+def step_key_mask(T_in: int, T: int, valid_frames: int,
+                  device) -> torch.Tensor:
+    """(T, T) additive key mask of the encoder frames after the stride-2
+    conv: mel frame 2j + (T_in + 1) % 2 stands for encoder frame j, which
+    is a key iff that mel frame is < ``valid_frames``."""
+    keep = torch.arange(T_in, device=device) < valid_frames
+    keep = keep[(T_in + 1) % 2::2][:T]
+    return torch.where(keep, 0.0, NEG)[None, :].expand(T, T)
+
+
+def step_encode(params: dict, cfg: StepEncConfig, mel: torch.Tensor,
+                valid_frames: int | None = None) -> torch.Tensor:
+    """mel (B, n_mels, T_mel) -> encoder features (B, T_mel // 4, d_model):
+    conv k3 s1 and conv k3 s2 (pad 1, exact GELU), learned positions, the
+    pre-LN layers under the key-padding mask, an x2 average pool (floor),
+    LayerNorm."""
+    with full_float32():
+        x = F.gelu(_conv1d(params["conv1_w"], params["conv1_b"],
+                           mel.float(), 1, 1))
+        x = F.gelu(_conv1d(params["conv2_w"], params["conv2_b"], x, 2, 1))
+        x = x.transpose(1, 2)  # (B, T // 2, D)
+        B, T, D = x.shape
+        x = x + params["pos"][:T][None]
+        mask = None
+        if valid_frames is not None:
+            mask = step_key_mask(mel.shape[-1], T, valid_frames, x.device)
+        for lp in params["layers"]:
+            x = _layer(lp, x, mask, cfg.heads)
+        T2 = (T // 2) * 2
+        x = x[:, :T2].reshape(B, T2 // 2, 2, D).mean(dim=2)
+        return layer_norm(x, params["norm_w"], params["norm_b"])
+
+
+def step_adaptor(params: dict, cfg: StepEncConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Encoder features (B, T, d_model) -> LLM embedding rows (B, T', llm):
+    conv k7 s4 pad 1 with exact GELU, linear, ReLU, linear."""
+    with full_float32():
+        y = _conv1d(params["ada_conv_w"], params["ada_conv_b"],
+                    x.transpose(1, 2), cfg.adapter_stride, 1)
+        y = F.gelu(y).transpose(1, 2)
+        y = F.relu(_linear(params["ada_l1"], y))
+        return _linear(params["ada_l2"], y)

@@ -33,6 +33,24 @@ from ..codecs.hifigan import hift_decode_chunk, init_hift_cache
 from ..params import tree_map
 
 
+def window_noise(model, n_tokens: int, frames: int) -> torch.Tensor:
+    """A flow model's solver start noise (1, mel, ``frames``) for windows
+    of ``n_tokens`` tokens: drawn from ``model._noise_generator`` on first
+    use, outside a capture (the worker's warm-up call precedes every
+    capture), kept in ``model._flow_noise`` by frame count, then reused."""
+    noise = model._flow_noise.get(frames)
+    if noise is None:
+        if (model.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"flow noise for {n_tokens}-token windows "
+                               "drawn inside a capture")
+        noise = torch.randn((1, model._flow_cfg.mel_dim, frames),
+                            generator=model._noise_generator,
+                            device=model.device)
+        model._flow_noise[frames] = noise
+    return noise
+
+
 class CosyFlowDecodeMixin:
     """Requires: ``self._flow_cfg`` (CosyFlowConfig), ``self._hift_cfg``,
     ``self.detokenize_overlap``, ``self.device``, ``self._noise_generator``
@@ -48,22 +66,9 @@ class CosyFlowDecodeMixin:
 
     def flow_noise(self, n_tokens: int) -> torch.Tensor:
         """The start noise (1, mel, 2 (K + n_tokens)) of a window of
-        ``n_tokens`` tokens: drawn on first use, outside a capture (the
-        worker's warm-up call precedes every capture), then reused."""
-        T2 = self._flow_cfg.token_mel_ratio * (self.FLOW_CTX_TOKENS
-                                               + n_tokens)
-        noise = self._flow_noise.get(T2)
-        if noise is None:
-            if (self.device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
-                raise RuntimeError(
-                    f"flow noise for {n_tokens}-token windows drawn inside "
-                    "a capture")
-            noise = torch.randn((1, self._flow_cfg.mel_dim, T2),
-                                generator=self._noise_generator,
-                                device=self.device)
-            self._flow_noise[T2] = noise
-        return noise
+        ``n_tokens`` tokens (``window_noise``)."""
+        return window_noise(self, n_tokens, self._flow_cfg.token_mel_ratio
+                            * (self.FLOW_CTX_TOKENS + n_tokens))
 
     def _flow_token_column(self, token_ids: torch.Tensor) -> torch.Tensor:
         """(B, W, C) -> (B, W) flow-vocab token ids."""

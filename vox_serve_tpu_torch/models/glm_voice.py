@@ -51,6 +51,7 @@ from ..encoders.whisper_exact import (GLMVQConfig, glm_vq_encode,
 from ..models.backbone import (BackboneConfig, init_backbone_params,
                                seeded_generator)
 from ..models.base import BaseLM, PreprocessOutput
+from ..models.flow_common import window_noise
 from ..models.sts_common import InterleavedAudioMixin
 from ..sampling import SamplingConfig
 from ..utils import get_logger, load_audio_mono
@@ -268,19 +269,7 @@ class GLMVoiceLM(InterleavedAudioMixin, BaseLM):
         window of ``n_tokens`` tokens: drawn on first use, outside a
         capture (the worker's warm-up call precedes every capture), then
         reused."""
-        F = self._flow_cfg.feat_len(n_tokens)
-        noise = self._flow_noise.get(F)
-        if noise is None:
-            if (self.device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
-                raise RuntimeError(
-                    f"flow noise for {n_tokens}-token windows drawn inside "
-                    "a capture")
-            noise = torch.randn((1, self._flow_cfg.mel_dim, F),
-                                generator=self._noise_generator,
-                                device=self.device)
-            self._flow_noise[F] = noise
-        return noise
+        return window_noise(self, n_tokens, self._flow_cfg.feat_len(n_tokens))
 
     # ---- metadata ----------------------------------------------------------
     @property

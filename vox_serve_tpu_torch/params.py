@@ -6,9 +6,11 @@ package's parameter layouts for every module it has — the backbone and
 depth stacks (layers stacked on a leading axis, ``(d_in, d_out)`` linear
 weights), the model trees around them (Qwen3-TTS, GLM-4-Voice's embedding
 and head), the codecs and flows (torch conv layouts; the GLM flow's lists
-of conformer and U-Net blocks) and the encoders (the Whisper-VQ encoder's
-list of layers with ``(out, in)`` linear weights) — so one leaf-wise copy
-converts all of them:
+of conformer and U-Net blocks; Step-Audio 2's flow: the Cosy encoder
+section and the DiT's list of blocks) and the encoders (the Whisper-VQ
+encoder's and Step-Audio 2's audio encoder's lists of layers with ``(out,
+in)`` linear weights, the adaptor) — so one leaf-wise copy converts all
+of them:
 ``tree_to_torch(tree, device, dtype)``, with floating leaves cast to
 ``dtype`` (bf16 for the LM on the card; the codec stays float32). Used by
 the tests so that both packages compute from the same weights.

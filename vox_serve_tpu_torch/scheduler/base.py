@@ -36,6 +36,8 @@ import os
 import time
 from typing import Any, Optional
 
+import numpy as np
+
 from ..utils import RankLogger, get_logger
 
 from ..requests import Request
@@ -640,6 +642,10 @@ class Scheduler:
             "prompt_tokens": req.input_length,
             "audio_tokens": len(req.lm_output_audio_tokens),
             "detok_windows": req.extras.get("detok_windows", []),
+            # prompt rows that took their feature row (Step's spliced
+            # audio rows; CosyVoice2's every row)
+            "feature_rows": (0 if req.input_masks is None else
+                             int(np.count_nonzero(req.input_masks[:, 0]))),
             "finish_reason": req.finish_reason})
 
     def _send(self, message: bytes) -> None:

@@ -27,7 +27,8 @@ the card per kind, the kernel counts one replay of each graph adds,
 capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
 graph pool's size), the last completed requests' prompt lengths,
-audio-token counts, detokenize windows and finish reasons, and the
+audio-token counts, detokenize windows, prompt rows that took a feature
+row and finish reasons, and the
 configuration it served
 (model, scheduler type, KV layout and pool dtype, whether the codec ran
 the fused residual-unit stacks, the codec's tensor dtypes as read from
