@@ -21,8 +21,10 @@ exits non-zero without printing a result:
    CTA) at B=4 and 64, at
    CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, at
    CosyVoice2's Qwen2-0.5B (H=14, KH=2, head dim 64: a group of 7) at B=4
-   and 64, and at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
-   16, four CTAs of 4 heads per KV head) at B=4 and 64.
+   and 64, at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
+   16, four CTAs of 4 heads per KV head) at B=4 and 64, and at Chatterbox's
+   T3 (H=16, KH=16, head dim 64: a group of 1, one head per CTA) at B in
+   {1, 4, 8, 64}.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
@@ -31,7 +33,9 @@ exits non-zero without printing a result:
    at G = 3 (T=168 and 1024), Step-Audio-2-mini's G = 7 (T=168 and
    1024), CSM's G = 4 at head dim
    64 (T=168 and 1024), CosyVoice2's G = 7 at head dim 64 (T=168 and
-   1024) and GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024).
+   1024), GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024) and
+   Chatterbox's G = 1 at head dim 64 (T=168 and 1024: 32- and 64-token
+   tiles).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -149,6 +153,23 @@ exits non-zero without printing a result:
    ~630 decode steps to the first window), windows/s, the decode, prefill
    and detokenize replay times, the encoder's preprocess wall, the
    detokenize graphs' capture and the daemon's memory after init.
+   Run U serves ``--model chatterbox`` (Chatterbox: the 30 x 1024 T3 Llama
+   backbone, 16 heads over 16 KV heads at head dim 64, Llama-3.1 rope at
+   theta 5e5, speech vocab 6,563 with top-p 0.95 at T 0.8 and a global
+   repetition penalty; learned text positions in the host-made prompt rows
+   and learned speech positions added by ``gen_idx`` inside every decode
+   graph; detokenize graphs holding the CosyVoice flow and 24 kHz HiFT over
+   25-token windows every 22 tokens and the 47- and 91-token catch-up
+   windows, then the watermark; random weights from the seed) with A's
+   flags and ``--max-tokens 220``: four text streams (the dev tokenizer
+   spells each space "[SPACE]": prompts of 92-98 rows), K1 and K3 only, 30
+   launches per decode step and prefill, the dev spectral watermark (no
+   Perth snapshot); each prompt exactly as long as its rows, every prompt
+   row a feature row; each stream's PCM is what the overlap rule gives
+   (21,120 samples per 22 tokens, the last window trimmed), at least 4
+   windows for every stream that ran to its cap; it prints TTFA,
+   windows/s, the decode, prefill and detokenize replay times, the
+   detokenize graphs' capture and the init memory.
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -227,7 +248,20 @@ exits non-zero without printing a result:
    configuration from that snapshot (one upload, one text stream): its LM
    does not map at 28 layers, so, as in the JAX package, the backbone and
    the encoder are random and the stats file must report ``flow`` and
-   ``hift`` loaded, ``backbone`` and ``encoder`` not. Each of L-P must
+   ``hift`` loaded, ``backbone`` and ``encoder`` not. Last, Chatterbox:
+   ResembleAI/chatterbox at the published widths (``t3_cfg.safetensors``:
+   the T3 in bf16 with its tables, ``speech_head`` and ``cond_enc.*``;
+   ``s3gen.safetensors``: the flow, HiFT under ``mel2wav.``, the full S3
+   v2 under ``tokenizer.`` and CAMPPlus under ``speaker_encoder.``;
+   ``conds.pt``) and resemble-ai/perth (``perth_net_250000.pth.tar``),
+   loaded through the model's constructor and the watermarker's loader,
+   bit-equal (``conds.pt``'s tensors stay on the host, its decoder prompt
+   trimmed to 128 tokens and 256 mel rows); run V serves U's
+   configuration from both: two default-voice streams (``conds.pt``
+   through the conditioning encoder) and two uploads of the 3 s WAV (S3
+   v2 and CAMPPlus on the card in preprocess), every part loaded and the
+   daemon reporting the Perth watermark, which every detokenize graph
+   replays. Each of L-P must
    report every part
    of its model loaded from the checkpoint (a mapping that fell back to
    random init fails the run), K1
@@ -235,7 +269,8 @@ exits non-zero without printing a result:
    and each prompt exactly as long as its variant's rows (L's ICL prompts
    hold the reference's 38 frames, M's have no speaker row, N's the
    context, P's clones the reference's 75 S3 v2 tokens, R's uploads their
-   38 Whisper-VQ tokens, T's upload its 18 adaptor rows).
+   38 Whisper-VQ tokens, T's upload its 18 adaptor rows, V's uploads as
+   long as its text streams).
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -960,15 +995,19 @@ GLM_ID = "zai-org/glm-4-voice-9b"
 GLM_DECODER = "zai-org/glm-4-voice-decoder"
 GLM_TOKENIZER = "zai-org/glm-4-voice-tokenizer"
 STEP_ID = "stepfun-ai/Step-Audio-2-mini"
+CHATTERBOX_ID = "ResembleAI/chatterbox"
+PERTH_ID = "resemble-ai/perth"
 #: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
 #: N and P by published id, from the checkpoint phase's hub cache
 MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
             "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
-            "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID}
+            "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID,
+            "U": "chatterbox", "V": CHATTERBOX_ID}
 #: the family of a served id (its layers, audio unit and form fields)
 FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
           "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2", "glm": "glm",
-          GLM_ID: "glm", "step-audio-2": "step", STEP_ID: "step"}
+          GLM_ID: "glm", "step-audio-2": "step", STEP_ID: "step",
+          "chatterbox": "chatterbox", CHATTERBOX_ID: "chatterbox"}
 
 
 def family(config: str) -> str:
@@ -1012,11 +1051,18 @@ MODELS = {
     # positions leave a ~140-token prompt ~1,900 steps, ~84 audio tokens
     # (sd ~9), three windows (fewer than two in ~0.03% of streams)
     "step": {"max_tokens": 2048, "unit": "windows", "unit_samples": 24000},
+    # Chatterbox: one 25-token window every 22 tokens = 44 mel frames =
+    # 21,120 samples. The dev tokenizer spells each space as "[SPACE]", so
+    # the prompts are 34 conditioning rows + ~55-60 text rows + the start
+    # row (~92-97); 220 positions leave each stream ~124 audio tokens (a
+    # stop is 1 id of 6,563), five windows (four need 91)
+    "chatterbox": {"max_tokens": 220, "unit": "windows",
+                   "unit_samples": 21120},
 }
 #: per model: backbone layers (each decode step launches the decode kernel
 #: once per layer, each prefill K3 once per layer)
 LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24,
-          "glm": 40, "step": 28}
+          "glm": 40, "step": 28, "chatterbox": 30}
 #: per model: the /generate form fields besides the text (CSM's speaker is
 #: an integer id)
 FORM = {"csm": {"speaker": "0"}}
@@ -1026,8 +1072,8 @@ FRAME_WINDOWS = (10, 1920)
 #: window (Orpheus keeps 2048 of SNAC's 8192; CosyVoice2 emits 25 tokens =
 #: 50 mel frames = 1 s), and the windows each served stream must reach
 OVERLAP_WINDOWS = {"orpheus": (28, 21, 2048), "cosyvoice2": (28, 3, 24000),
-                   "step": (28, 3, 24000)}
-MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4, "step": 2}
+                   "step": (28, 3, 24000), "chatterbox": (25, 3, 21120)}
+MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4, "step": 2, "chatterbox": 4}
 
 
 def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
@@ -1257,9 +1303,37 @@ CONFIGS.update({
                    "checkpoint": {**STEP_RANDOM, "flow": True,
                                   "hift": True}}, {K1, K3}),
 })
+#: what U and V load: U nothing (random weights from the seed, the dev
+#: spectral watermark); V every part of the ResembleAI/chatterbox snapshot
+#: (the T3 LM and its conditioning encoder, the flow, HiFT, S3 v2 and
+#: CAMPPlus from s3gen.safetensors, the default voice from conds.pt) and
+#: Perth from the resemble-ai/perth snapshot
+CHATTERBOX_PARTS = ("backbone", "cond_enc", "flow", "hift", "s3v2",
+                    "campplus", "conds")
+CONFIGS.update({
+    # Chatterbox (MODEL_OF): the 30 x 1024 T3 backbone, K1/K3 at G = 1 and
+    # D=64, its learned speech positions by gen_idx in every decode graph;
+    # the CosyVoice flow and 24 kHz HiFT inside the detokenize graphs over
+    # overlapped 25-token windows, with the watermark; 4 text streams; A's
+    # flags
+    "U": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "watermark": "spectral", "tokenizer_loaded": False,
+                   "checkpoint": dict.fromkeys(CHATTERBOX_PARTS, False)},
+          {K1, K3}),
+    # U's configuration from the ResembleAI/chatterbox and
+    # resemble-ai/perth snapshots: 2 default-voice streams (conds.pt), 2
+    # uploads (S3 v2 and CAMPPlus on the card in preprocess); Perth in every
+    # detokenize graph
+    "V": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "watermark": "perth", "tokenizer_loaded": False,
+                   "checkpoint": dict.fromkeys(CHATTERBOX_PARTS, True)},
+          {K1, K3}),
+})
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJKOQS"
+RANDOM_RUNS = "ABCDEFGHIJKOQSU"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,), "T": (2,)}
@@ -1290,6 +1364,8 @@ REQUESTS = {
 REQUESTS["R"] = REQUESTS["Q"]
 REQUESTS["S"] = REQUESTS["Q"]
 REQUESTS["T"] = [{"fields": {}, "audio": True, "text": ""}, {"fields": {}}]
+# Chatterbox's voice clones speak their text in the upload's voice
+REQUESTS["V"] = [{"fields": {}}] * 2 + [{"fields": {}, "audio": True}] * 2
 #: the reference clip L uploads: 3 s at 24 kHz
 REF_SAMPLES = 72000
 #: the prompt WAVs of the synthetic sesame/csm-1b snapshot: 0.96 s each
@@ -1397,7 +1473,15 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     tokens. GLM-4-Voice: the chat template in text mode, or in audio mode
     with the upload's speech tokens as ``<|audio_k|>`` strings.
     Step-Audio 2: its chat template around the text, or around
-    ``<audio_start>``, one marker per adaptor row and ``<audio_end>``."""
+    ``<audio_start>``, one marker per adaptor row and ``<audio_end>``.
+    Chatterbox: 34 conditioning rows, [start text] + the normalized text
+    (``[SPACE]`` for each space) + [stop text], the start-speech row; an
+    upload changes the conditioning rows, not their count."""
+    if family(config) == "chatterbox":
+        from vox_serve_tpu_torch.models.chatterbox import COND_LEN, ChatterboxLM
+
+        text = ChatterboxLM._punc_norm(text).replace(" ", "[SPACE]")
+        return COND_LEN + len(text) + 3
     if family(config) == "step":
         from vox_serve_tpu_torch.models.step_audio_2 import (PROMPT_POST,
                                                              PROMPT_PRE)
@@ -1442,7 +1526,7 @@ def step_upload_rows() -> int:
 
 
 #: the runs whose prompts are held to ``expected_prompt_tokens``
-PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T")
+PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T", "U", "V")
 
 
 def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
@@ -1774,6 +1858,8 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     check_run(config, card, stats, out)
     if fam == "step":
         check_step_windows(config, stats, out)
+    elif fam == "chatterbox":
+        check_chatterbox_windows(config, stats, out)
     elif fam in OVERLAP_WINDOWS:
         check_overlap_windows(config, stats, out)
     elif fam == "glm":
@@ -2035,6 +2121,77 @@ def check_step_windows(config: str, stats: dict, out: dict) -> None:
         f"wall (the audio encoder + adaptor on the card for uploads) "
         f"{pp_t / max(pp_n, 1) * 1e3:.1f} ms x {pp_n}; detokenize graphs "
         f"(DiT flow + HiFT): "
+        f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
+        f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
+        f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
+        " GB")
+
+
+def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
+    """Each Chatterbox stream emits exactly the PCM the overlap rule gives
+    for the audio tokens its daemon reports (25-token windows every 22
+    tokens, 21,120 samples each, the last trimmed); every stream that ran
+    to its length cap reached ``MIN_WINDOWS`` full windows (a stream that
+    sampled the stop id is held to the rule alone, and printed); every
+    prompt row took its feature row (``feature_rows`` = the prompt). Prints
+    TTFA, windows/s against real time, the decode, prefill and detokenize
+    replay times, the preprocess wall (V's uploads: S3 v2 and CAMPPlus on
+    the card), the detokenize graphs' capture, the watermark and the init
+    memory."""
+    interval, overlap, window = OVERLAP_WINDOWS["chatterbox"]
+    done = {r["request_id"][:8]: r for r in stats["requests"]}
+    full = []
+    for i, st in enumerate(out["streams"]):
+        req = done.get(st["rid8"])
+        if req is None:
+            raise AssertionError(f"[{config}] stream {i} ({st['rid8']}) not "
+                                 f"among the daemon's requests {list(done)}")
+        n = req["audio_tokens"]
+        want = overlap_pcm_samples(n, interval, overlap, window)
+        if st["samples"] != want:
+            raise AssertionError(
+                f"[{config}] stream {i}: {st['samples']} samples for {n} "
+                f"audio tokens, the overlap rule gives {want}")
+        if req["feature_rows"] != req["prompt_tokens"]:
+            raise AssertionError(
+                f"[{config}] stream {i}: {req['feature_rows']} of "
+                f"{req['prompt_tokens']} prompt rows took a feature row")
+        short = want < MIN_WINDOWS["chatterbox"] * window
+        if short and req["finish_reason"] != "stop":
+            raise AssertionError(f"[{config}] stream {i}: {n} audio tokens "
+                                 f"({req['finish_reason']}), fewer than "
+                                 f"{MIN_WINDOWS['chatterbox']} full windows")
+        full.append(not short)
+        upload = bool((REQUESTS.get(config) or [{}] * 4)[i].get("audio"))
+        log(f"[{config}] stream {i} ({st['rid8']}, "
+            f"{'upload' if upload else 'text'}): {n} audio tokens after a "
+            f"{req['prompt_tokens']}-token prompt ({req['finish_reason']}"
+            f"{', sampled the stop id early' if short else ''}) -> "
+            f"{st['samples']} samples = {st['samples'] / window:.2f} windows"
+            f" at 24,000 Hz (overlap rule: {want}; windows "
+            f"{req['detok_windows']}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
+            f"{st['samples'] / window / st['wall_s']:.3f} windows/s")
+    if not any(full):
+        raise AssertionError(f"[{config}] no stream reached "
+                             f"{MIN_WINDOWS['chatterbox']} windows")
+    steps = stats["steps"]
+    probe = steps["probe_ms"]
+    dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
+    det = {k: v for k, v in probe.items() if k.startswith("detok ")}
+    pre = {k: v for k, v in probe.items() if k.startswith("prefill ")}
+    ph = stats["phase_stats"]
+    det_t, det_n = ph.get("detokenize", (0.0, 0))
+    pp_t, pp_n = ph.get("preprocess", (0.0, 0))
+    cap, mib = steps["capture_s_by_kind"], steps["pool_mib_by_kind"]
+    log(f"[{config}] Chatterbox (watermark {stats['watermark']}): TTFA "
+        f"median {out['ttfa_median_s'] * 1e3:.1f} ms; "
+        f"{out['frames_per_s']:.3f} windows/s aggregate over "
+        f"{len(out['streams'])} streams (real time: "
+        f"{SAMPLE_RATE / window:.3f} per stream); decode replay ms (probe) "
+        f"{dec}; prefill replay ms (probe) {pre}; detokenize replay ms "
+        f"(probe) {det}; detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} "
+        f"ms per call; preprocess wall {pp_t / max(pp_n, 1) * 1e3:.1f} ms x "
+        f"{pp_n}; detokenize graphs (flow + HiFT + watermark): "
         f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
         f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
         f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
@@ -2556,6 +2713,128 @@ def step_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
     return loads, run
 
 
+def chatterbox_files(lm, cond, flow, hift, s3, camp) -> dict:
+    """Every tensor of a ResembleAI/chatterbox snapshot's safetensors files
+    by ``file:name`` (the exporters of ``synthetic_checkpoints.py``)."""
+    import synthetic_checkpoints as synth
+
+    files = {"t3_cfg.safetensors": synth.export_chatterbox_t3(lm, cond),
+             "s3gen.safetensors": synth.export_chatterbox_s3gen(
+                 flow, hift, s3, camp)}
+    return {f"{f}:{k}": v for f, sd in files.items() for k, v in sd.items()}
+
+
+def conds_tensors(conds: dict) -> dict:
+    """The tensors of a ``conds.pt`` dict by ``conds.pt:{t3|gen}.name``,
+    the decoder's prompt trimmed to 128 tokens and 256 mel rows (what the
+    model keeps), on the host."""
+    import numpy as np
+    import torch
+
+    from vox_serve_tpu_torch.models.chatterbox import (CONDS_PROMPT_FRAMES,
+                                                       CONDS_PROMPT_TOKENS)
+
+    out = {}
+    for part, d in conds.items():
+        for k, v in d.items():
+            if v is None:
+                continue
+            t = torch.as_tensor(np.asarray(v))
+            if part == "gen" and k == "prompt_token":
+                t = t[:, :CONDS_PROMPT_TOKENS]
+            if part == "gen" and k == "prompt_feat":
+                t = t[:, :CONDS_PROMPT_FRAMES]
+            out[f"conds.pt:{part}.{k}"] = t.contiguous()
+    return out
+
+
+def chatterbox_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
+    """Write ResembleAI/chatterbox in the published layout at the published
+    widths (``t3_cfg.safetensors``: the 30 x 1024 T3 in bf16 with its
+    tables, head and ``cond_enc.*``; ``s3gen.safetensors``: the flow, HiFT
+    under ``mel2wav.``, the full S3 v2 under ``tokenizer.`` and CAMPPlus
+    under ``speaker_encoder.`` in float32; ``conds.pt``) and
+    resemble-ai/perth (``perth_net_250000.pth.tar``); load the first
+    through the model's constructor and the second through the
+    watermarker's loader onto the card, every tensor bit-equal to the one
+    written (``conds.pt``'s stay on the host); then serve run V from
+    both."""
+    import torch
+
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.encoders.campplus import load_campplus_params
+    from vox_serve_tpu_torch.encoders.chatterbox_cond import \
+        init_chatterbox_cond_params
+    from vox_serve_tpu_torch.encoders.s3_exact import (S3V2Config,
+                                                       init_s3v2_params)
+    from vox_serve_tpu_torch.models.backbone import seeded_generator
+    from vox_serve_tpu_torch.models.chatterbox import ChatterboxLM
+    from vox_serve_tpu_torch.watermark import perth, spectral
+
+    loads = {}
+    src = ChatterboxLM(CHATTERBOX_ID, device=dev, seed=81)
+    g = seeded_generator(dev, 82)
+    cond = init_chatterbox_cond_params(
+        g, dev, channels=src.backbone_config.hidden_size)
+    s3 = init_s3v2_params(g, S3V2Config(), dev)
+    camp = load_campplus_params(synth.campplus_state(
+        torch.Generator().manual_seed(83)), device=dev)
+    conds = synth.chatterbox_conds(torch.Generator().manual_seed(84),
+                                   mel_dim=src.flow_config.mel_dim,
+                                   spk_dim=src.flow_config.spk_dim)
+    flow, hift = src.codec_params["flow"], src.codec_params["hift"]
+    snap = synth.snapshot_dir(cache, CHATTERBOX_ID)
+    t0 = time.perf_counter()
+    synth.write_chatterbox(snap, src.params, cond, flow, hift, s3, camp,
+                           conds)
+    ws = time.perf_counter() - t0
+    written = {**chatterbox_files(src.params, cond, flow, hift, s3, camp),
+               **conds_tensors(conds)}
+    del src, cond, s3, camp, flow, hift
+    _free()
+
+    def load():
+        m = ChatterboxLM(CHATTERBOX_ID, device=dev)
+        if not all(m.checkpoint_parts.values()):
+            raise AssertionError(f"[load] {CHATTERBOX_ID}: parts from random"
+                                 f" init: {m.checkpoint_parts}")
+        return m
+
+    loads[CHATTERBOX_ID] = timed_load(
+        CHATTERBOX_ID, _files(snap), load, written,
+        lambda m: {**chatterbox_files(
+            m.params, m.cond_enc, m.codec_params["flow"],
+            m.codec_params["hift"], m.s3v2[0], m.campplus),
+            **conds_tensors(m.default_conds)}, ws)
+    del written
+    _free()
+
+    pcfg = perth.PerthConfig()
+    pp = perth.init_perth_params(pcfg, seeded_generator(dev, 85), dev)
+    psnap = synth.snapshot_dir(cache, PERTH_ID)
+    t0 = time.perf_counter()
+    synth.write_perth(psnap, pp)
+    ws = time.perf_counter() - t0
+
+    def load_perth():
+        real = spectral._try_load_real_perth(
+            spectral.WatermarkConfig(style="perth"), dev)
+        if real is not None and real["_perth_cfg"] != pcfg:
+            raise AssertionError(f"Perth config {real['_perth_cfg']}")
+        return real
+
+    loads[PERTH_ID] = timed_load(
+        PERTH_ID, _files(psnap), load_perth, synth.export_perth(pp),
+        lambda real: synth.export_perth(real["perth"]), ws)
+    del pp
+    _free()
+    try:
+        run = end_to_end(card, "V", hub=str(cache))
+    finally:
+        _free()
+    return loads, run
+
+
 def checkpoint_phase(card: str) -> tuple[dict, dict]:
     """Write synthetic checkpoints at the published widths and names
     (random weights from seeds, through ``synthetic_checkpoints.py``'s
@@ -2737,6 +3016,12 @@ def checkpoint_phase(card: str) -> tuple[dict, dict]:
         step_loads, runs["T"] = step_checkpoint(card, cache, dev)
         loads.update(step_loads)
         _drop_snapshot(cache, STEP_ID)
+
+        # -- Chatterbox: T3 with cond_enc, s3gen, conds.pt; Perth; run V ---
+        chat_loads, runs["V"] = chatterbox_checkpoint(card, cache, dev)
+        loads.update(chat_loads)
+        _drop_snapshot(cache, CHATTERBOX_ID)
+        _drop_snapshot(cache, PERTH_ID)
     finally:
         if saved_env is None:
             os.environ.pop("HF_HUB_CACHE", None)
@@ -2798,6 +3083,10 @@ def main(argv=None) -> int:
     # per KV head; 2 or 4 tokens per K3 tile) at head dim 128
     check_decode(kernels, "K1", H=32, KH=2, batches=(4, 64))
     check_k3(kernels, H=32, KH=2, shapes=((168, 4), (1024, 5)))
+    # Chatterbox's T3: 16 heads over 16 (G = 1: one head per decode CTA; 32
+    # or 64 tokens per K3 tile) at head dim 64
+    check_decode(kernels, "K1", H=16, KH=16, batches=(1, 4, 8, 64), D=64)
+    check_k3(kernels, H=16, KH=16, shapes=((168, 4), (1024, 5)), D=64)
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -2819,7 +3108,7 @@ def main(argv=None) -> int:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
-    marks.append(("checkpoints, L, M, N, P, R, T", time.perf_counter()))
+    marks.append(("checkpoints, L, M, N, P, R, T, V", time.perf_counter()))
     runs.update(ckpt_runs)
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)

@@ -1053,3 +1053,123 @@ def write_step_token2wav(snapshot: Path, flow: dict, hift: dict) -> dict:
                    d / name)
         sizes["token2wav/" + name] = os.path.getsize(d / name)
     return sizes
+
+
+# ---------------------------------------------------------------------------
+# Chatterbox: T3 with its conditioning encoder, s3gen, conds.pt; Perth
+# ---------------------------------------------------------------------------
+
+
+def export_chatterbox_cond(p: dict, prefix: str = "cond_enc.") -> dict:
+    """Inverse of ``load_chatterbox_cond_params``."""
+    pre = prefix + "perceiver."
+    out = {prefix + "spkr_enc.weight": p["spkr_w"],
+           prefix + "spkr_enc.bias": p["spkr_b"],
+           prefix + "emotion_adv_fc.weight": p["emotion_w"],
+           pre + "pre_attention_query": p["query"],
+           pre + "attn.norm.weight": p["norm_w"],
+           pre + "attn.norm.bias": p["norm_b"]}
+    for n in ("to_q", "to_k", "to_v", "proj_out"):
+        out[f"{pre}attn.{n}.weight"] = p[n]["w"]
+        out[f"{pre}attn.{n}.bias"] = p[n]["b"]
+    return out
+
+
+def export_chatterbox_t3(params: dict, cond_enc: Optional[dict]) -> dict:
+    """Inverse of ``ChatterboxLM._load_t3``: ``t3_cfg.safetensors``'s names
+    (the Llama layers under ``tfmr.``, the text and speech tables, the
+    learned position tables under ``*_pos_emb.emb``, ``speech_head`` in
+    the ``(out, in)`` layout, and ``cond_enc.*``)."""
+    out = export_llama_backbone(params["backbone"], "tfmr.")
+    out["text_emb.weight"] = params["text_embed"]
+    out["speech_emb.weight"] = params["speech_embed"]
+    out["text_pos_emb.emb.weight"] = params["text_pos"]
+    out["speech_pos_emb.emb.weight"] = params["speech_pos"]
+    out["speech_head.weight"] = _t(params["speech_head"])
+    if cond_enc is not None:
+        out.update(export_chatterbox_cond(cond_enc))
+    return out
+
+
+def export_chatterbox_s3gen(flow: dict, hift: dict, s3v2: Optional[dict],
+                            campplus: dict) -> dict:
+    """``s3gen.safetensors``'s names: the flow under ``flow.``, HiFT under
+    ``mel2wav.`` (weight-norm pairs), S3 v2 under ``tokenizer.`` (unless
+    ``s3v2`` is None) and CAMPPlus under ``speaker_encoder.``."""
+    out = {"flow." + k: v for k, v in export_cosy_flow(flow).items()}
+    out.update(export_hift(hift, prefix="mel2wav."))
+    if s3v2 is not None:
+        out.update({"tokenizer." + k: v
+                    for k, v in export_s3v2(s3v2).items()})
+    out.update({"speaker_encoder." + k: v
+                for k, v in export_campplus(campplus).items()})
+    return out
+
+
+def chatterbox_conds(generator: torch.Generator, prompt_tokens: int = 150,
+                     gen_tokens: int = 150, mel_dim: int = 80,
+                     spk_dim: int = 192, speaker_dim: int = 256) -> dict:
+    """A random ``conds.pt`` in the published layout: ``t3`` (the speaker
+    embedding, the prompt's speech tokens, the exaggeration) and ``gen``
+    (the decoder's prompt tokens, prompt mel rows at two per token and
+    x-vector)."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator)
+
+    def tokens(n):
+        return torch.randint(0, 6561, (1, n), generator=generator)
+
+    return {
+        "t3": {"speaker_emb": normal(1, speaker_dim), "clap_emb": None,
+               "cond_prompt_speech_tokens": tokens(prompt_tokens),
+               "cond_prompt_speech_emb": None,
+               "emotion_adv": torch.full((1, 1, 1), 0.5)},
+        "gen": {"prompt_token": tokens(gen_tokens),
+                "prompt_token_len": torch.tensor([gen_tokens]),
+                "prompt_feat": normal(1, 2 * gen_tokens, mel_dim),
+                "prompt_feat_len": None,
+                "embedding": normal(1, spk_dim)},
+    }
+
+
+def write_chatterbox(snapshot: Path, lm: dict, cond_enc: Optional[dict],
+                     flow: dict, hift: dict, s3v2: Optional[dict],
+                     campplus: dict, conds: dict) -> dict:
+    """The ResembleAI/chatterbox layout the loaders read:
+    ``t3_cfg.safetensors``, ``s3gen.safetensors`` and ``conds.pt``;
+    returns bytes per file."""
+    from vox_serve_tpu_torch.weights import save_safetensors
+
+    snapshot = Path(snapshot)
+    sizes = {
+        "t3_cfg.safetensors": save_safetensors(
+            export_chatterbox_t3(lm, cond_enc),
+            snapshot / "t3_cfg.safetensors"),
+        "s3gen.safetensors": save_safetensors(
+            export_chatterbox_s3gen(flow, hift, s3v2, campplus),
+            snapshot / "s3gen.safetensors")}
+    torch.save(conds, snapshot / "conds.pt")
+    sizes["conds.pt"] = os.path.getsize(snapshot / "conds.pt")
+    return sizes
+
+
+def export_perth(params: dict) -> dict:
+    """Inverse of ``load_perth_params``: PerthNet's state dict names (the
+    encoder and the three decoder branches, seven convs each)."""
+    out: dict = {}
+    stacks = [("encoder.layers", params["encoder"])] + [
+        (f"decoder.{b}_layers", params[f"dec_{b}"])
+        for b in ("slow", "normal", "fast")]
+    for name, convs in stacks:
+        for i, c in enumerate(convs):
+            _conv(out, f"{name}.{i}.conv", c)
+    return out
+
+
+def write_perth(snapshot: Path, params: dict) -> int:
+    """resemble-ai/perth's ``perth_net_250000.pth.tar`` (``{"model":
+    state}``); returns bytes."""
+    path = Path(snapshot) / "perth_net_250000.pth.tar"
+    torch.save({"model": {k: v.detach().cpu().contiguous()
+                          for k, v in export_perth(params).items()}}, path)
+    return os.path.getsize(path)

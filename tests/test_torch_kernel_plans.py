@@ -151,6 +151,22 @@ def test_kernels_take_the_step_audio2_head_group():
         assert kernels.plan_decode_splits(64, 4, pages, N_SM, 16, 2) == 1
 
 
+def test_kernels_take_the_chatterbox_head_group():
+    """Chatterbox's T3: 16 query heads over 16 KV heads (G = 1) at head dim
+    64. K3's tile holds 32 tokens of one head at two warps (T = 168: 6
+    tiles per KV head, 96 CTAs) and 64 at four (T = 1024: 16 tiles, 256
+    CTAs); the decode kernel runs one head per CTA, 16 CTAs per row, split
+    over the tokens where that grid does not fill the card."""
+    assert kernels.plan_prefill_tiles(168, 16, 16, N_SM) == (2, 32, 6)
+    assert kernels.plan_prefill_tiles(1024, 16, 16, N_SM) == (4, 64, 16)
+    kernels._check_heads(16, 16, 64, kernels.MAX_GROUP)
+    assert kernels.decode_heads_per_cta(16, 16) == 1
+    assert kernels.decode_head_groups(16, 16) == 1
+    # B = 4 over ~100-token prompts (7 pages) to 1,000 positions (63)
+    assert kernels.plan_decode_splits(4, 16, 7, N_SM, 16, 1) == 2
+    assert kernels.plan_decode_splits(64, 16, 63, N_SM, 16, 1) == 1
+
+
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16])
 def test_decode_head_groups_cover_every_head_once(G):
     """The kernel's head index arithmetic (hgroups = ceil(G / kG), heads

@@ -125,10 +125,22 @@ def test_round_trip_detectable_and_transparent(spectral):
 
 
 def test_perth_branch_raises(spectral):
-    _, _, tp = spectral
-    with pytest.raises(NotImplementedError, match="Perth"):
+    """"perth" parameters select the Perth branch: incomplete ones (no
+    ``_perth_cfg``) raise there rather than fall through to the dev
+    spectral marker; complete ones mark a chunk at its length
+    (tests/test_torch_perth.py holds the values to JAX's)."""
+    from vox_serve_tpu_torch.watermark.perth import (PerthConfig,
+                                                     init_perth_params)
+
+    with pytest.raises(KeyError, match="_perth_cfg"):
         apply_watermark({"perth": {}}, WatermarkConfig(style="perth"),
                         torch.zeros((1, 4096)))
+    cfg = PerthConfig()
+    p = init_perth_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    audio = torch.from_numpy(_audio(T=4096, seed=3)[:1])
+    out = apply_watermark({"perth": p, "_perth_cfg": cfg},
+                          WatermarkConfig(style="perth"), audio)
+    assert out.shape == (1, 4096) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("rates,out_len", [((24000, 44100), "floor"),

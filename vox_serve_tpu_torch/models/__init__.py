@@ -1,7 +1,7 @@
 """Model registry of the port (vox_serve_tpu/models/__init__.py, holding the
 families ported so far: ``dummy``, Qwen3-TTS (CustomVoice, Base and
 VoiceDesign at 1.7B and 0.6B), Orpheus-3B, CSM-1B, CosyVoice2-0.5B,
-GLM-4-Voice-9B and Step-Audio-2-mini).
+GLM-4-Voice-9B, Step-Audio-2-mini and Chatterbox).
 
 ``load_model`` resolves the class, builds it on the given device, and
 applies CLI sampling overrides onto the model's defaults.
@@ -43,6 +43,8 @@ _register(["cosyvoice2", "cosyvoice2-0.5b", "funaudiollm/cosyvoice2-0.5b"],
 _register(["glm", "glm-4-voice", "thudm/glm-4-voice-9b",
            "zai-org/glm-4-voice-9b"],
           "vox_serve_tpu_torch.models.glm_voice", "GLMVoiceLM")
+_register(["chatterbox", "resembleai/chatterbox"],
+          "vox_serve_tpu_torch.models.chatterbox", "ChatterboxLM")
 _register(["step-audio-2", "step-audio-2-mini",
            "stepfun-ai/step-audio-2-mini"],
           "vox_serve_tpu_torch.models.step_audio_2", "StepAudio2LM")

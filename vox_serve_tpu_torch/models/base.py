@@ -185,6 +185,14 @@ class BaseLM(abc.ABC):
               masks: torch.Tensor | None) -> torch.Tensor:
         """(T, C) int [+ features/masks] -> (T, hidden)."""
 
+    def embed_step(self, params: dict, token_ids: torch.Tensor,
+                   features: torch.Tensor | None, masks: torch.Tensor | None,
+                   positions: torch.Tensor,
+                   gen_idx: torch.Tensor | None) -> torch.Tensor:
+        """Position-aware embedding hook (Chatterbox adds its learned
+        speech positions by ``gen_idx`` here); defaults to ``embed``."""
+        return self.embed(params, token_ids, features, masks)
+
     @abc.abstractmethod
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """(B, hidden) -> (B, C_logits, vocab)."""
@@ -206,11 +214,14 @@ class BaseLM(abc.ABC):
         generator: Optional[torch.Generator],
         repetition_cache: torch.Tensor | None,
         last_token_idx: torch.Tensor | None = None,  # (B,) for prefill
+        gen_idx: torch.Tensor | None = None,         # (B,) output index
     ) -> StepOutput:
         """One full LM step. Decode: T == B. Prefill: gather hidden at
-        ``last_token_idx`` before the head. Updates the KV pool(s) in place
-        (``v_pages`` None for the combined pool)."""
-        x = self.embed(params, token_ids, features, masks)
+        ``last_token_idx`` before the head. ``gen_idx``: each row's
+        output-token index (zeros at prefill). Updates the KV pool(s) in
+        place (``v_pages`` None for the combined pool)."""
+        x = self.embed_step(params, token_ids, features, masks, positions,
+                            gen_idx)
         h = backbone_forward(params["backbone"], self.backbone_config, x,
                              positions, meta, k_pages, v_pages,
                              kv_scales=self.kv_quant_scales)
@@ -219,15 +230,16 @@ class BaseLM(abc.ABC):
         logits = self.adjust_logits(self.logits(params, h))
         ids, rep = sample_and_update(logits, self.sampling_config, generator,
                                      repetition_cache)
-        out = self.post_sample(params, h, ids, generator)
+        out = self.post_sample(params, h, ids, generator, gen_idx=gen_idx)
         return StepOutput(sampled=out["sampled"], repetition_cache=rep,
                           feedback=out.get("feedback"))
 
     def post_sample(self, params: dict, hidden: torch.Tensor,
-                    ids: torch.Tensor,
-                    generator: Optional[torch.Generator]) -> dict:
-        """Hook for depth models (sample the remaining codebooks) and
-        feedback. ids: (B, C_logits) -> {"sampled": (B, C), ...}."""
+                    ids: torch.Tensor, generator: Optional[torch.Generator],
+                    gen_idx: torch.Tensor | None = None) -> dict:
+        """Hook for depth models (sample the remaining codebooks), feedback
+        and delay patterns (by ``gen_idx``). ids: (B, C_logits) ->
+        {"sampled": (B, C), ...}."""
         if ids.shape[1] == self.n_codebooks:
             return {"sampled": ids}
         pad = torch.zeros((ids.shape[0], self.n_codebooks - ids.shape[1]),
@@ -263,7 +275,7 @@ class BaseLMWithDepth(BaseLM):
         """hidden: (B, H) final backbone hidden; cb0: (B,) sampled codebook
         0. Returns ((B, n_codebooks) all codebook ids, feedback or None)."""
 
-    def post_sample(self, params, hidden, ids, generator):
+    def post_sample(self, params, hidden, ids, generator, gen_idx=None):
         all_ids, feedback = self.depth_step(params, hidden, ids[:, 0],
                                             generator)
         return {"sampled": all_ids, "feedback": feedback}

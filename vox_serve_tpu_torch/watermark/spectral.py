@@ -19,8 +19,10 @@ caller passes float32 audio. With SilentCipher parameters (``"sc"``, from
 model rate, embedded and resampled back. ``init_watermarker`` serves them
 when a ``sony/silentcipher`` snapshot resolves (the 44.1 kHz checkpoint
 and its ``hparams.yaml``, read with ``yaml`` when it can be imported, else
-by a reader of its flat ``KEY: scalar`` lines); the Perth branch is not
-ported yet.
+by a reader of its flat ``KEY: scalar`` lines). With Perth parameters
+(``"perth"``, from ``watermark/perth.py``; style "perth", from
+``VOX_SERVE_PERTH_CKPT`` or a ``resemble-ai/perth`` snapshot) the chunk is
+resampled to 32 kHz, marked by PerthNet's encoder and resampled back.
 """
 
 from __future__ import annotations
@@ -137,12 +139,54 @@ def _try_load_real_silentcipher(cfg: WatermarkConfig, device):
         return None
 
 
+def _try_load_real_perth(cfg: WatermarkConfig, device):
+    """The published PerthNet implicit checkpoint
+    (``perth_net_250000.pth.tar``, its state dict under ``model``) from
+    ``VOX_SERVE_PERTH_CKPT``, else from a ``resemble-ai/perth`` snapshot,
+    as ``apply_watermark``'s ``"perth"`` parameters; else None."""
+    import os
+    from pathlib import Path
+
+    candidates = []
+    if os.environ.get("VOX_SERVE_PERTH_CKPT"):
+        candidates.append(Path(os.environ["VOX_SERVE_PERTH_CKPT"]))
+    try:
+        from ..weights import resolve_model_dir
+
+        d = resolve_model_dir("resemble-ai/perth")
+        if d is not None:
+            candidates += [d / "perth_net_250000.pth.tar",
+                           d / "perth" / "perth_net" / "pretrained"
+                           / "implicit" / "perth_net_250000.pth.tar"]
+    except Exception:
+        pass
+    for path in candidates:
+        if not path.is_file():
+            continue
+        try:
+            from .perth import PerthConfig, load_perth_params
+
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
+            p_cfg = PerthConfig()
+            return {"perth": load_perth_params(ckpt["model"], p_cfg,
+                                               device=device),
+                    "_perth_cfg": p_cfg}
+        except Exception as e:
+            get_logger("watermark").warning(
+                "perth checkpoint load failed (%s)", type(e).__name__)
+    return None
+
+
 def init_watermarker(cfg: WatermarkConfig, generator: torch.Generator,
                      device) -> dict:
-    """SilentCipher's published weights when a snapshot resolves (style
-    "silentcipher"); otherwise the dev spectral marker's parameters on
-    ``device``, with the JAX package's warning: the marks are
-    non-standard."""
+    """The published weights of the configured style when they resolve
+    (Perth: ``_try_load_real_perth``; SilentCipher: a snapshot);
+    otherwise the dev spectral marker's parameters on ``device``, with the
+    JAX package's warning: the marks are non-standard."""
+    if cfg.style == "perth":
+        real = _try_load_real_perth(cfg, device)
+        if real is not None:
+            return real
     if cfg.style == "silentcipher":
         real = _try_load_real_silentcipher(cfg, device)
         if real is not None:
@@ -224,26 +268,40 @@ def _istft(spec: torch.Tensor, n_fft: int, hop: int, out_len: int,
     return sig[:, pad:pad + out_len]
 
 
+def _at_model_rate(audio: torch.Tensor, sr: int, model_sr: int,
+                   mark) -> torch.Tensor:
+    """``mark`` applied at a published marker's model rate: resample the
+    (B, T) chunk to ``model_sr``, mark it, resample it back, then pad or
+    crop it to T."""
+    from .silentcipher import sinc_resample
+
+    T = audio.shape[1]
+    out = sinc_resample(mark(sinc_resample(audio, sr, model_sr)), model_sr,
+                        sr)
+    if out.shape[1] < T:
+        out = F.pad(out, (0, T - out.shape[1]))
+    return out[:, :T]
+
+
 def apply_watermark(params: dict, cfg: WatermarkConfig,
                     audio: torch.Tensor) -> torch.Tensor:
     """audio: (B, T) float32 in [-1, 1] -> watermarked audio, same shape."""
     if "sc" in params:
-        # SilentCipher: resample to the 44.1 kHz model rate, embed,
-        # resample back
-        from .silentcipher import sc_encode, sinc_resample
+        # SilentCipher at its 44.1 kHz model rate
+        from .silentcipher import sc_encode
 
         sc_cfg = params["_sc_cfg"]
-        T = audio.shape[1]
-        y = sinc_resample(audio, cfg.sample_rate, sc_cfg.sr)
-        y = sc_encode(params["sc"], sc_cfg, y, params["sc_msg"])
-        out = sinc_resample(y, sc_cfg.sr, cfg.sample_rate)
-        if out.shape[1] < T:
-            out = F.pad(out, (0, T - out.shape[1]))
-        return out[:, :T]
+        return _at_model_rate(audio, cfg.sample_rate, sc_cfg.sr,
+                              lambda y: sc_encode(params["sc"], sc_cfg, y,
+                                                  params["sc_msg"]))
     if "perth" in params:
-        raise NotImplementedError(
-            "the Perth watermark is not ported yet (it comes with the "
-            "chatterbox model)")
+        # PerthNet at its 32 kHz model rate
+        from .perth import perth_encode_wav
+
+        p_cfg = params["_perth_cfg"]
+        return _at_model_rate(audio, cfg.sample_rate, p_cfg.sample_rate,
+                              lambda y: perth_encode_wav(params["perth"],
+                                                         p_cfg, y))
     T = audio.shape[1]
     spec, window = _stft(audio, cfg.n_fft, cfg.hop)
     mag = torch.abs(spec)

@@ -706,15 +706,17 @@ class ModelWorker:
                                    device=self.device)
         out = model.lm_step(model.params, tokens, pos, feat, msk, meta,
                             self.k_pages, self.v_pages, self.generator,
-                            rep_rows, last_token_idx=last_idx)
+                            rep_rows, last_token_idx=last_idx,
+                            gen_idx=torch.zeros_like(slot_ids))
         self._commit_step(out, slot_ids.long())
         return out.sampled
 
     def _lm_decode(self, overrides, override_mask, positions, meta,
-                   slots) -> torch.Tensor:
+                   slots, gen_idx) -> torch.Tensor:
         """One decode step over the slots' rows: feed each slot's last
-        sampled tokens (or the pack's overrides), run the model, scatter the
-        state back in place. Returns the sampled (B, C) tokens."""
+        sampled tokens (or the pack's overrides) at output index
+        ``gen_idx``, run the model, scatter the state back in place.
+        Returns the sampled (B, C) tokens."""
         model = self.model
         token_ids = torch.where(override_mask != 0, overrides,
                                 self.last_tokens[slots])
@@ -724,7 +726,7 @@ class ModelWorker:
                     else None)
         out = model.lm_step(model.params, token_ids, positions, features,
                             None, meta, self.k_pages, self.v_pages,
-                            self.generator, rep_rows)
+                            self.generator, rep_rows, gen_idx=gen_idx)
         self._commit_step(out, slots)
         return out.sampled
 
@@ -733,7 +735,7 @@ class ModelWorker:
         advancing on the device. Returns the (K, B, C) samples, the slot
         ids and the tokens the slots held before the first step (a cold
         stream's frame 0: the prefill's sample)."""
-        (overrides, override_mask, positions, page_ids, offsets, _gen_idx0,
+        (overrides, override_mask, positions, page_ids, offsets, gen_idx0,
          seq_lens0, slot_ids, tables) = self._multi_pack_views(
              pack, K, B, self.model.n_codebooks, W)
         slots = slot_ids.long()
@@ -744,7 +746,8 @@ class ModelWorker:
                                 block_tables=tables, seq_lens=seq_lens0 + i,
                                 decode_scratch=self.decode_scratch)
             sampled.append(self._lm_decode(overrides[i], override_mask[i],
-                                           positions[i], meta, slots))
+                                           positions[i], meta, slots,
+                                           gen_idx0 + i))
         return torch.stack(sampled), slots, init_tok
 
     def _detok_rows(self, token_ids: torch.Tensor,
@@ -792,7 +795,7 @@ class ModelWorker:
         if kind == "decode":
             def body(pack):
                 self._count_eager(kind)
-                (overrides, override_mask, _gen_idx, positions, page_ids,
+                (overrides, override_mask, gen_idx, positions, page_ids,
                  offsets, seq_lens, slot_ids, tables) = \
                     self._decode_pack_views(pack, C)
                 meta = AttnMetadata(False, page_ids, offsets,
@@ -800,7 +803,7 @@ class ModelWorker:
                                     seq_lens=seq_lens.contiguous(),
                                     decode_scratch=self.decode_scratch)
                 return self._lm_decode(overrides, override_mask, positions,
-                                       meta, slot_ids.long())
+                                       meta, slot_ids.long(), gen_idx)
             return body, (self._padded_pack(key),)
         if kind in ("decode_multi", "decode_multi_detok"):
             _, B, K, W = key
@@ -1644,10 +1647,33 @@ class ModelWorker:
             resolved += self._issue_detok(wins, maps, L, fc)
         return pre_resolved + resolved
 
+    @staticmethod
+    def _live_windows(req: Request, interval: int) -> list[int]:
+        """The scheduler's windows for req, less those after a window that
+        reaches the stream's last audio token. With an overlap codec that
+        window is the final one (``_maybe_finish`` ends the stream there);
+        one after it holds only its lookahead tokens. The schedulers (as
+        the JAX package's) name such a window when generation ends in the
+        round that completes the window before it, so the stream's last
+        chunk depended on that timing."""
+        n = len(req.lm_output_audio_tokens)
+        prev = req.audio_decode_idx[-1] if req.audio_decode_idx else None
+        live = []
+        for start in req.next_audio_decode_idx:
+            if (req.done_lm_generation and prev is not None
+                    and prev + interval >= n):
+                break
+            live.append(start)
+            prev = start
+        return live
+
     def _plan_detok_windows(self, req: Request, by_len: dict, interval: int,
                             step: int) -> None:
         """Collect req's ready chunk windows into by_len (len -> windows)."""
-        req.audio_decode_idx = list(req.next_audio_decode_idx)
+        live = self._live_windows(req, interval)
+        if not live:
+            return  # its final window is decoded: ``_maybe_finish`` ends it
+        req.audio_decode_idx = live
         if self.codec_cache is not None and len(req.audio_decode_idx) > 1:
             idx = req.audio_decode_idx
             k = next((kk for kk in self.config.multi_chunk_ks
