@@ -22,8 +22,9 @@ exits non-zero without printing a result:
    CSM-1B's (H=32, KH=8, head dim 64: a group of 4) at B=4 and 64, at
    CosyVoice2's Qwen2-0.5B (H=14, KH=2, head dim 64: a group of 7) at B=4
    and 64, at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
-   16, four CTAs of 4 heads per KV head) at B=4 and 64, and at Chatterbox's
+   16, four CTAs of 4 heads per KV head) at B=4 and 64, at Chatterbox's
    T3 (H=16, KH=16, head dim 64: a group of 1, one head per CTA) at B in
+   {1, 4, 8, 64}, and at Zonos-v0.1's (H=16, KH=16, head dim 128) at B in
    {1, 4, 8, 64}.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
@@ -33,9 +34,9 @@ exits non-zero without printing a result:
    at G = 3 (T=168 and 1024), Step-Audio-2-mini's G = 7 (T=168 and
    1024), CSM's G = 4 at head dim
    64 (T=168 and 1024), CosyVoice2's G = 7 at head dim 64 (T=168 and
-   1024), GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024) and
-   Chatterbox's G = 1 at head dim 64 (T=168 and 1024: 32- and 64-token
-   tiles).
+   1024), GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024),
+   Chatterbox's G = 1 at head dim 64 and Zonos's G = 1 at head dim 128
+   (T=168 and 1024: 32- and 64-token tiles).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -170,6 +171,20 @@ exits non-zero without printing a result:
    windows for every stream that ran to its cap; it prints TTFA,
    windows/s, the decode, prefill and detokenize replay times, the
    detokenize graphs' capture and the init memory.
+   Run W serves ``--model zonos`` (Zonos-v0.1: the 26 x 2048 LayerNorm
+   backbone, 16 heads over 16 KV heads at head dim 128, 9 codebooks of
+   1,025 ids sampled together with min_p and a repetition window, the
+   delay pattern's mask applied by ``gen_idx`` inside every graph;
+   detokenize graphs holding the delay revert, DAC 44.1 kHz and the 24 kHz
+   resample over 50-token windows every 41 tokens; random weights from the
+   seed) with A's flags and ``--max-tokens 220``: four text streams (39
+   prompt rows each: the text's phonemes between BOS and EOS and six
+   conditioning rows, every row a feature row), K1 and K3 only, 26
+   launches per decode step and prefill; each stream's PCM is what the
+   overlap rule gives (11,425 samples per 41 tokens, the last window
+   trimmed), at least 4 windows for every stream that ran to its cap and
+   2 in some stream (EOS is 1 of 1,025 ids on codebook 0: under random
+   heads most streams sample it before their cap).
    Every prefill, decode
    step, detokenize, chained first-chunk decode and cold chain of every
    run is a replay of a CUDA graph captured at the daemon's start-up. Each
@@ -261,7 +276,16 @@ exits non-zero without printing a result:
    through the conditioning encoder) and two uploads of the 3 s WAV (S3
    v2 and CAMPPlus on the card in preprocess), every part loaded and the
    daemon reporting the Perth watermark, which every detokenize graph
-   replays. Each of L-P must
+   replays. Last, Zonos-v0.1: Zyphra/Zonos-v0.1-transformer
+   (``model.safetensors``: the 26 x 2048 LM in bf16, the prefix
+   conditioner in float32; ``config.json`` with its conditioner list),
+   descript/dac_44khz (``model.safetensors``, float32) and
+   Zyphra/Zonos-v0.1-speaker-embedding (the ResNet293 base and LDA-128
+   ``.pt`` files), each loaded bit-equal through the model's loaders; run
+   X serves W's configuration from the three: two uploads of the 3 s WAV
+   (the speaker net on the card in preprocess; the daemon's log must name
+   no failed extraction) and two text streams, every part loaded. Each of
+   L-P must
    report every part
    of its model loaded from the checkpoint (a mapping that fell back to
    random init fails the run), K1
@@ -269,8 +293,8 @@ exits non-zero without printing a result:
    and each prompt exactly as long as its variant's rows (L's ICL prompts
    hold the reference's 38 frames, M's have no speaker row, N's the
    context, P's clones the reference's 75 S3 v2 tokens, R's uploads their
-   38 Whisper-VQ tokens, T's upload its 18 adaptor rows, V's uploads as
-   long as its text streams).
+   38 Whisper-VQ tokens, T's upload its 18 adaptor rows, V's and X's
+   uploads as long as their text streams).
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -997,17 +1021,22 @@ GLM_TOKENIZER = "zai-org/glm-4-voice-tokenizer"
 STEP_ID = "stepfun-ai/Step-Audio-2-mini"
 CHATTERBOX_ID = "ResembleAI/chatterbox"
 PERTH_ID = "resemble-ai/perth"
+ZONOS_ID = "Zyphra/Zonos-v0.1-transformer"
+DAC_ID = "descript/dac_44khz"
+ZONOS_SPEAKER_ID = "Zyphra/Zonos-v0.1-speaker-embedding"
 #: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
 #: N and P by published id, from the checkpoint phase's hub cache
 MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
             "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
             "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID,
-            "U": "chatterbox", "V": CHATTERBOX_ID}
+            "U": "chatterbox", "V": CHATTERBOX_ID, "W": "zonos",
+            "X": ZONOS_ID}
 #: the family of a served id (its layers, audio unit and form fields)
 FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
           "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2", "glm": "glm",
           GLM_ID: "glm", "step-audio-2": "step", STEP_ID: "step",
-          "chatterbox": "chatterbox", CHATTERBOX_ID: "chatterbox"}
+          "chatterbox": "chatterbox", CHATTERBOX_ID: "chatterbox",
+          "zonos": "zonos", ZONOS_ID: "zonos"}
 
 
 def family(config: str) -> str:
@@ -1058,11 +1087,17 @@ MODELS = {
     # stop is 1 id of 6,563), five windows (four need 91)
     "chatterbox": {"max_tokens": 220, "unit": "windows",
                    "unit_samples": 21120},
+    # Zonos: one 50-token window every 41 tokens = 41 DAC frames = 11,425
+    # samples at 24 kHz. Each prompt is its text's phonemes (the text
+    # passes through: no espeak) + 8 conditioning rows, 39 here; 220
+    # positions leave ~181 tokens, four full windows (they need 173) and
+    # a partial one (a stop is 1 id of 1,025 on codebook 0)
+    "zonos": {"max_tokens": 220, "unit": "windows", "unit_samples": 11425},
 }
 #: per model: backbone layers (each decode step launches the decode kernel
 #: once per layer, each prefill K3 once per layer)
 LAYERS = {"qwen3-tts": 28, "orpheus": 28, "csm": 16, "cosyvoice2": 24,
-          "glm": 40, "step": 28, "chatterbox": 30}
+          "glm": 40, "step": 28, "chatterbox": 30, "zonos": 26}
 #: per model: the /generate form fields besides the text (CSM's speaker is
 #: an integer id)
 FORM = {"csm": {"speaker": "0"}}
@@ -1072,8 +1107,15 @@ FRAME_WINDOWS = (10, 1920)
 #: window (Orpheus keeps 2048 of SNAC's 8192; CosyVoice2 emits 25 tokens =
 #: 50 mel frames = 1 s), and the windows each served stream must reach
 OVERLAP_WINDOWS = {"orpheus": (28, 21, 2048), "cosyvoice2": (28, 3, 24000),
-                   "step": (28, 3, 24000), "chatterbox": (25, 3, 21120)}
-MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4, "step": 2, "chatterbox": 4}
+                   "step": (28, 3, 24000), "chatterbox": (25, 3, 21120),
+                   "zonos": (50, 9, 11425)}
+MIN_WINDOWS = {"orpheus": 6, "cosyvoice2": 4, "step": 2, "chatterbox": 4,
+               "zonos": 4}
+#: where a run's every stream may sample its stop id early, the windows
+#: its longest stream must decode instead of ``MIN_WINDOWS``: Zonos's EOS
+#: is 1 of 1,025 ids on codebook 0, and under random heads more than half
+#: of its streams stop before their cap
+RUN_MIN_WINDOWS = {"zonos": 2}
 
 
 def overlap_pcm_samples(n_tokens: int, interval: int = 28, overlap: int = 21,
@@ -1331,9 +1373,32 @@ CONFIGS.update({
                    "checkpoint": dict.fromkeys(CHATTERBOX_PARTS, True)},
           {K1, K3}),
 })
+#: what W and X load: W nothing (random weights from the seed); X the LM
+#: (with its prefix conditioner), DAC and the speaker net from their three
+#: snapshots
+ZONOS_PARTS = ("backbone", "codec", "speaker_encoder")
+CONFIGS.update({
+    # Zonos-v0.1 (MODEL_OF): the 26 x 2048 LayerNorm backbone, K1/K3 at G =
+    # 1 and D=128, 9 codebooks sampled together with the delay pattern by
+    # gen_idx in every graph; DAC and the 24 kHz resample inside the
+    # detokenize graphs over overlapped 50-token windows; 4 text streams;
+    # A's flags
+    "W": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": dict.fromkeys(ZONOS_PARTS, False)},
+          {K1, K3}),
+    # W's configuration from the three Zonos snapshots: 2 uploads (the
+    # speaker net on the card in preprocess), 2 text streams
+    "X": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+                   "fused_resunit": False, **SINGLE, **ONLINE_F32,
+                   "tokenizer_loaded": False,
+                   "checkpoint": dict.fromkeys(ZONOS_PARTS, True)},
+          {K1, K3}),
+})
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJKOQSU"
+RANDOM_RUNS = "ABCDEFGHIJKOQSUW"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,), "T": (2,)}
@@ -1366,6 +1431,8 @@ REQUESTS["S"] = REQUESTS["Q"]
 REQUESTS["T"] = [{"fields": {}, "audio": True, "text": ""}, {"fields": {}}]
 # Chatterbox's voice clones speak their text in the upload's voice
 REQUESTS["V"] = [{"fields": {}}] * 2 + [{"fields": {}, "audio": True}] * 2
+# Zonos speaks the text in the voice of the upload's speaker vector
+REQUESTS["X"] = [{"fields": {}, "audio": True}] * 2 + [{"fields": {}}] * 2
 #: the reference clip L uploads: 3 s at 24 kHz
 REF_SAMPLES = 72000
 #: the prompt WAVs of the synthetic sesame/csm-1b snapshot: 0.96 s each
@@ -1476,7 +1543,15 @@ def expected_prompt_tokens(config: str, i: int, text: str) -> int:
     ``<audio_start>``, one marker per adaptor row and ``<audio_end>``.
     Chatterbox: 34 conditioning rows, [start text] + the normalized text
     (``[SPACE]`` for each space) + [stop text], the start-speech row; an
-    upload changes the conditioning rows, not their count."""
+    upload changes the conditioning rows, not their count. Zonos: BOS, the
+    text's phonemes (without espeak the text itself, its digits spelled
+    out: these prompts have none), EOS and 6 conditioning rows (speaker,
+    emotion, fmax, pitch_std, speaking_rate, language); an upload changes
+    the speaker row, not the count."""
+    if family(config) == "zonos":
+        if any(ch.isdigit() for ch in text):
+            raise ValueError(f"a Zonos prompt with digits: {text!r}")
+        return len(text) + 2 + 6
     if family(config) == "chatterbox":
         from vox_serve_tpu_torch.models.chatterbox import COND_LEN, ChatterboxLM
 
@@ -1526,7 +1601,8 @@ def step_upload_rows() -> int:
 
 
 #: the runs whose prompts are held to ``expected_prompt_tokens``
-PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T", "U", "V")
+PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T", "U", "V", "W",
+                  "X")
 
 
 def check_prompt_lengths(config: str, stats: dict, out: dict) -> None:
@@ -1858,8 +1934,8 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     check_run(config, card, stats, out)
     if fam == "step":
         check_step_windows(config, stats, out)
-    elif fam == "chatterbox":
-        check_chatterbox_windows(config, stats, out)
+    elif fam in FEATURE_ROW_CODECS:
+        check_feature_row_windows(config, stats, out)
     elif fam in OVERLAP_WINDOWS:
         check_overlap_windows(config, stats, out)
     elif fam == "glm":
@@ -2127,18 +2203,30 @@ def check_step_windows(config: str, stats: dict, out: dict) -> None:
         " GB")
 
 
-def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
-    """Each Chatterbox stream emits exactly the PCM the overlap rule gives
-    for the audio tokens its daemon reports (25-token windows every 22
-    tokens, 21,120 samples each, the last trimmed); every stream that ran
-    to its length cap reached ``MIN_WINDOWS`` full windows (a stream that
-    sampled the stop id is held to the rule alone, and printed); every
-    prompt row took its feature row (``feature_rows`` = the prompt). Prints
-    TTFA, windows/s against real time, the decode, prefill and detokenize
-    replay times, the preprocess wall (V's uploads: S3 v2 and CAMPPlus on
-    the card), the detokenize graphs' capture, the watermark and the init
-    memory."""
-    interval, overlap, window = OVERLAP_WINDOWS["chatterbox"]
+#: the families whose every prompt row is a host feature row: their name
+#: and what their detokenize graphs hold
+FEATURE_ROW_CODECS = {"chatterbox": ("Chatterbox", "flow + HiFT + watermark"),
+                      "zonos": ("Zonos", "delay revert + DAC + 24 kHz "
+                                "resample")}
+
+
+def check_feature_row_windows(config: str, stats: dict, out: dict) -> None:
+    """Each stream of a feature-row family (Chatterbox, Zonos) emits
+    exactly the PCM the overlap rule gives for the audio tokens its daemon
+    reports (Chatterbox: 25-token windows every 22 tokens, 21,120 samples
+    each; Zonos: 50 every 41, 11,425; the last trimmed); every stream that
+    ran to its length cap reached ``MIN_WINDOWS`` full windows (a stream
+    that sampled the stop id is held to the rule alone, and printed), and
+    some stream did (Zonos: some stream decoded ``RUN_MIN_WINDOWS``
+    windows); every prompt row took its feature row (``feature_rows`` =
+    the prompt); no upload fell back (the daemon's log names no failed
+    speaker extraction). Prints TTFA, windows/s against real time, the
+    decode, prefill and detokenize replay times, the preprocess wall (V's
+    uploads: S3 v2 and CAMPPlus on the card; X's: the speaker net), the
+    detokenize graphs' capture, the watermark and the init memory."""
+    fam = family(config)
+    name, holds = FEATURE_ROW_CODECS[fam]
+    interval, overlap, window = OVERLAP_WINDOWS[fam]
     done = {r["request_id"][:8]: r for r in stats["requests"]}
     full = []
     for i, st in enumerate(out["streams"]):
@@ -2156,11 +2244,11 @@ def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
             raise AssertionError(
                 f"[{config}] stream {i}: {req['feature_rows']} of "
                 f"{req['prompt_tokens']} prompt rows took a feature row")
-        short = want < MIN_WINDOWS["chatterbox"] * window
+        short = want < MIN_WINDOWS[fam] * window
         if short and req["finish_reason"] != "stop":
             raise AssertionError(f"[{config}] stream {i}: {n} audio tokens "
                                  f"({req['finish_reason']}), fewer than "
-                                 f"{MIN_WINDOWS['chatterbox']} full windows")
+                                 f"{MIN_WINDOWS[fam]} full windows")
         full.append(not short)
         upload = bool((REQUESTS.get(config) or [{}] * 4)[i].get("audio"))
         log(f"[{config}] stream {i} ({st['rid8']}, "
@@ -2171,9 +2259,20 @@ def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
             f" at 24,000 Hz (overlap rule: {want}; windows "
             f"{req['detok_windows']}); TTFA {st['ttfa_s'] * 1e3:.1f} ms, "
             f"{st['samples'] / window / st['wall_s']:.3f} windows/s")
-    if not any(full):
+    if fam in RUN_MIN_WINDOWS:
+        longest = max(len(done[st["rid8"]]["detok_windows"])
+                      for st in out["streams"])
+        if longest < RUN_MIN_WINDOWS[fam]:
+            raise AssertionError(f"[{config}] no stream decoded "
+                                 f"{RUN_MIN_WINDOWS[fam]} windows")
+    elif not any(full):
         raise AssertionError(f"[{config}] no stream reached "
-                             f"{MIN_WINDOWS['chatterbox']} windows")
+                             f"{MIN_WINDOWS[fam]} windows")
+    failed = [line for line in (OUT / f"chip_smoke_server_{config}.log")
+              .read_text().splitlines() if "extraction failed" in line
+              or "encoder load failed" in line]
+    if failed:
+        raise AssertionError(f"[{config}] uploads fell back: {failed[:2]}")
     steps = stats["steps"]
     probe = steps["probe_ms"]
     dec = {k: v for k, v in probe.items() if k.startswith("decode ")}
@@ -2183,7 +2282,7 @@ def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
     det_t, det_n = ph.get("detokenize", (0.0, 0))
     pp_t, pp_n = ph.get("preprocess", (0.0, 0))
     cap, mib = steps["capture_s_by_kind"], steps["pool_mib_by_kind"]
-    log(f"[{config}] Chatterbox (watermark {stats['watermark']}): TTFA "
+    log(f"[{config}] {name} (watermark {stats['watermark']}): TTFA "
         f"median {out['ttfa_median_s'] * 1e3:.1f} ms; "
         f"{out['frames_per_s']:.3f} windows/s aggregate over "
         f"{len(out['streams'])} streams (real time: "
@@ -2191,7 +2290,7 @@ def check_chatterbox_windows(config: str, stats: dict, out: dict) -> None:
         f"{dec}; prefill replay ms (probe) {pre}; detokenize replay ms "
         f"(probe) {det}; detokenize wall {det_t / max(det_n, 1) * 1e3:.2f} "
         f"ms per call; preprocess wall {pp_t / max(pp_n, 1) * 1e3:.1f} ms x "
-        f"{pp_n}; detokenize graphs (flow + HiFT + watermark): "
+        f"{pp_n}; detokenize graphs ({holds}): "
         f"{sum(1 for g in steps['graphs'] if g[0] == 'detok')} captured in "
         f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
         f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
@@ -2835,6 +2934,73 @@ def chatterbox_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
     return loads, run
 
 
+def zonos_checkpoint(card: str, cache: Path, dev) -> tuple[dict, dict]:
+    """Write the three Zonos snapshots in their published layouts at the
+    published widths: Zyphra/Zonos-v0.1-transformer (``model.safetensors``:
+    the 26 x 2048 LM in bf16, ``prefix_conditioner.*`` in float32;
+    ``config.json`` with the conditioner list), descript/dac_44khz
+    (``model.safetensors``, float32) and
+    Zyphra/Zonos-v0.1-speaker-embedding (the ResNet293 base and LDA-128
+    ``.pt`` files); load each onto the card through the model's loaders,
+    every tensor bit-equal to the one written; then serve run X from
+    them."""
+    import synthetic_checkpoints as synth
+    from vox_serve_tpu_torch.codecs.snac import init_snac_decoder
+    from vox_serve_tpu_torch.encoders.zonos_speaker import \
+        init_zonos_speaker_params
+    from vox_serve_tpu_torch.models.backbone import seeded_generator
+    from vox_serve_tpu_torch.models.zonos import (DAC_CONFIG, SPEAKER_FILES,
+                                                  ZonosLM)
+    from vox_serve_tpu_torch.models.zonos_conditioning import \
+        DEFAULT_CONDITIONERS
+
+    def lm_files(params, cond):
+        return {f"model.safetensors:{k}": v
+                for k, v in synth.export_zonos(params, cond).items()}
+
+    def speaker_files(params):
+        return {f"{f}:{k}": v for f, sd in zip(
+            SPEAKER_FILES, synth.export_zonos_speaker(params))
+            for k, v in sd.items()}
+
+    loads = {}
+    src = ZonosLM(ZONOS_ID, device=dev, seed=91)
+    dac = init_snac_decoder(DAC_CONFIG, seeded_generator(dev, 92), dev)
+    spk = init_zonos_speaker_params(seeded_generator(dev, 93), dev)
+    cond = src._cond_params
+    # (id, writer, the model's loader, the tensors written by file:name,
+    # the loaded tree back to them); the LM's loader also reads the
+    # conditioner into src._cond_params, which its re-export then takes
+    parts = [
+        (ZONOS_ID, lambda snap: synth.write_zonos(
+            snap, src.params, cond, src._conditioners),
+         src._load_checkpoint, lambda: lm_files(src.params, cond),
+         lambda t: lm_files(t, src._cond_params)),
+        (DAC_ID, lambda snap: synth.write_dac(snap, dac), src._load_dac,
+         lambda: synth.export_dac(dac), synth.export_dac),
+        (ZONOS_SPEAKER_ID, lambda snap: synth.write_zonos_speaker(snap, spk),
+         src._load_speaker_encoder, lambda: speaker_files(spk),
+         speaker_files),
+    ]
+    for model_id, write, load, written, reexport in parts:
+        snap = synth.snapshot_dir(cache, model_id)
+        t0 = time.perf_counter()
+        write(snap)
+        loads[model_id] = timed_load(model_id, _files(snap), load, written(),
+                                     reexport, time.perf_counter() - t0)
+        _free()
+    if src._conditioners != DEFAULT_CONDITIONERS or src._cond_params is cond:
+        raise AssertionError("the conditioner was not read back from the "
+                             f"snapshot: {src._conditioners}")
+    del src, dac, spk, cond, parts
+    _free()
+    try:
+        run = end_to_end(card, "X", hub=str(cache))
+    finally:
+        _free()
+    return loads, run
+
+
 def checkpoint_phase(card: str) -> tuple[dict, dict]:
     """Write synthetic checkpoints at the published widths and names
     (random weights from seeds, through ``synthetic_checkpoints.py``'s
@@ -3022,6 +3188,11 @@ def checkpoint_phase(card: str) -> tuple[dict, dict]:
         loads.update(chat_loads)
         _drop_snapshot(cache, CHATTERBOX_ID)
         _drop_snapshot(cache, PERTH_ID)
+
+        # -- Zonos-v0.1: the LM with its conditioner, DAC, the speaker
+        # net; run X -------------------------------------------------------
+        zonos_loads, runs["X"] = zonos_checkpoint(card, cache, dev)
+        loads.update(zonos_loads)
     finally:
         if saved_env is None:
             os.environ.pop("HF_HUB_CACHE", None)
@@ -3087,6 +3258,10 @@ def main(argv=None) -> int:
     # or 64 tokens per K3 tile) at head dim 64
     check_decode(kernels, "K1", H=16, KH=16, batches=(1, 4, 8, 64), D=64)
     check_k3(kernels, H=16, KH=16, shapes=((168, 4), (1024, 5)), D=64)
+    # Zonos-v0.1: 16 heads over 16 (G = 1: one head per decode CTA; 32 or
+    # 64 tokens per K3 tile) at head dim 128
+    check_decode(kernels, "K1", H=16, KH=16, batches=(1, 4, 8, 64))
+    check_k3(kernels, H=16, KH=16, shapes=((168, 4), (1024, 5)))
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -3108,7 +3283,8 @@ def main(argv=None) -> int:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
-    marks.append(("checkpoints, L, M, N, P, R, T, V", time.perf_counter()))
+    marks.append(("checkpoints, L, M, N, P, R, T, V, X",
+                  time.perf_counter()))
     runs.update(ckpt_runs)
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Split one decode step of a large-vocabulary model of the PyTorch port
-(GLM-4-Voice-9B, or Step-Audio-2-mini) into its parts on the card: the
-embedding gather, the backbone (K1 over a bf16 pool), the head and the
-sampler (with the model's repetition penalty where it has one), each
-captured in a CUDA graph and timed by its replays, beside the whole step
-(``lm_step``) and each part's bound (the bytes it must move over 3.35
-TB/s).
+"""Split one decode step of a model of the PyTorch port (GLM-4-Voice-9B,
+Step-Audio-2-mini, or Zonos-v0.1 with its 9 codebooks) into its parts on
+the card: the embedding gather, the backbone (K1 over a bf16 pool), the
+head(s) and the sampler (with the model's repetition penalty where it has
+one), each captured in a CUDA graph and timed by its replays, beside the
+whole step (``lm_step``, with Zonos's delay mask at ``gen_idx``) and each
+part's bound (the bytes it must move over 3.35 TB/s).
 
     PYTHONPATH=. python3 scripts/torch_decode_split.py [--model glm]
         [--batch 4] [--context 1000]
@@ -33,7 +33,7 @@ from vox_serve_tpu_torch.sampling import (init_repetition_cache,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="glm",
-                    choices=("glm", "step-audio-2"))
+                    choices=("glm", "step-audio-2", "zonos"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--context", type=int, default=1000)
     args = ap.parse_args()
@@ -61,38 +61,48 @@ def main() -> None:
         block_tables=tables, seq_lens=seq,
         decode_scratch=kernels.DecodeScratch(dev, B, cfg.num_heads, KH, D,
                                              maxp))
-    ids = torch.randint(0, cfg.vocab_size, (B, 1), device=dev,
+    C = m.n_codebooks
+    ids = torch.randint(0, cfg.vocab_size, (B, C), device=dev,
                         dtype=torch.int32)
     pos = torch.full((B,), n - 1, dtype=torch.int32, device=dev)
+    gen_idx = torch.full((B,), 20, dtype=torch.int32, device=dev)
     gen = None  # the default CUDA generator: graph capture tracks it
     sc = m.sampling_config
-    rep = (init_repetition_cache(B, sc.cache_window, 1, cfg.vocab_size, dev)
+    rep = (init_repetition_cache(B, sc.cache_window, C, cfg.vocab_size, dev)
            if m.use_repetition_penalty else None)
     x = m.embed(m.params, ids, None, None)
     h = torch.randn((B, cfg.hidden_size), device=dev, dtype=torch.bfloat16)
     logits = m.logits(m.params, h)
     from vox_serve_tpu_torch.models.backbone import backbone_forward
 
+    # the tables whose rows are gathered (one per codebook) and the heads
+    embed_key = "embeds" if "embeds" in m.params else "embed"
+    head_key = "heads" if "heads" in m.params else "head"
+    head = m.params[head_key]
+    filt = (f"top-p {sc.top_p}" if sc.top_p is not None
+            else f"min-p {sc.min_p}")
     parts = {
         "embed": (lambda: m.embed(m.params, ids, None, None),
-                  B * cfg.hidden_size * 2),
+                  (C + 1) * B * cfg.hidden_size * 2),
         f"backbone ({L} layers, K1)": (
             lambda: backbone_forward(m.params["backbone"], cfg, x, pos, meta,
                                      pool),
             sum(t.numel() * t.element_size() for t in
                 _leaves(m.params["backbone"]))
             + 2 * B * n * L * KH * D * 2),
-        "head": (lambda: m.logits(m.params, h),
-                 m.params["head"].numel() * 2 + B * cfg.vocab_size * 2),
-        f"sample (top-p {sc.top_p}, T {sc.temperature}, repetition "
-        f"{sc.repetition_penalty})": (
+        f"head ({logits.dtype})": (
+            lambda: m.logits(m.params, h),
+            head.numel() * head.element_size()
+            + logits.numel() * logits.element_size()),
+        f"sample ({filt}, T {sc.temperature}, repetition "
+        f"{sc.repetition_penalty}, {C} codebook(s))": (
             lambda: sample_and_update(logits, sc, gen, rep),
-            B * cfg.vocab_size * 2 + B * 4),
+            logits.numel() * logits.element_size() + B * C * 4),
         "lm_step (all of it)": (
             lambda: m.lm_step(m.params, ids, pos, None, None, meta, pool,
-                              None, gen, rep),
+                              None, gen, rep, gen_idx=gen_idx),
             sum(t.numel() * t.element_size() for t in _leaves(m.params))
-            - m.params["embed"].numel() * 2 + 2 * B * n * L * KH * D * 2),
+            - m.params[embed_key].numel() * 2 + 2 * B * n * L * KH * D * 2),
     }
     for name, (fn, nbytes) in parts.items():
         ms = c.cuda_time_ms(fn, graph=True)

@@ -1173,3 +1173,168 @@ def write_perth(snapshot: Path, params: dict) -> int:
     torch.save({"model": {k: v.detach().cpu().contiguous()
                           for k, v in export_perth(params).items()}}, path)
     return os.path.getsize(path)
+
+
+# ---------------------------------------------------------------------------
+# Zonos-v0.1: the transformer, DAC 44.1 kHz, the speaker net
+# ---------------------------------------------------------------------------
+
+
+def export_zonos_backbone(bb: dict, prefix: str = "backbone.") -> dict:
+    """Inverse of ``load_zonos_backbone``: the fused ``mixer.in_proj``
+    (q, k, v rows), ``mixer.out_proj``, ``mlp.fc1`` (up rows, then the
+    gate's), ``mlp.fc2`` and the LayerNorms ``norm`` / ``norm2`` /
+    ``norm_f`` with their biases."""
+    lay = bb["layers"]
+    attn, mlp = lay["attn"], lay["mlp"]
+    out = {prefix + "norm_f.weight": bb["final_norm"],
+           prefix + "norm_f.bias": bb["final_norm_b"]}
+    for i in range(lay["input_norm"].shape[0]):
+        p = f"{prefix}layers.{i}."
+        out[p + "mixer.in_proj.weight"] = torch.cat(
+            [_t(attn[n]["w"][i]) for n in "qkv"])
+        out[p + "mixer.out_proj.weight"] = _t(attn["o"]["w"][i])
+        out[p + "mlp.fc1.weight"] = torch.cat(
+            [_t(mlp["up"]["w"][i]), _t(mlp["gate"]["w"][i])])
+        out[p + "mlp.fc2.weight"] = _t(mlp["down"]["w"][i])
+        for name, key in (("norm", "input_norm"), ("norm2", "post_norm")):
+            out[p + name + ".weight"] = lay[key][i]
+            out[p + name + ".bias"] = lay[key + "_b"][i]
+    return out
+
+
+def export_zonos_conditioner(params: dict) -> dict:
+    """Inverse of ``load_conditioner_params``: ``prefix_conditioner.*`` in
+    float32, from the (numpy) conditioner tree."""
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    out = {"prefix_conditioner.norm.weight": f32(params["norm"]["scale"]),
+           "prefix_conditioner.norm.bias": f32(params["norm"]["bias"])}
+    names = {"phoneme_embedder": "phoneme_embedder.weight",
+             "weight": "weight", "int_embedder": "int_embedder.weight",
+             "uncond_vector": "uncond_vector"}
+    # a linear projection is ``project``, an MLP ``project.0`` / ``.2``
+    proj = {"w": "weight", "b": "bias", "w1": "0.weight", "b1": "0.bias",
+            "w2": "2.weight", "b2": "2.bias"}
+    for i, p in enumerate(params["conditioners"]):
+        pre = f"prefix_conditioner.conditioners.{i}."
+        for k, v in p.items():
+            if k == "project":
+                for pk, pv in v.items():
+                    out[pre + "project." + proj[pk]] = f32(pv)
+            else:
+                out[pre + names[k]] = f32(v)
+    return out
+
+
+def export_zonos(params: dict, cond_params: dict,
+                 dtype: Optional[torch.dtype] = torch.bfloat16) -> dict:
+    """Inverse of ``ZonosLM._load_checkpoint``: the backbone, the 9
+    ``embeddings.{i}`` tables and ``heads.{i}`` (``(out, in)``) in
+    ``dtype``, and ``prefix_conditioner.*`` in float32."""
+    out = export_zonos_backbone(params["backbone"])
+    for i in range(params["embeds"].shape[0]):
+        out[f"embeddings.{i}.weight"] = params["embeds"][i]
+        out[f"heads.{i}.weight"] = _t(params["heads"][i])
+    out = _cast(out, dtype)
+    out.update(export_zonos_conditioner(cond_params))
+    return out
+
+
+def write_zonos(snapshot: Path, params: dict, cond_params: dict,
+                conditioners: list) -> int:
+    """Zyphra/Zonos-v0.1-transformer's layout: ``model.safetensors`` (the
+    LM in bf16, the conditioner in float32) and a ``config.json`` whose
+    ``prefix_conditioner.conditioners`` lists ``conditioners``; returns
+    bytes."""
+    import json
+
+    from vox_serve_tpu_torch.weights import save_safetensors
+
+    snapshot = Path(snapshot)
+    (snapshot / "config.json").write_text(json.dumps(
+        {"prefix_conditioner": {"conditioners": conditioners}}))
+    return save_safetensors(export_zonos(params, cond_params),
+                            snapshot / "model.safetensors")
+
+
+def export_dac(params: dict) -> dict:
+    """Inverse of ``load_dac_params``: descript/dac_44khz's plain-conv
+    names (the 9 quantizers' codebooks and ``out_proj``, the decoder's
+    ``conv1``, blocks with ``snake1`` / ``conv_t1`` / three residual units,
+    ``snake1`` and ``conv2``)."""
+    out: dict = {}
+    for i, q in enumerate(params["quantizers"]):
+        out[f"quantizer.quantizers.{i}.codebook.weight"] = q["codebook"]
+        _conv(out, f"quantizer.quantizers.{i}.out_proj", q["out_proj"])
+    dec = params["decoder"]
+    _conv(out, "decoder.conv1", dec["stem"])
+    for i, b in enumerate(dec["blocks"]):
+        pre = f"decoder.block.{i}"
+        out[f"{pre}.snake1.alpha"] = b["alpha_in"]
+        _conv(out, f"{pre}.conv_t1", b["up"])
+        for j, r in enumerate(b["res"], start=1):
+            rp = f"{pre}.res_unit{j}"
+            out[f"{rp}.snake1.alpha"] = r["alpha1"]
+            _conv(out, f"{rp}.conv1", r["conv1"])
+            out[f"{rp}.snake2.alpha"] = r["alpha2"]
+            _conv(out, f"{rp}.conv2", r["conv2"])
+    out["decoder.snake1.alpha"] = dec["alpha_out"]
+    _conv(out, "decoder.conv2", dec["head"])
+    return out
+
+
+def write_dac(snapshot: Path, params: dict) -> int:
+    """descript/dac_44khz's ``model.safetensors`` (float32); returns
+    bytes."""
+    from vox_serve_tpu_torch.weights import save_safetensors
+
+    return save_safetensors(export_dac(params),
+                            Path(snapshot) / "model.safetensors")
+
+
+def export_zonos_speaker(params: dict) -> tuple[dict, dict]:
+    """Inverse of ``load_zonos_speaker_params``: the ResNet293 base state
+    dict (``front.*`` with eval-mode batch norms, ``pooling.attention.*``,
+    ``bottleneck``) and the LDA-128 one (``weight``, ``bias``)."""
+    out: dict = {}
+
+    def bn(name, p):
+        out[name + ".weight"], out[name + ".bias"] = p["scale"], p["bias"]
+        out[name + ".running_mean"] = p["mean"]
+        out[name + ".running_var"] = p["var"]
+
+    f = params["front"]
+    _conv(out, "front.conv1", f["conv1"])
+    bn("front.bn1", f["bn1"])
+    for li in range(1, 5):
+        for i, b in enumerate(f[f"layer{li}"]):
+            pre = f"front.layer{li}.{i}"
+            for n in ("1", "2"):
+                _conv(out, f"{pre}.conv{n}", b["conv" + n])
+                bn(f"{pre}.bn{n}", b["bn" + n])
+            if "down_conv" in b:
+                _conv(out, f"{pre}.downsample.0", b["down_conv"])
+                bn(f"{pre}.downsample.1", b["down_bn"])
+    a = params["asp"]
+    _conv(out, "pooling.attention.0", a["att_conv1"])
+    bn("pooling.attention.2", a["att_bn"])
+    _conv(out, "pooling.attention.3", a["att_conv2"])
+    _conv(out, "bottleneck", params["bottleneck"])
+    lda = {"weight": params["lda"]["w"], "bias": params["lda"]["b"]}
+    return out, lda
+
+
+def write_zonos_speaker(snapshot: Path, params: dict) -> dict:
+    """Zyphra/Zonos-v0.1-speaker-embedding: the two ``torch.save`` files;
+    returns bytes per file."""
+    from vox_serve_tpu_torch.models.zonos import SPEAKER_FILES
+
+    sizes = {}
+    for name, sd in zip(SPEAKER_FILES, export_zonos_speaker(params)):
+        path = Path(snapshot) / name
+        torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+                   path)
+        sizes[name] = os.path.getsize(path)
+    return sizes

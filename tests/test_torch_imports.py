@@ -61,6 +61,9 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.codecs.glm_flow",
     "vox_serve_tpu_torch.models.step_audio_2",
     "vox_serve_tpu_torch.codecs.step_dit",
+    "vox_serve_tpu_torch.models.zonos",
+    "vox_serve_tpu_torch.models.zonos_conditioning",
+    "vox_serve_tpu_torch.encoders.zonos_speaker",
 ]
 
 

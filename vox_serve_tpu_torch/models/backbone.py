@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (AttnMetadata, paged_attention_decode,
                              ragged_prefill_attention, write_kv_prefill)
-from ..ops.norms import rms_norm
+from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved,
                         rope_frequencies)
 from ..params import tree_map
@@ -46,6 +46,9 @@ class BackboneConfig:
     o_bias: bool = False
     mlp_bias: bool = False
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k
+    #: Zonos: LayerNorm with bias (at ``rms_eps``) for the input, post and
+    #: final norms; the q/k norms stay RMSNorm
+    use_layer_norm: bool = False
     attn_scale: Optional[float] = None
     dtype: torch.dtype = torch.bfloat16
 
@@ -143,7 +146,7 @@ def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
         "up": lin(Hs, cfg.intermediate_size, cfg.mlp_bias),
         "down": lin(cfg.intermediate_size, Hs, cfg.mlp_bias),
     }
-    return {
+    params = {
         "layers": {
             "attn": attn,
             "mlp": mlp,
@@ -152,6 +155,21 @@ def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
         },
         "final_norm": torch.ones((Hs,), dtype=dt, device=device),
     }
+    if cfg.use_layer_norm:
+        for name in ("input_norm_b", "post_norm_b"):
+            params["layers"][name] = torch.zeros((L, Hs), dtype=dt,
+                                                 device=device)
+        params["final_norm_b"] = torch.zeros((Hs,), dtype=dt, device=device)
+    return params
+
+
+def _norm(cfg: BackboneConfig, x: torch.Tensor, p: dict,
+          name: str) -> torch.Tensor:
+    """The block norm ``name`` of ``p``: RMSNorm, or LayerNorm with its
+    ``name + "_b"`` bias under ``use_layer_norm``, both at ``rms_eps``."""
+    if cfg.use_layer_norm:
+        return layer_norm(x, p[name], p[name + "_b"], cfg.rms_eps)
+    return rms_norm(x, p[name], cfg.rms_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +203,7 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     h = x
     for li in range(cfg.num_layers):
         lp = tree_map(lambda a: a[li], params["layers"])  # views
-        xin = rms_norm(h, lp["input_norm"], cfg.rms_eps)
+        xin = _norm(cfg, h, lp, "input_norm")
         q = linear(lp["attn"]["q"], xin).reshape(T, H, hd)
         k = linear(lp["attn"]["k"], xin).reshape(T, KH, hd)
         v = linear(lp["attn"]["v"], xin).reshape(T, KH, hd)
@@ -205,8 +223,8 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
                                               kv_scales=kv_scales)
         h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd))
 
-        xin2 = rms_norm(h, lp["post_norm"], cfg.rms_eps)
+        xin2 = _norm(cfg, h, lp, "post_norm")
         gated = F.silu(linear(lp["mlp"]["gate"], xin2)) * linear(
             lp["mlp"]["up"], xin2)
         h = h + linear(lp["mlp"]["down"], gated)
-    return rms_norm(h, params["final_norm"], cfg.rms_eps)
+    return _norm(cfg, h, params, "final_norm")

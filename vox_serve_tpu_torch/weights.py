@@ -314,6 +314,65 @@ def load_glm_backbone(state: dict, num_layers: int, num_heads: int,
     }
 
 
+def load_zonos_backbone(state: dict, num_layers: int, num_heads: int,
+                        num_kv_heads: int, head_dim: int,
+                        prefix: str = "backbone.",
+                        dtype: torch.dtype = torch.bfloat16, *,
+                        device) -> dict:
+    """Map the Zyphra/Zonos-v0.1-transformer layout into the stacked
+    backbone tree: LayerNorms with bias (``norm`` / ``norm2`` /
+    ``norm_f``), the fused ``mixer.in_proj`` split into q, k and v rows,
+    and the GLU MLP whose ``fc1`` FIRST half is the up path and SECOND half
+    the SiLU gate. Every split leaf is preallocated on ``device`` and
+    filled layer by layer. An ``in_proj`` whose row count is not
+    (H + 2 KH) D raises ``ValueError`` naming both counts."""
+    L, p = num_layers, prefix
+    qd, kd = num_heads * head_dim, num_kv_heads * head_dim
+    in0 = state[p + "layers.0.mixer.in_proj.weight"]
+    rows, H = in0.shape
+    if rows != qd + 2 * kd:
+        raise ValueError(
+            f"mixer.in_proj has {rows} rows, expected (H + 2 KH) D = "
+            f"({num_heads} + 2 x {num_kv_heads}) x {head_dim} = "
+            f"{qd + 2 * kd}")
+    ffn = state[p + "layers.0.mlp.fc1.weight"].shape[0] // 2
+
+    def empty(*shape):
+        return torch.empty((L,) + shape, dtype=dtype, device=device)
+
+    spans = {"q": (0, qd), "k": (qd, qd + kd), "v": (qd + kd, qd + 2 * kd)}
+    attn = {n: {"w": empty(H, hi - lo)} for n, (lo, hi) in spans.items()}
+    up, gate = empty(H, ffn), empty(H, ffn)
+    for i in range(L):
+        pre = p + f"layers.{i}."
+        w = state[pre + "mixer.in_proj.weight"].to(device)
+        for n, (lo, hi) in spans.items():
+            attn[n]["w"][i].copy_(w[lo:hi].T)
+        fc1 = state[pre + "mlp.fc1.weight"].to(device)
+        up[i].copy_(fc1[:ffn].T)
+        gate[i].copy_(fc1[ffn:].T)
+        del w, fc1
+
+    def stack(name, transpose=False):
+        return _stack(state, p + "layers.{i}." + name, L, device,
+                      transpose=transpose, dtype=dtype)
+
+    attn["o"] = {"w": stack("mixer.out_proj.weight", True)}
+    return {
+        "layers": {
+            "attn": attn,
+            "mlp": {"up": {"w": up}, "gate": {"w": gate},
+                    "down": {"w": stack("mlp.fc2.weight", True)}},
+            "input_norm": stack("norm.weight"),
+            "input_norm_b": stack("norm.bias"),
+            "post_norm": stack("norm2.weight"),
+            "post_norm_b": stack("norm2.bias"),
+        },
+        "final_norm": to_device(state[p + "norm_f.weight"], device, dtype),
+        "final_norm_b": to_device(state[p + "norm_f.bias"], device, dtype),
+    }
+
+
 def load_embedding(state: dict, name: str,
                    dtype: torch.dtype = torch.bfloat16, *,
                    device) -> torch.Tensor:
