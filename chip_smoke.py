@@ -44,7 +44,20 @@ exits non-zero without printing a result:
    on the CPU in float32 through the plain versions, for the combined bf16,
    int8 and float8 pools and the pair layout, and once each at a GQA group
    of 3 (Orpheus) and of 4 at head dim 64 (CSM), with Llama-3.1 rope
-   scaling.
+   scaling, and once at Orpheus's heads with int8 weights (quantized once
+   on the CPU): the card through K5, 7 launches per layer and step,
+   against the CPU through K5's plain version.
+   Then K5, the int8 weight-only linear (``--weight-quant int8``), for the
+   seven linears of one layer (q, k, v, o, gate, up, down) as a group at
+   Qwen3-TTS (2048 / 6144), Orpheus (3072 / 8192), GLM-4-Voice (4096 /
+   13696, q/k/v biases), Step-Audio-2 (3584 / 18944, q/k/v biases) and
+   Chatterbox (1024 / 4096) widths, at M in {1, 4, 64} rows (decode) and
+   T in {168, 1024} (prefill), each output against its plain version on
+   the same inputs; CUDA-graph times of K5, its plain version, bf16 ``x @
+   w`` of the unquantized weights (the path int8 replaces) and, at up to
+   16 rows, ``torch._weight_int8pack_mm`` (the library yardstick, where
+   the card's PyTorch has a CUDA kernel for it), and the group's bound;
+   then an odd shape (K=200, N=300, layer 1 of a stack) for the tails.
    Then K2, the codec's residual-unit stack, against its plain version at
    the four decoder-block shapes of a detokenize of 4 streams x 10 frames
    and of one stream (B=4 and B=1), whole and as two streamed chunks with
@@ -84,7 +97,14 @@ exits non-zero without printing a result:
    stream's PCM must be exactly what the overlap trim rule gives for the
    audio tokens its daemon reports (``requests`` in the stats file), at
    least 6 windows; it prints TTFA, windows/s against real time (11.72 per
-   stream) and the decode and detokenize replay times. In every other run
+   stream) and the decode and detokenize replay times. Run Y is I at
+   ``--weight-quant int8``: the worker quantizes the backbone's matmul
+   weights before it captures anything, so every prefill and decode graph
+   runs K5, 7 x 28 launches per prefill and decode step; the daemon must
+   report ``weight_quant: int8`` and a backbone of at most 0.55 of I's
+   bytes, each stream's PCM is held to I's overlap rule, and Y is printed
+   beside I (decode step, TTFA, windows/s, bytes). Every other run must
+   report ``weight_quant: none`` and launch K5 no time. In every other run
    each stream's PCM is exactly what the trim rule gives for the frames its
    daemon reports (with F's and K's ramp: whole, or half a frame short).
    Runs J and K serve
@@ -335,6 +355,11 @@ K2_REL_TOL = 1e-4
 # order flips a rounding by one bf16 step (2^-7 of the top binade), and a
 # flip carried through the chained units can add one more: 2^-6
 K2_BF16_REL_TOL = 2.0 ** -6
+# K5 against its plain version, relative to max |ref|: both round the f32
+# sum, its product with the bf16 scale and the bias sum to bf16 at the same
+# points; another f32 sum order flips a rounding by one bf16 step (2^-7 of
+# the top binade), and a flipped sum can carry one more through the scale
+K5_REL_TOL = 2.0 ** -6
 # bf16 weights/activations vs the f32 CPU run (quantized pools: the two
 # runs quantize K/V computed in bf16 and in f32, so a few elements round
 # to a neighbouring int8 / float8 value)
@@ -658,18 +683,24 @@ BACKBONE_HEADS = {"qwen3": (4, 2, 128, True, False),
                   "csm": (8, 2, 64, False, True)}
 
 
-def check_backbone(kv: str = "combined", heads: str = "qwen3") -> None:
+def check_backbone(kv: str = "combined", heads: str = "qwen3",
+                   weight_quant: str = "none") -> None:
     """Small talker backbone: card (bf16, kernels) vs CPU (f32, plain), over
     the combined full-precision pool ("combined"), an int8 or f8_e4m3 one,
     or the head-major pair ("pair"). ``heads`` (``BACKBONE_HEADS``): Qwen3's
     4 query heads over 2 with q/k norms, Orpheus's GQA group of 3 (6 over
     2) or CSM's group of 4 at head dim 64 (8 over 2), both with Llama-3.1
-    rope scaling."""
+    rope scaling. ``weight_quant="int8"``: the matmul weights quantized
+    once on the CPU in float32 (``quantize_backbone_params``), the card
+    through K5 (which must launch 7 times per layer and step) against the
+    CPU through its plain version."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
                                                      backbone_forward,
-                                                     init_backbone_params)
+                                                     init_backbone_params,
+                                                     quantize_backbone_params)
+    from vox_serve_tpu_torch.ops import kernels
     from vox_serve_tpu_torch.ops.attention import AttnMetadata
     from vox_serve_tpu_torch.ops.kv_cache import KVCacheConfig, alloc_kv_pages
     from vox_serve_tpu_torch.params import tree_to_torch
@@ -682,6 +713,8 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3") -> None:
                          llama31_rope_scaling=llama31, dtype=torch.float32)
     g = torch.Generator().manual_seed(4)
     params = init_backbone_params(cfg, g, "cpu")
+    if weight_quant == "int8":
+        params = quantize_backbone_params(params)
     lens, page, P = (37, 20), 16, 16
     T = sum(lens)
     x0 = torch.randn((T, 256), generator=g)
@@ -723,18 +756,194 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3") -> None:
         return [o.float().cpu() for o in outs]
 
     ref = run("cpu", torch.float32)
+    k5 = kernels.w8a16_linear.launches
     got = run("cuda", torch.bfloat16)
     torch.cuda.synchronize()
+    k5 = kernels.w8a16_linear.launches - k5
+    want = 7 * cfg.num_layers * 4 if weight_quant == "int8" else 0
+    if k5 != want:
+        raise AssertionError(f"backbone ({weight_quant} weights): K5 "
+                             f"launched {k5} times, expected {want}")
     rel = max(((a - b).abs().max() / b.abs().max()).item()
               for a, b in zip(got, ref))
     if rel > BACKBONE_REL_TOL:
-        raise AssertionError(f"backbone ({kv} KV) on card vs CPU: rel err "
-                             f"{rel}")
+        raise AssertionError(f"backbone ({kv} KV, {weight_quant} weights) "
+                             f"on card vs CPU: rel err {rel}")
     layout = (f"{H}/{KH} heads, D={D}"
               + (", Llama-3.1 rope" if llama31 else ""))
+    quant = (f", int8 weights: K5 x {k5}" if weight_quant == "int8"
+             else "")
     log(f"backbone (2x256, {layout}, prefill {list(lens)} + 3 decode steps, "
-        f"{kv} KV) card bf16 kernels vs CPU f32 plain: max rel err "
+        f"{kv} KV{quant}) card bf16 kernels vs CPU f32 plain: max rel err "
         f"{rel:.3e} (tol {BACKBONE_REL_TOL})")
+
+
+#: K5's widths: model -> (hidden, query heads, KV heads, head dim, MLP
+#: width, q/k/v bias); each times the seven linears of one layer
+K5_WIDTHS = {"qwen3-tts": (2048, 16, 8, 128, 6144, False),
+             "orpheus": (3072, 24, 8, 128, 8192, False),
+             "glm": (4096, 32, 2, 128, 13696, True),
+             "step": (3584, 28, 4, 128, 18944, True),
+             "chatterbox": (1024, 16, 16, 64, 4096, False)}
+#: rows K5 is timed at: decode batches (the small-M plan) and prefill
+#: buckets (the tiled plan: 168 = the served prefill of four 42-token
+#: prompts, 1024 the largest bucket)
+K5_ROWS = (1, 4, 64, 168, 1024)
+#: the odd shape (K, N) that exercises every tail, at these rows
+K5_ODD = ((200, 300), (1, 4, 17, 168))
+
+
+def k5_layer(dev, width: str, seed: int) -> list:
+    """The seven linears of one layer at ``width`` (``K5_WIDTHS``): each
+    a dict with the bf16 weight it was quantized from (``w``), the int8
+    leaf (``w_q``, ``w_s``, ``b`` as the backbone holds it) and its (K, N),
+    drawn on the card from ``seed``."""
+    import torch
+
+    from vox_serve_tpu_torch.models.backbone import quantize_linear_params
+
+    Hs, H, KH, D, inter, bias = K5_WIDTHS[width]
+    shapes = [(Hs, H * D, bias), (Hs, KH * D, bias), (Hs, KH * D, bias),
+              (H * D, Hs, False), (Hs, inter, False), (Hs, inter, False),
+              (inter, Hs, False)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for K, N, b in shapes:
+        w = (torch.randn((K, N), generator=g, device=dev)
+             * K ** -0.5).to(torch.bfloat16)
+        leaf = {"w": w}
+        if b:
+            leaf["b"] = (torch.randn((N,), generator=g, device=dev)
+                         * 0.1).to(torch.bfloat16)
+        out.append({"w": w, "leaf": quantize_linear_params(leaf), "K": K,
+                    "N": N})
+    return out
+
+
+def k5_group(kernels, layer: list, M: int, scratch, seed: int,
+             lib: bool = True) -> dict:
+    """Time the seven linears of ``layer`` at M rows as one group: K5, its
+    plain version, bf16 ``x @ w (+ b)`` of the weights they were quantized
+    from (the path int8 replaces) and, where ``lib`` and the card's PyTorch
+    has a CUDA kernel for it, ``torch._weight_int8pack_mm`` (the library
+    yardstick, int8 weights as (N, K), transposed outside the timing; it
+    takes no bias). Each output is held against the plain version. Returns
+    the group's result (``library_ms`` None where not timed)."""
+    import torch
+
+    dev = layer[0]["w"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = {K: torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+          for K in {lin["K"] for lin in layer}}
+    args = [(xs[lin["K"]], lin["leaf"]["w_q"], lin["leaf"]["w_s"],
+             lin["leaf"].get("b")) for lin in layer]
+    worst = 0.0
+    for a in args:
+        out = kernels.w8a16_linear(*a, scratch=scratch)
+        ref = kernels.w8a16_linear_plain(*a)
+        torch.cuda.synchronize()
+        rel = ((out.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        if not torch.isfinite(out.float()).all() or rel > K5_REL_TOL:
+            raise AssertionError(f"K5 M={M} K={a[1].shape[0]} N="
+                                 f"{a[1].shape[1]}: rel err {rel} > "
+                                 f"{K5_REL_TOL}")
+        worst = max(worst, (out.float() - ref.float()).abs().max().item())
+    ms, plain_ms = alternate_times(
+        lambda: [kernels.w8a16_linear_plain(*a) for a in args],
+        lambda: [kernels.w8a16_linear(*a, scratch=scratch) for a in args],
+        iters=10, graph=True)
+
+    def bf16_group():
+        for lin, a in zip(layer, args):
+            y = a[0] @ lin["w"]
+            if a[3] is not None:
+                y = y + a[3]
+
+    bf16_ms = (cuda_time_ms(bf16_group, 10, True)
+               + cuda_time_ms(bf16_group, 10, True)) / 2
+    lib_ms = None
+    if lib and torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::_weight_int8pack_mm", "CUDA"):
+        packed = [(a[0], a[1].t().contiguous(), a[2].to(torch.bfloat16))
+                  for a in args]
+
+        def lib_group():
+            for x, qt, sc in packed:
+                torch._weight_int8pack_mm(x, qt, sc)
+
+        lib_ms = (cuda_time_ms(lib_group, 10, True)
+                  + cuda_time_ms(lib_group, 10, True)) / 2
+    nbytes = sum(M * a[1].shape[0] * 2 + a[1].numel() + a[1].shape[1] * 4
+                 + (a[1].shape[1] * 2 if a[3] is not None else 0)
+                 + M * a[1].shape[1] * 2 for a in args)
+    flops = sum(2 * M * a[1].numel() for a in args)
+    r = result(worst, ms, plain_ms, bound(nbytes, flops, "bf16"), lib_ms)
+    r["bf16_ms"] = bf16_ms
+    return r
+
+
+def check_k5(kernels) -> dict:
+    """K5 against its plain version for the seven linears of one layer at
+    each ``K5_WIDTHS`` width and ``K5_ROWS`` row count (the small-M plan up
+    to 16 rows, the tiled plan above), with CUDA-graph times of K5, the
+    plain version, bf16 matmuls of the unquantized weights and the library
+    yardstick, and the group's bound; then the odd shape's tails. Returns
+    the Orpheus group at 4 rows (run Y's decode batch) with the worst
+    error over every shape."""
+    import torch
+
+    dev = torch.device("cuda")
+    worst, served = 0.0, None
+    no_lib = ("not timed" if torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA") else "none")
+    for wi, width in enumerate(K5_WIDTHS):
+        layer = k5_layer(dev, width, 50 + wi)
+        scratch = kernels.W8A16Scratch(
+            dev, sorted({(lin["K"], lin["N"]) for lin in layer}))
+        for M in K5_ROWS:
+            # the library yardstick at decode rows only: its CUDA kernel
+            # takes up to ~0.5 s a group at 1024 rows
+            r = k5_group(kernels, layer, M, scratch, 70 + M,
+                         lib=M <= kernels.W8A16_SMALL_M)
+            worst = max(worst, r["max_abs_err"])
+            lib = r["library_ms"]
+            plan = ("small-M split-K" if M <= kernels.W8A16_SMALL_M
+                    else "tiled mma.sync")
+            log(f"K5 w8a16_linear {width} one layer's 7 linears M={M} "
+                f"({plan}): max_abs_err {r['max_abs_err']:.3e} (rel tol "
+                f"{K5_REL_TOL}) kernel_ms={r['ms']:.4f} plain_ms="
+                f"{r['plain_ms']:.4f} bf16_matmul_ms={r['bf16_ms']:.4f} "
+                f"weight_int8pack_mm_ms="
+                f"{no_lib if lib is None else format(lib, '.4f')} "
+                f"{bound_text(r)}")
+            if width == "orpheus" and M == 4:
+                served = r
+        del layer, scratch
+        torch.cuda.empty_cache()
+    (K, N), rows = K5_ODD
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = torch.randn((2, K, N), generator=g, device=dev)
+    from vox_serve_tpu_torch.models.backbone import quantize_linear_params
+
+    leaf = quantize_linear_params({"w": w})
+    b = torch.randn((N,), generator=g, device=dev).to(torch.bfloat16)
+    for M in rows:
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        a = (x, leaf["w_q"][1], leaf["w_s"][1], b)
+        out = kernels.w8a16_linear(*a)
+        ref = kernels.w8a16_linear_plain(*a)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        if not torch.isfinite(out.float()).all() or rel > K5_REL_TOL:
+            raise AssertionError(f"K5 odd shape K={K} N={N} M={M}: rel err "
+                                 f"{rel} > {K5_REL_TOL}")
+        worst = max(worst, err)
+        log(f"K5 odd shape K={K} N={N} M={M} (layer 1 of a stack, bias, "
+            f"vector width {kernels.w8a16_vec(M, N, a[1].data_ptr())}): "
+            f"max_abs_err {err:.3e} rel {rel:.3e}")
+    return {**served, "max_abs_err": worst}
 
 
 #: K2's decoder blocks at one detokenize of 10 frames: (C, T)
@@ -1026,7 +1235,8 @@ DAC_ID = "descript/dac_44khz"
 ZONOS_SPEAKER_ID = "Zyphra/Zonos-v0.1-speaker-embedding"
 #: the ``--model`` each run serves (``qwen3-tts`` unless listed here); L, M,
 #: N and P by published id, from the checkpoint phase's hub cache
-MODEL_OF = {"I": "orpheus", "J": "csm", "K": "csm", "L": QWEN3_BASE,
+MODEL_OF = {"I": "orpheus", "Y": "orpheus", "J": "csm", "K": "csm",
+            "L": QWEN3_BASE,
             "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
             "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID,
             "U": "chatterbox", "V": CHATTERBOX_ID, "W": "zonos",
@@ -1176,6 +1386,10 @@ K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
                "paged_decode_attention_pair")
 K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
 K2H = "fused_resunit_stack_bf16"
+K5 = "w8a16_linear"
+#: K5's launches per layer of a prefill or decode step: q, k, v, o, gate,
+#: up, down
+K5_PER_LAYER = 7
 
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
@@ -1229,6 +1443,12 @@ CONFIGS = {
     "I": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
                    "fused_resunit": False, **SINGLE, **ONLINE_F32},
           {K1, K3}),
+    # I at --weight-quant int8: the backbone's matmuls through K5 over int8
+    # weights in every prefill and decode graph
+    "Y": (["--weight-quant", "int8"], {},
+          {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+           "fused_resunit": False, **SINGLE, **ONLINE_F32,
+           "weight_quant": "int8"}, {K1, K3, K5}),
     # CSM-1B (MODEL_OF): G = 4 at D=64 in K1 and K3, 16 layers, the
     # 31-codebook depth step in every decode graph, the Mimi codec with its
     # transformer ring in the slot cache, the spectral watermark in every
@@ -1398,7 +1618,7 @@ CONFIGS.update({
 })
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
-RANDOM_RUNS = "ABCDEFGHIJKOQSUW"
+RANDOM_RUNS = "ABCDEFGHIYJKOQSUW"
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,), "T": (2,)}
@@ -1931,6 +2151,7 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
         time.sleep(0.1)
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
+    out["backbone_bytes"] = stats["backbone_bytes"]
     check_run(config, card, stats, out)
     if fam == "step":
         check_step_windows(config, stats, out)
@@ -2322,6 +2543,8 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     pp_t, pp_n = ph.get("preprocess", (0.0, 0))
     wins, batches = ph.get("detok.windows", (0.0, 0))
     ttfa = out["ttfa"]
+    out["decode_step_ms"] = (t1 + tk) / max(n_steps, 1) * 1e3
+    out["init_memory_gb"] = stats["init_memory_gb"]
     solo = (f"; solo stream TTFA {out['solo_ttfa_s'] * 1e3:.1f} ms"
             if "solo_ttfa_s" in out else "")
     unit = MODELS[fam]["unit"]
@@ -2362,10 +2585,13 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     if stats["model"] != model:
         raise AssertionError(f"[{config}] the daemon served {stats['model']}"
                              f", expected {model}")
-    for key, want in served.items():
+    for key, want in {"weight_quant": "none", **served}.items():
         if stats[key] != want:
             raise AssertionError(f"[{config}] served {key}={stats[key]!r}, "
                                  f"expected {want!r}")
+    if stats["backbone_bytes"] <= 0:
+        raise AssertionError(f"[{config}] backbone bytes "
+                             f"{stats['backbone_bytes']}")
     for name, n in launches.items():
         if name in must_run and n <= 0:
             raise AssertionError(f"[{config}] kernel {name} never launched "
@@ -2399,6 +2625,17 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
         f"{prefills} prefill replays; {decode_kernel}: "
         f"{launches[decode_kernel]} launches = {layers} layers x {n_steps} "
         "decode steps")
+    if K5 in must_run:
+        want_k5 = K5_PER_LAYER * layers * (prefills + n_steps)
+        if launches[K5] != want_k5:
+            raise AssertionError(
+                f"[{config}] {K5} launched {launches[K5]} times, expected "
+                f"{K5_PER_LAYER} x {layers} x ({prefills} prefill + "
+                f"{n_steps} decode steps)")
+        log(f"[{config}] {K5}: {launches[K5]} launches = {K5_PER_LAYER} "
+            f"linears x {layers} layers x ({prefills} prefill replays + "
+            f"{n_steps} decode steps); backbone "
+            f"{stats['backbone_bytes'] / 1e9:.3f} GB")
     # and every counter is the sum over graphs of replays x captured counts
     want = {name: 0 for name in launches}
     stacks = {K2: 0, K2H: 0}
@@ -3269,7 +3506,10 @@ def main(argv=None) -> int:
         check_backbone(kv)
     check_backbone("combined", heads="orpheus")
     check_backbone("combined", heads="csm")
+    check_backbone("combined", heads="orpheus", weight_quant="int8")
     marks.append(("backbones", time.perf_counter()))
+    k5 = check_k5(kernels)
+    marks.append(("K5", time.perf_counter()))
     k2 = check_k2()
     k2h = check_k2("bfloat16")
     marks.append(("K2", time.perf_counter()))
@@ -3303,6 +3543,20 @@ def main(argv=None) -> int:
     log(f"G text-stream TTFA {max(g['text_stream_ttfa']) * 1e3:.1f} ms (the "
         f"later of two) vs its /generate streams' "
         f"{max(g['generate_ttfa']) * 1e3:.1f} ms")
+    i_run, y_run = runs["I"], runs["Y"]
+    share = y_run["backbone_bytes"] / i_run["backbone_bytes"]
+    log(f"Y vs I (int8 vs bf16 backbone): backbone {y_run['backbone_bytes']}"
+        f" / {i_run['backbone_bytes']} bytes = {share:.4f}; windows/s "
+        f"{y_run['frames_per_s']:.2f} / {i_run['frames_per_s']:.2f}; TTFA "
+        f"median {y_run['ttfa_median_s'] * 1e3:.1f} / "
+        f"{i_run['ttfa_median_s'] * 1e3:.1f} ms; decode step wall "
+        f"{y_run['decode_step_ms']:.2f} / {i_run['decode_step_ms']:.2f} ms; "
+        f"memory after the model's init (bf16, before the worker "
+        f"quantizes) {y_run['init_memory_gb']} / {i_run['init_memory_gb']}"
+        " GB")
+    if share > 0.55:
+        raise AssertionError(f"Y's int8 backbone is {share:.4f} of I's "
+                             "bf16 bytes (at most 0.55)")
 
     def quant_worst(key):
         return max(decode["K1q int8"][key], decode["K1q f8_e4m3"][key])
@@ -3333,6 +3587,10 @@ def main(argv=None) -> int:
          "source": "vox_serve_tpu_torch/csrc/resunit.cu",
          "replaces": "vox_serve_tpu/ops/pallas_resunit.py:150",
          "launches": total[K2H], **k2h},
+        {"name": K5, "route": "cuda",
+         "source": "vox_serve_tpu_torch/csrc/w8a16_linear.cu",
+         "replaces": "vox_serve_tpu/models/backbone.py:83",
+         "launches": total[K5], **k5},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -609,3 +609,66 @@ def test_kernel_shape_limits_are_checked_before_launch(H, KH, D, max_group,
     else:
         with pytest.raises(ValueError):
             kernels._check_heads(H, KH, D, max_group)
+
+
+# ---------------------------------------------------------------------------
+# K5: host plan, scratch and dispatch (the kernel itself: the cuda tests of
+# test_torch_weight_quant.py and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+#: the (K, N) of the served families' seven linears, and tails
+K5_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048),
+             (3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+             (4096, 4096), (4096, 256), (4096, 13696), (13696, 4096),
+             (3584, 512), (3584, 18944), (18944, 3584), (1024, 4096),
+             (896, 128), (4864, 896), (200, 300), (64, 5)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16])
+def test_k5_plan_covers_k_and_fits_the_staging(M):
+    """Every split is whole 128-row chunks, the splits cover K exactly once
+    (no empty split), a split's x rows fit the CTA's staging, and the
+    vector width divides N and the view's offset."""
+    mt = 1 << (M - 1).bit_length()
+    for K, N in K5_SHAPES:
+        for off in (0, 4, K * N):
+            vec = kernels.w8a16_vec(M, N, off)
+            assert N % vec == 0 and off % vec == 0
+            assert vec <= (16 if M <= 4 else 8 if M <= 8 else 4)
+            strips, splits, rows = kernels.plan_w8a16(M, K, N, vec)
+            assert rows % kernels.W8A16_CHUNK == 0
+            assert mt * rows <= kernels.W8A16_SMEM_FLOATS
+            assert (splits - 1) * rows < K <= splits * rows
+            assert strips * kernels.w8a16_strip(vec) >= N
+            assert (strips - 1) * kernels.w8a16_strip(vec) < N
+
+
+def test_k5_scratch_covers_every_small_launch():
+    floats, counters = kernels.w8a16_scratch_size(K5_SHAPES)
+    for K, N in K5_SHAPES:
+        for M in range(1, kernels.W8A16_SMALL_M + 1):
+            for vec in kernels.W8A16_VECS:
+                strips, splits, _ = kernels.plan_w8a16(M, K, N, vec)
+                if splits > 1:
+                    assert splits * M * N <= floats and strips <= counters
+    scratch = kernels.W8A16Scratch("cpu", K5_SHAPES)
+    assert scratch.part.numel() == floats
+    assert scratch.counters.numel() == counters
+    assert not scratch.counters.any()
+
+
+def test_k5_wrapper_dispatch_on_cpu_and_other_devices():
+    """CPU tensors take the plain version (JAX's rule, no launch counted);
+    a device with no kernel raises."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 40), generator=g)
+    q = torch.randint(-127, 128, (40, 24), generator=g, dtype=torch.int8)
+    s = torch.rand((24,), generator=g) / 127
+    b = torch.randn((24,), generator=g)
+    before = kernels.w8a16_linear.launches
+    out = kernels.w8a16_linear(x, q, s, b)
+    torch.testing.assert_close(out, (x @ q.float()) * s + b, atol=0, rtol=0)
+    assert kernels.w8a16_linear.launches == before
+    assert "w8a16_linear" in kernels.launch_counts()
+    with pytest.raises(ValueError, match="no K5 kernel"):
+        kernels.w8a16_linear(x.to("meta"), q.to("meta"), s.to("meta"))

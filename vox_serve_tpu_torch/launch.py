@@ -74,6 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 KV: expected |K| absmax (scale = amax/127)")
     p.add_argument("--kv-v-amax", type=float, default=None,
                    help="int8 KV: expected |V| absmax (scale = amax/127)")
+    p.add_argument("--weight-quant", default=None,
+                   choices=["none", "int8"],
+                   help="int8 weight-only quantization of the backbone "
+                        "matmuls (halves decode weight streaming; for "
+                        "weight-bound families like Orpheus-3B)")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture each decode graph at its first use, not "
                         "at start-up")
@@ -159,6 +164,7 @@ def main(argv=None) -> None:
         "kv_quant": args.kv_quant,
         "kv_k_amax": args.kv_k_amax,
         "kv_v_amax": args.kv_v_amax,
+        "weight_quant": args.weight_quant,
         "no_warmup": args.no_warmup,
         "pipeline_depth": args.pipeline_depth,
         "detok_pipeline_depth": args.detok_pipeline_depth,

@@ -8,6 +8,12 @@ pool(s) are updated in place per layer. Attention dispatches on the
 tensor's device and the pool's layout and type (``ops/attention.py``): the
 CPU runs the plain versions, the card the hand-written kernels, so there is
 no ``use_pallas`` switch.
+
+int8 weight-only quantization (``quantize_backbone_params``, the worker's
+``weight_quant="int8"``) turns each q/k/v/o and gate/up/down leaf into
+``{"w_q": int8 (d_in, d_out), "w_s": float32 (d_out,)}``; ``linear``
+dispatches on the leaf's keys, and on the card its ``w_q`` branch is K5
+(``ops/kernels.py`` ``w8a16_linear``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (AttnMetadata, paged_attention_decode,
                              ragged_prefill_attention, write_kv_prefill)
+from ..ops.kernels import W8A16Scratch, w8a16_linear
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved,
                         rope_frequencies)
@@ -112,12 +119,66 @@ def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def linear(p: dict, x: torch.Tensor,
+           scratch: Optional[W8A16Scratch] = None) -> torch.Tensor:
+    """``x @ w (+ b)``; a quantized leaf (``w_q``, ``w_s``) takes JAX's
+    rule instead: ``(x @ w_q.astype(x.dtype)) * w_s.astype(x.dtype)``
+    (+ b), through K5 on the card (``scratch``: its split-K workspace)."""
+    if "w_q" in p:
+        return w8a16_linear(x, p["w_q"], p["w_s"], p.get("b"), scratch)
     x, w = promoted(x, p["w"])
     y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def _quantize_weight(w: torch.Tensor, q: torch.Tensor,
+                     s: torch.Tensor) -> None:
+    """One (d_in, d_out) weight into ``q`` (int8) and ``s`` (float32
+    (d_out,)), in JAX's arithmetic: float32, ``torch.round`` half to even
+    as ``jnp.round``."""
+    wf = w.float()
+    s.copy_(torch.clamp_min(wf.abs().amax(dim=-2), 1e-8) / 127.0)
+    q.copy_(torch.clamp(torch.round(wf / s[None, :]), -127, 127))
+
+
+def quantize_linear_params(p: dict) -> dict:
+    """Symmetric per-output-channel int8 quantization of a linear leaf
+    {"w": (..., d_in, d_out)} -> {"w_q": int8, "w_s": float32 (...,
+    d_out)}, the bias passed through (port of vox_serve_tpu's
+    ``quantize_linear_params``, bit-equal). A stacked (L, d_in, d_out)
+    weight is quantized one layer at a time, so the float32 temporary is
+    one layer's (GLM-4-Voice's gate/up/down stack would be ~9 GB); the
+    scales are per (layer, output channel), so the result is the same."""
+    w = p["w"]
+    lead, (d_in, d_out) = w.shape[:-2], w.shape[-2:]
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(lead + (d_out,), dtype=torch.float32, device=w.device)
+    wv = w.reshape(-1, d_in, d_out)
+    qv, sv = q.view(-1, d_in, d_out), s.view(-1, d_out)
+    for i in range(wv.shape[0]):
+        _quantize_weight(wv[i], qv[i], sv[i])
+    out = {"w_q": q, "w_s": s}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_backbone_params(params: dict) -> dict:
+    """int8-quantize every matmul weight of a backbone tree (q/k/v/o,
+    gate/up/down); norms, q/k norms and biases stay at full precision.
+    The result feeds the same ``backbone_forward``: ``linear`` dispatches
+    on the leaf keys. Untouched leaves are shared with ``params``."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    layers["attn"] = {
+        k: (quantize_linear_params(v) if k in ("q", "k", "v", "o") else v)
+        for k, v in params["layers"]["attn"].items()}
+    layers["mlp"] = {k: quantize_linear_params(v)
+                     for k, v in params["layers"]["mlp"].items()}
+    out["layers"] = layers
+    return out
 
 
 def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
@@ -192,7 +253,9 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     Writes this step's K/V into the pool(s) in place. Prefill runs ragged
     causal attention over the packed buffer (K3 on the card, for every
     bucket size); decode runs paged attention over the pool (K1, K1q or K4
-    on the card). Returns the final-norm hidden (T, hidden)."""
+    on the card); a quantized tree's matmuls run K5 on the card, with
+    ``meta.linear_scratch`` as its split-K workspace. Returns the
+    final-norm hidden (T, hidden)."""
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     inv_freq = rope_frequencies(cfg.rope_dim or hd, cfg.rope_theta,
@@ -201,12 +264,13 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     rope = apply_rope_interleaved if cfg.rope_interleaved else apply_rope
     T = x.shape[0]
     h = x
+    ws = meta.linear_scratch
     for li in range(cfg.num_layers):
         lp = tree_map(lambda a: a[li], params["layers"])  # views
         xin = _norm(cfg, h, lp, "input_norm")
-        q = linear(lp["attn"]["q"], xin).reshape(T, H, hd)
-        k = linear(lp["attn"]["k"], xin).reshape(T, KH, hd)
-        v = linear(lp["attn"]["v"], xin).reshape(T, KH, hd)
+        q = linear(lp["attn"]["q"], xin, ws).reshape(T, H, hd)
+        k = linear(lp["attn"]["k"], xin, ws).reshape(T, KH, hd)
+        v = linear(lp["attn"]["v"], xin, ws).reshape(T, KH, hd)
         if cfg.qk_norm:
             q = rms_norm(q, lp["attn"]["q_norm"], cfg.rms_eps)
             k = rms_norm(k, lp["attn"]["k_norm"], cfg.rms_eps)
@@ -221,10 +285,10 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
             attn_out = paged_attention_decode(q, k_pages, v_pages, li, meta,
                                               scale=cfg.attn_scale,
                                               kv_scales=kv_scales)
-        h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd))
+        h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd), ws)
 
         xin2 = _norm(cfg, h, lp, "post_norm")
-        gated = F.silu(linear(lp["mlp"]["gate"], xin2)) * linear(
-            lp["mlp"]["up"], xin2)
-        h = h + linear(lp["mlp"]["down"], gated)
+        gated = F.silu(linear(lp["mlp"]["gate"], xin2, ws)) * linear(
+            lp["mlp"]["up"], xin2, ws)
+        h = h + linear(lp["mlp"]["down"], gated, ws)
     return _norm(cfg, h, params, "final_norm")

@@ -37,6 +37,9 @@ class AttnMetadata:
       kv_page_ids / kv_page_offsets: (B,) int32 — where this step's K/V goes
       decode_scratch: the worker's ``kernels.DecodeScratch`` for split
         decode launches on the card (None: one per launch)
+      linear_scratch: the worker's ``kernels.W8A16Scratch`` for split K5
+        launches of an int8 backbone on the card (None: one per launch);
+        prefill passes it too
 
     Prefill (ragged, T tokens total):
       segment_ids:  (T,) int32 — request index per token; padding = -1
@@ -51,6 +54,7 @@ class AttnMetadata:
     block_tables: Optional[torch.Tensor] = None
     seq_lens: Optional[torch.Tensor] = None
     decode_scratch: Optional[kernels.DecodeScratch] = None
+    linear_scratch: Optional[kernels.W8A16Scratch] = None
     # prefill
     segment_ids: Optional[torch.Tensor] = None
     q_positions: Optional[torch.Tensor] = None

@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, their wrappers and their plain
 PyTorch versions.
 
-Five kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
+Six kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
 
 * K1 ``paged_decode_attention`` (``csrc/paged_decode.cu``) replaces the
   Pallas ``ragged_paged_attention`` that vox_serve_tpu/ops/attention.py
@@ -18,7 +18,11 @@ Five kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
   ``ops/resunit.py``) replaces vox_serve_tpu/ops/pallas_resunit.py
   ``fused_resunit_stack`` over float32 activations (3xTF32), and its bf16
   entry, counted as ``fused_resunit_stack_bf16``, the same Pallas kernel
-  in the bf16 serving dtype.
+  in the bf16 serving dtype;
+* K5 ``w8a16_linear`` (``csrc/w8a16_linear.cu``) is the int8 weight-only
+  linear of the backbone under ``weight_quant="int8"``. It replaces no
+  Pallas kernel: vox_serve_tpu/models/backbone.py ``linear`` leaves its
+  ``w_q`` branch to an XLA fusion on the TPU.
 
 Build: ``nvcc`` compiles every source into one shared library with a plain
 C interface, loaded with ``ctypes``, at the first launch (or an explicit
@@ -36,10 +40,11 @@ also its whole stacks in ``.stacks``); a captured CUDA graph adds the
 counts its capture made on each replay (``worker/graphs.py``), and its
 capture counts none. The
 launch geometry is planned on the host from shapes alone
-(``plan_decode_splits``, ``plan_prefill_tiles``), so no launch waits on
-the device. A split decode launch keeps its partial states in the
-caller's ``DecodeScratch`` (the worker sizes one at start-up), or in one
-of its own.
+(``plan_decode_splits``, ``plan_prefill_tiles``, ``plan_w8a16``), so no
+launch waits on the device. A split decode launch keeps its partial
+states in the caller's ``DecodeScratch`` (the worker sizes one at
+start-up), or in one of its own; a split K5 launch its partial sums in a
+``W8A16Scratch`` in the same way.
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("paged_decode.cu", "ragged_prefill.cu", "resunit.cu")
+_SOURCES = ("paged_decode.cu", "ragged_prefill.cu", "resunit.cu",
+            "w8a16_linear.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -152,6 +158,8 @@ def build(verbose: bool = False) -> Path:
             for entry in (lib.vox_resunit, lib.vox_resunit_bf16):
                 entry.argtypes = [vp] * 14 + [ci] * 6 + [vp]
                 entry.restype = ci
+            lib.vox_w8a16_linear.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+            lib.vox_w8a16_linear.restype = ci
             _lib = lib
         return path
 
@@ -646,6 +654,175 @@ def ragged_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 ragged_prefill_attention.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K5: int8 weight-only linear
+# ---------------------------------------------------------------------------
+
+#: the largest row count of K5's small-M (streaming, split-K) plan; more
+#: rows take the tiled mma.sync plan
+W8A16_SMALL_M = 16
+#: rows of K a small-M CTA loads per round (a split is whole chunks)
+W8A16_CHUNK = 128
+#: int8 columns a lane of the small-M plan loads per row, by the largest
+#: the row count allows (its M x VEC float32 accumulators stay at 64)
+W8A16_VECS = (16, 8, 4, 1)
+#: float32 x values a small-M CTA stages (its rows x its K range)
+W8A16_SMEM_FLOATS = 8192
+
+
+def w8a16_vec(M: int, N: int, byte_offset: int) -> int:
+    """The small-M plan's vector width: the widest of 16 / 8 / 4 bytes
+    that the row count allows (M <= 4: 16, M <= 8: 8, else 4) and that
+    divides both N and the weight view's address (a layer's view starts
+    ``li * K * N`` bytes into its stack), else 1."""
+    cap = 16 if M <= 4 else 8 if M <= 8 else 4
+    for v in W8A16_VECS:
+        if v <= cap and N % v == 0 and byte_offset % v == 0:
+            return v
+    return 1
+
+
+def w8a16_strip(vec: int) -> int:
+    """Columns one small-M CTA owns: 128 at a vector width of 4 or more
+    (a warp's load covers whole 128-byte lines), 32 at 1."""
+    return (128 // vec if vec >= 4 else 32) * vec
+
+
+
+def plan_w8a16(M: int, K: int, N: int, vec: int, n_sm: int = 132
+               ) -> tuple[int, int, int]:
+    """K5's small-M grid: (strips, splits, rows per split). A strip is
+    ``w8a16_strip(vec)`` columns; the K axis is cut into whole 128-row
+    chunks so that strips x splits reaches four CTAs per SM where the
+    chunks allow (Orpheus's 3072 x 3072: 24 strips x 12 splits of 256
+    rows), and so that a split's x rows fit the CTA's staging (the row
+    count rounded up to a power of two, times its rows: at most 8,192
+    floats). Pure host arithmetic on the shapes."""
+    strips = cdiv(N, w8a16_strip(vec))
+    chunks = cdiv(K, W8A16_CHUNK)
+    mt = 1 << max(0, M - 1).bit_length()
+    most = W8A16_SMEM_FLOATS // (mt * W8A16_CHUNK)
+    per = min(most, max(1, cdiv(chunks, cdiv(4 * n_sm, strips))))
+    return strips, cdiv(chunks, per), per * W8A16_CHUNK
+
+
+def _w8a16_need(M: int, K: int, N: int, vec: int, n_sm: int
+                ) -> tuple[int, int, int]:
+    """(splits, partial-sum floats, counters) of one small-M launch."""
+    strips, splits, _ = plan_w8a16(M, K, N, vec, n_sm)
+    if splits == 1:
+        return 1, 0, 0
+    return splits, splits * M * N, strips
+
+
+def w8a16_scratch_size(shapes, n_sm: int = 132) -> tuple[int, int]:
+    """(floats, counters) that cover every small-M launch over the (K, N)
+    weight shapes, at any row count and vector width."""
+    floats = counters = 0
+    for K, N in shapes:
+        for M in range(1, W8A16_SMALL_M + 1):
+            for vec in W8A16_VECS:
+                _, f, c = _w8a16_need(M, K, N, vec, n_sm)
+                floats, counters = max(floats, f), max(counters, c)
+    return floats, counters
+
+
+class W8A16Scratch:
+    """The workspace of split small-M K5 launches: partial sums and
+    per-strip arrival counters, which the kernel leaves at zero. Sized once
+    for the (K, N) shapes of its owner's quantized weights (the worker's
+    backbone) and never replaced, so a captured CUDA graph keeps valid
+    pointers while it lives. The launches that share one run in order on
+    one stream, as a worker's do."""
+
+    def __init__(self, device: torch.device, shapes):
+        device = torch.device(device)
+        n_sm = _sm_count(device) if device.type == "cuda" else 132
+        floats, counters = w8a16_scratch_size(shapes, n_sm)
+        self.part = torch.empty(max(floats, 1), dtype=torch.float32,
+                                device=device)
+        self.counters = torch.zeros(max(counters, 1), dtype=torch.int32,
+                                    device=device)
+
+
+def w8a16_linear_plain(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                       b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K5 (the port of vox_serve_tpu's ``linear``
+    over a quantized leaf): ``(x @ w_q.astype(x.dtype)) * w_s.astype(
+    x.dtype)``, then ``+ b``. x: (..., K); w_q: (K, N) int8; w_s: (N,)."""
+    y = (x @ w_q.to(x.dtype)) * w_s.to(x.dtype)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def w8a16_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+                 b: Optional[torch.Tensor] = None,
+                 scratch: Optional[W8A16Scratch] = None) -> torch.Tensor:
+    """K5 wrapper. CPU tensors: the plain version. CUDA tensors: the kernel
+    (x (..., K) bf16 contiguous, w_q (K, N) int8 contiguous, w_s (N,)
+    float32, b (N,) bf16 or None), or raise. Up to ``W8A16_SMALL_M`` rows
+    take the streaming split-K plan, whose partial sums go to ``scratch``
+    (the worker's ``W8A16Scratch``; without one, a fresh one per split
+    launch); more rows the tiled mma.sync plan."""
+    if x.device.type == "cpu":
+        return w8a16_linear_plain(x, w_q, w_s, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {x.device}")
+    dev = x.device
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x has dtype {x.dtype}, expected torch.bfloat16")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _check("w_q", w_q, torch.int8, 2, dev)
+    _check("w_s", w_s, torch.float32, 1, dev)
+    K, N = w_q.shape
+    if x.shape[-1] != K or w_s.shape[0] != N:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q "
+                         f"{tuple(w_q.shape)}, w_s {tuple(w_s.shape)}")
+    if b is not None:
+        _check("b", b, torch.bfloat16, 1, dev)
+        if b.shape[0] != N:
+            raise ValueError(f"b {tuple(b.shape)} does not match N={N}")
+    M = x.numel() // K if K else 0
+    y = torch.empty(x.shape[:-1] + (N,), dtype=torch.bfloat16, device=dev)
+    part = cnt = None
+    vec = splits = rows = aligned = 0
+    if M <= W8A16_SMALL_M:
+        vec = w8a16_vec(M, N, w_q.data_ptr())
+        strips, splits, rows = plan_w8a16(M, K, N, vec, _sm_count(dev))
+        if splits > 1:
+            floats = splits * M * N
+            if scratch is None:
+                part = torch.empty(floats, dtype=torch.float32, device=dev)
+                cnt = torch.zeros(strips, dtype=torch.int32, device=dev)
+            else:
+                part, cnt = scratch.part, scratch.counters
+                if part.device != dev:
+                    raise ValueError(f"K5 scratch is on {part.device}, x on "
+                                     f"{dev}")
+                if part.numel() < floats or cnt.numel() < strips:
+                    raise ValueError(
+                        f"K5 scratch ({part.numel()} floats, {cnt.numel()} "
+                        f"counters) too small for M={M} K={K} N={N} "
+                        f"({floats}, {strips})")
+    else:
+        aligned = int(K % 8 == 0 and N % 16 == 0
+                      and x.data_ptr() % 16 == 0
+                      and w_q.data_ptr() % 16 == 0)
+    err = library().vox_w8a16_linear(
+        x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), _ptr(b), y.data_ptr(),
+        _ptr(part), _ptr(cnt), M, K, N, vec, splits, rows, aligned,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "w8a16_linear")
+    w8a16_linear.launches += 1
+    return y
+
+
+w8a16_linear.launches = 0
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
     from .resunit import fused_resunit_stack, fused_resunit_stack_bf16
@@ -657,6 +834,7 @@ def wrappers() -> dict:
         "ragged_prefill_attention": ragged_prefill_attention,
         "fused_resunit_stack": fused_resunit_stack,
         "fused_resunit_stack_bf16": fused_resunit_stack_bf16,
+        "w8a16_linear": w8a16_linear,
     }
 
 

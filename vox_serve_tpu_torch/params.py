@@ -12,8 +12,9 @@ encoder's and Step-Audio 2's audio encoder's lists of layers with ``(out,
 in)`` linear weights, the adaptor) — so one leaf-wise copy converts all
 of them:
 ``tree_to_torch(tree, device, dtype)``, with floating leaves cast to
-``dtype`` (bf16 for the LM on the card; the codec stays float32). Used by
-the tests so that both packages compute from the same weights.
+``dtype`` (bf16 for the LM on the card; the codec stays float32) but for
+the float32 scales of an int8-quantized linear (``w_s``). Used by the
+tests so that both packages compute from the same weights.
 """
 
 from __future__ import annotations
@@ -59,5 +60,16 @@ def tree_leaves(tree: Any) -> list:
 
 
 def tree_to_torch(tree: Any, device, dtype: torch.dtype | None = None) -> Any:
-    """Convert every leaf of a nested dict/list/tuple tree (None kept)."""
-    return tree_map(lambda a: to_tensor(a, device, dtype), tree)
+    """Convert every leaf of a nested dict/list/tuple tree (None kept);
+    floating leaves are cast to ``dtype``, except an int8-quantized
+    linear's ``w_s`` (its per-channel scales, float32 in JAX whatever the
+    model's dtype), and integer leaves (``w_q``) keep theirs."""
+    if isinstance(tree, dict):
+        return {k: (to_tensor(v, device) if k == "w_s" and v is not None
+                    else tree_to_torch(v, device, dtype))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_torch(v, device, dtype) for v in tree)
+    if tree is None:
+        return None
+    return to_tensor(tree, device, dtype)

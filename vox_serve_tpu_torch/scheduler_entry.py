@@ -128,6 +128,8 @@ def _run_scheduler_daemon(args) -> None:
            if args.kv_k_amax is not None else {}),
         **({"kv_v_amax": args.kv_v_amax}
            if args.kv_v_amax is not None else {}),
+        **({"weight_quant": args.weight_quant}
+           if args.weight_quant is not None else {}),
     )
     worker = ModelWorker(model, wcfg)
     if model.device.type == "cuda":
@@ -154,6 +156,8 @@ def _run_scheduler_daemon(args) -> None:
             "kv_layout": "combined" if worker.kv_config.combined else "pair",
             "kv_pool_dtype": str(worker.k_pages.dtype).removeprefix("torch."),
             "kv_scales": worker.kv_config.kv_scales,
+            "weight_quant": wcfg.weight_quant,
+            "backbone_bytes": worker.backbone_bytes(),
             "fused_resunit": use_fused_resunit(),
             "codec_dtypes": worker.codec_dtypes(),
             "watermark": watermark_kind(worker.watermark_params),
@@ -217,6 +221,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quantized KV pool storage")
     p.add_argument("--kv-k-amax", type=float, default=None)
     p.add_argument("--kv-v-amax", type=float, default=None)
+    p.add_argument("--weight-quant", default=None,
+                   choices=["none", "int8"])
     p.add_argument("--socket-suffix", default="")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--pipeline-depth", type=int, default=0)

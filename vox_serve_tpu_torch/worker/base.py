@@ -72,7 +72,15 @@ completion frees one. ``enable_profiling`` wraps each step dispatch in a
 ``torch.profiler.record_function`` range (the JAX worker's trace
 annotations).
 
-Not ported: tensor parallelism and weight quantisation.
+``weight_quant="int8"`` quantizes the backbone's matmul weights (q/k/v/o,
+gate/up/down of ``model.params["backbone"]``; not the depth stacks, heads,
+embeddings or codecs) to int8 with per-output-channel float32 scales right
+after the KV config, before any graph is captured, and drops the bf16
+stacks; every LM graph then runs K5 (``ops/kernels.py`` ``w8a16_linear``)
+for those matmuls, with a ``W8A16Scratch`` sized here for its split-K
+partial sums.
+
+Not ported: tensor parallelism (one card).
 
 Float32 matmuls and convolutions run in full float32 on the card
 (``allow_tf32`` off for cuBLAS and cuDNN, set here): the codec runs in
@@ -94,11 +102,11 @@ from ..utils import cdiv, get_logger
 
 from ..models.base import BaseLM
 from ..ops.attention import AttnMetadata
-from ..ops.kernels import DecodeScratch
+from ..ops.kernels import DecodeScratch, W8A16Scratch
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
                             alloc_kv_pages, combined_kv_supported)
 from ..params import tree_leaves, tree_map
-from ..models.backbone import seeded_generator
+from ..models.backbone import quantize_backbone_params, seeded_generator
 from ..requests import Request
 from ..sampling import init_repetition_cache
 from ..watermark import WatermarkConfig, apply_watermark, init_watermarker
@@ -155,6 +163,10 @@ class WorkerConfig:
     kv_quant: str = "none"
     kv_k_amax: float = 16.0
     kv_v_amax: float = 16.0
+    #: int8 weight-only quantization of the backbone matmuls (symmetric
+    #: per-output-channel scales; K5 reads the int8 weights on the card):
+    #: "none" or "int8"
+    weight_quant: str = "none"
     #: explicit decode-bucket lattice (ascending, last = max_batch_size);
     #: None -> powers of 2 up to max_batch_size
     decode_buckets_override: Optional[tuple[int, ...]] = None
@@ -292,6 +304,12 @@ class ModelWorker:
             head_dim=head_dim, dtype=bb.dtype, combined=combined,
             quant=kv_quant, k_amax=cfg.kv_k_amax, v_amax=cfg.kv_v_amax)
         model.kv_quant_scales = self.kv_config.kv_scales
+        # K5's split-K workspace (card, int8 backbone only)
+        self.linear_scratch = None
+        if cfg.weight_quant == "int8":
+            self._quantize_backbone()
+        elif cfg.weight_quant != "none":
+            raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}")
         self.k_pages, self.v_pages = alloc_kv_pages(self.kv_config, dev)
         self.allocator = PageAllocator(cfg.num_pages)
         self._init_width_lattice()
@@ -368,6 +386,29 @@ class ModelWorker:
             cfg.kv_reserve_fraction)
         if cfg.warmup:
             self.warmup()
+
+    def _quantize_backbone(self) -> None:
+        """Replace ``model.params["backbone"]`` by its int8 tree (before
+        anything is captured: graphs hold pointers to the tensors they
+        read), free the bf16 stacks, and size K5's split-K scratch for the
+        quantized shapes."""
+        model, dev = self.model, self.device
+        model.params = dict(model.params)
+        model.params["backbone"] = quantize_backbone_params(
+            model.params["backbone"])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()  # the bf16 stacks' blocks
+            shapes = {tuple(a.shape[-2:]) for a in tree_leaves(
+                model.params["backbone"]) if a.dtype == torch.int8}
+            self.linear_scratch = W8A16Scratch(dev, sorted(shapes))
+        self.logger.info("backbone weights quantized to int8 "
+                         "(per-output-channel scales): %.2fG",
+                         self.backbone_bytes() / 2**30)
+
+    def backbone_bytes(self) -> int:
+        """Bytes of ``model.params["backbone"]``, read from the tensors."""
+        return sum(a.numel() * a.element_size()
+                   for a in tree_leaves(self.model.params["backbone"]))
 
     def _cast_codec(self, dtype: torch.dtype) -> None:
         """Cast every float32 leaf of the codec parameters, and of every
@@ -697,7 +738,8 @@ class ModelWorker:
         (tokens, pos, seg, page_ids, offsets, slot_ids,
          last_idx) = self._prefill_pack_views(pack, T, B, model.n_codebooks)
         meta = AttnMetadata(True, page_ids, offsets, segment_ids=seg,
-                            q_positions=pos)
+                            q_positions=pos,
+                            linear_scratch=self.linear_scratch)
         rep_rows = None
         if self.rep_cache is not None:
             # a fresh request has no history: prefill starts from zeros
@@ -744,7 +786,8 @@ class ModelWorker:
         for i in range(K):
             meta = AttnMetadata(False, page_ids[i], offsets[i],
                                 block_tables=tables, seq_lens=seq_lens0 + i,
-                                decode_scratch=self.decode_scratch)
+                                decode_scratch=self.decode_scratch,
+                                linear_scratch=self.linear_scratch)
             sampled.append(self._lm_decode(overrides[i], override_mask[i],
                                            positions[i], meta, slots,
                                            gen_idx0 + i))
@@ -801,7 +844,8 @@ class ModelWorker:
                 meta = AttnMetadata(False, page_ids, offsets,
                                     block_tables=tables.contiguous(),
                                     seq_lens=seq_lens.contiguous(),
-                                    decode_scratch=self.decode_scratch)
+                                    decode_scratch=self.decode_scratch,
+                                    linear_scratch=self.linear_scratch)
                 return self._lm_decode(overrides, override_mask, positions,
                                        meta, slot_ids.long(), gen_idx)
             return body, (self._padded_pack(key),)
