@@ -45,19 +45,22 @@ exits non-zero without printing a result:
    int8 and float8 pools and the pair layout, and once each at a GQA group
    of 3 (Orpheus) and of 4 at head dim 64 (CSM), with Llama-3.1 rope
    scaling, and once at Orpheus's heads with int8 weights (quantized once
-   on the CPU): the card through K5, 7 launches per layer and step,
+   on the CPU): the card through K5, 4 launches per layer and step,
    against the CPU through K5's plain version.
    Then K5, the int8 weight-only linear (``--weight-quant int8``), for the
-   seven linears of one layer (q, k, v, o, gate, up, down) as a group at
-   Qwen3-TTS (2048 / 6144), Orpheus (3072 / 8192), GLM-4-Voice (4096 /
-   13696, q/k/v biases), Step-Audio-2 (3584 / 18944, q/k/v biases) and
-   Chatterbox (1024 / 4096) widths, at M in {1, 4, 64} rows (decode) and
-   T in {168, 1024} (prefill), each output against its plain version on
-   the same inputs; CUDA-graph times of K5, its plain version, bf16 ``x @
-   w`` of the unquantized weights (the path int8 replaces) and, at up to
-   16 rows, ``torch._weight_int8pack_mm`` (the library yardstick, where
-   the card's PyTorch has a CUDA kernel for it), and the group's bound;
-   then an odd shape (K=200, N=300, layer 1 of a stack) for the tails.
+   seven linears of one layer (q, k, v, o, gate, up, down) as a group of
+   four launches (q/k/v and gate/up each one launch, as the backbone makes
+   them) at Qwen3-TTS (2048 / 6144), Orpheus (3072 / 8192), GLM-4-Voice
+   (4096 / 13696, q/k/v biases), Step-Audio-2 (3584 / 18944, q/k/v
+   biases) and Chatterbox (1024 / 4096) widths, at M in {1, 4, 32, 64}
+   rows (decode) and T in {168, 1024} (prefill), each output against its
+   plain version on the same inputs; CUDA-graph times of K5, its plain
+   version, bf16 ``x @ w`` of the unquantized weights (the path int8
+   replaces) and, up to 168 rows, ``torch._weight_int8pack_mm`` (the
+   library yardstick, where the card's PyTorch has a CUDA kernel for it;
+   ~0.5 s a group at 1024 rows), and the group's bound; then an odd shape
+   (K=200, N=300, layer 1 of a stack, padded by the pack) alone and as a
+   group of three, for the tails.
    Then K2, the codec's residual-unit stack, against its plain version at
    the four decoder-block shapes of a detokenize of 4 streams x 10 frames
    and of one stream (B=4 and B=1), whole and as two streamed chunks with
@@ -98,9 +101,10 @@ exits non-zero without printing a result:
    audio tokens its daemon reports (``requests`` in the stats file), at
    least 6 windows; it prints TTFA, windows/s against real time (11.72 per
    stream) and the decode and detokenize replay times. Run Y is I at
-   ``--weight-quant int8``: the worker quantizes the backbone's matmul
-   weights before it captures anything, so every prefill and decode graph
-   runs K5, 7 x 28 launches per prefill and decode step; the daemon must
+   ``--weight-quant int8``: the worker quantizes and packs the backbone's
+   matmul weights before it captures anything, so every prefill and decode
+   graph runs K5, 4 x 28 launches per replay (q/k/v and gate/up grouped),
+   none eagerly; the daemon must
    report ``weight_quant: int8`` and a backbone of at most 0.55 of I's
    bytes, each stream's PCM is held to I's overlap rule, and Y is printed
    beside I (decode step, TTFA, windows/s, bytes). Every other run must
@@ -691,14 +695,16 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3",
     4 query heads over 2 with q/k norms, Orpheus's GQA group of 3 (6 over
     2) or CSM's group of 4 at head dim 64 (8 over 2), both with Llama-3.1
     rope scaling. ``weight_quant="int8"``: the matmul weights quantized
-    once on the CPU in float32 (``quantize_backbone_params``), the card
-    through K5 (which must launch 7 times per layer and step) against the
-    CPU through its plain version."""
+    once on the CPU in float32 (``quantize_backbone_params``) and packed
+    (``pack_backbone_params``), the card through K5 (which must launch 4
+    times per layer and step: q/k/v and gate/up grouped) against the CPU
+    through its plain version."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import (BackboneConfig,
                                                      backbone_forward,
                                                      init_backbone_params,
+                                                     pack_backbone_params,
                                                      quantize_backbone_params)
     from vox_serve_tpu_torch.ops import kernels
     from vox_serve_tpu_torch.ops.attention import AttnMetadata
@@ -714,7 +720,7 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3",
     g = torch.Generator().manual_seed(4)
     params = init_backbone_params(cfg, g, "cpu")
     if weight_quant == "int8":
-        params = quantize_backbone_params(params)
+        params = pack_backbone_params(quantize_backbone_params(params))
     lens, page, P = (37, 20), 16, 16
     T = sum(lens)
     x0 = torch.randn((T, 256), generator=g)
@@ -760,7 +766,8 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3",
     got = run("cuda", torch.bfloat16)
     torch.cuda.synchronize()
     k5 = kernels.w8a16_linear.launches - k5
-    want = 7 * cfg.num_layers * 4 if weight_quant == "int8" else 0
+    want = K5_PER_LAYER * cfg.num_layers * 4 if weight_quant == "int8" \
+        else 0
     if k5 != want:
         raise AssertionError(f"backbone ({weight_quant} weights): K5 "
                              f"launched {k5} times, expected {want}")
@@ -785,22 +792,29 @@ K5_WIDTHS = {"qwen3-tts": (2048, 16, 8, 128, 6144, False),
              "glm": (4096, 32, 2, 128, 13696, True),
              "step": (3584, 28, 4, 128, 18944, True),
              "chatterbox": (1024, 16, 16, 64, 4096, False)}
-#: rows K5 is timed at: decode batches (the small-M plan) and prefill
-#: buckets (the tiled plan: 168 = the served prefill of four 42-token
-#: prompts, 1024 the largest bucket)
-K5_ROWS = (1, 4, 64, 168, 1024)
+#: rows K5 is timed at: decode batches (1, 4; 32, the smallest batched
+#: decode past 16 rows; 64) and prefill (168 = the served prefill of four
+#: 42-token prompts, 1024 the largest bucket)
+K5_ROWS = (1, 4, 32, 64, 168, 1024)
+#: the library yardstick is timed up to this many rows: its CUDA kernel
+#: takes up to ~0.5 s a group at 1024
+K5_LIB_ROWS = 168
 #: the odd shape (K, N) that exercises every tail, at these rows
 K5_ODD = ((200, 300), (1, 4, 17, 168))
+#: a layer's K5 launches: its linears by position in ``k5_layer``
+K5_LAUNCHES = ((0, 1, 2), (3,), (4, 5), (6,))
 
 
 def k5_layer(dev, width: str, seed: int) -> list:
     """The seven linears of one layer at ``width`` (``K5_WIDTHS``): each
-    a dict with the bf16 weight it was quantized from (``w``), the int8
-    leaf (``w_q``, ``w_s``, ``b`` as the backbone holds it) and its (K, N),
+    a dict with the bf16 weight it was quantized from (``w``), its int8
+    values (``w_q``, for the library yardstick), the packed leaf as the
+    backbone holds it (``leaf``: ``w_p``, ``w_s``, ``b``) and its (K, N),
     drawn on the card from ``seed``."""
     import torch
 
     from vox_serve_tpu_torch.models.backbone import quantize_linear_params
+    from vox_serve_tpu_torch.ops.kernels import pack_w8a16
 
     Hs, H, KH, D, inter, bias = K5_WIDTHS[width]
     shapes = [(Hs, H * D, bias), (Hs, KH * D, bias), (Hs, KH * D, bias),
@@ -815,47 +829,64 @@ def k5_layer(dev, width: str, seed: int) -> list:
         if b:
             leaf["b"] = (torch.randn((N,), generator=g, device=dev)
                          * 0.1).to(torch.bfloat16)
-        out.append({"w": w, "leaf": quantize_linear_params(leaf), "K": K,
+        q = quantize_linear_params(leaf)
+        packed = {"w_p": pack_w8a16(q["w_q"]), "w_s": q["w_s"]}
+        if b:
+            packed["b"] = q["b"]
+        out.append({"w": w, "w_q": q["w_q"], "leaf": packed, "K": K,
                     "N": N})
     return out
 
 
+def k5_groups(layer: list) -> list:
+    """The (K, output widths) of the layer's four K5 launches."""
+    return [(layer[ix[0]]["K"], tuple(layer[i]["N"] for i in ix))
+            for ix in K5_LAUNCHES]
+
+
 def k5_group(kernels, layer: list, M: int, scratch, seed: int,
              lib: bool = True) -> dict:
-    """Time the seven linears of ``layer`` at M rows as one group: K5, its
-    plain version, bf16 ``x @ w (+ b)`` of the weights they were quantized
-    from (the path int8 replaces) and, where ``lib`` and the card's PyTorch
-    has a CUDA kernel for it, ``torch._weight_int8pack_mm`` (the library
-    yardstick, int8 weights as (N, K), transposed outside the timing; it
-    takes no bias). Each output is held against the plain version. Returns
-    the group's result (``library_ms`` None where not timed)."""
+    """Time the seven linears of ``layer`` at M rows as one group: K5's
+    four launches (q/k/v and gate/up grouped, as the backbone makes them),
+    its plain version, bf16 ``x @ w (+ b)`` of the weights they were
+    quantized from (the path int8 replaces) and, where ``lib`` and the
+    card's PyTorch has a CUDA kernel for it, ``torch._weight_int8pack_mm``
+    (the library yardstick, int8 weights as (N, K), transposed outside the
+    timing; it takes no bias). Each output is held against the plain
+    version. Returns the group's result (``library_ms`` None where not
+    timed)."""
     import torch
 
     dev = layer[0]["w"].device
     g = torch.Generator(device=dev).manual_seed(seed)
     xs = {K: torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
           for K in {lin["K"] for lin in layer}}
-    args = [(xs[lin["K"]], lin["leaf"]["w_q"], lin["leaf"]["w_s"],
-             lin["leaf"].get("b")) for lin in layer]
+    leaves = [(lin["leaf"]["w_p"], lin["leaf"]["w_s"], lin["leaf"].get("b"))
+              for lin in layer]
+    launches = [(xs[layer[ix[0]]["K"]], [leaves[i] for i in ix])
+                for ix in K5_LAUNCHES]
+    plain = [(xs[lin["K"]], *leaf) for lin, leaf in zip(layer, leaves)]
     worst = 0.0
-    for a in args:
-        out = kernels.w8a16_linear(*a, scratch=scratch)
+    outs = [y for x, lv in launches
+            for y in kernels.w8a16_linear_group(x, lv, scratch)]
+    for a, out in zip(plain, outs):
         ref = kernels.w8a16_linear_plain(*a)
         torch.cuda.synchronize()
         rel = ((out.float() - ref.float()).abs().max()
                / ref.float().abs().max()).item()
         if not torch.isfinite(out.float()).all() or rel > K5_REL_TOL:
-            raise AssertionError(f"K5 M={M} K={a[1].shape[0]} N="
-                                 f"{a[1].shape[1]}: rel err {rel} > "
+            raise AssertionError(f"K5 M={M} K={a[0].shape[1]} N="
+                                 f"{a[2].shape[0]}: rel err {rel} > "
                                  f"{K5_REL_TOL}")
         worst = max(worst, (out.float() - ref.float()).abs().max().item())
     ms, plain_ms = alternate_times(
-        lambda: [kernels.w8a16_linear_plain(*a) for a in args],
-        lambda: [kernels.w8a16_linear(*a, scratch=scratch) for a in args],
+        lambda: [kernels.w8a16_linear_plain(*a) for a in plain],
+        lambda: [kernels.w8a16_linear_group(x, lv, scratch)
+                 for x, lv in launches],
         iters=10, graph=True)
 
     def bf16_group():
-        for lin, a in zip(layer, args):
+        for lin, a in zip(layer, plain):
             y = a[0] @ lin["w"]
             if a[3] is not None:
                 y = y + a[3]
@@ -865,8 +896,8 @@ def k5_group(kernels, layer: list, M: int, scratch, seed: int,
     lib_ms = None
     if lib and torch._C._dispatch_has_kernel_for_dispatch_key(
             "aten::_weight_int8pack_mm", "CUDA"):
-        packed = [(a[0], a[1].t().contiguous(), a[2].to(torch.bfloat16))
-                  for a in args]
+        packed = [(xs[lin["K"]], lin["w_q"].t().contiguous(),
+                   lin["leaf"]["w_s"].to(torch.bfloat16)) for lin in layer]
 
         def lib_group():
             for x, qt, sc in packed:
@@ -874,47 +905,50 @@ def k5_group(kernels, layer: list, M: int, scratch, seed: int,
 
         lib_ms = (cuda_time_ms(lib_group, 10, True)
                   + cuda_time_ms(lib_group, 10, True)) / 2
-    nbytes = sum(M * a[1].shape[0] * 2 + a[1].numel() + a[1].shape[1] * 4
-                 + (a[1].shape[1] * 2 if a[3] is not None else 0)
-                 + M * a[1].shape[1] * 2 for a in args)
-    flops = sum(2 * M * a[1].numel() for a in args)
+    # each launch reads its x once; every weight, scale, bias and output once
+    nbytes = sum(x.numel() * 2 for x, _ in launches) + sum(
+        lin["K"] * lin["N"] + lin["N"] * 4 + M * lin["N"] * 2
+        + (lin["N"] * 2 if "b" in lin["leaf"] else 0) for lin in layer)
+    flops = sum(2 * M * lin["K"] * lin["N"] for lin in layer)
     r = result(worst, ms, plain_ms, bound(nbytes, flops, "bf16"), lib_ms)
     r["bf16_ms"] = bf16_ms
     return r
 
 
 def check_k5(kernels) -> dict:
-    """K5 against its plain version for the seven linears of one layer at
-    each ``K5_WIDTHS`` width and ``K5_ROWS`` row count (the small-M plan up
-    to 16 rows, the tiled plan above), with CUDA-graph times of K5, the
-    plain version, bf16 matmuls of the unquantized weights and the library
-    yardstick, and the group's bound; then the odd shape's tails. Returns
-    the Orpheus group at 4 rows (run Y's decode batch) with the worst
-    error over every shape."""
+    """K5 against its plain version for the seven linears of one layer
+    (four launches) at each ``K5_WIDTHS`` width and ``K5_ROWS`` row count,
+    with CUDA-graph times of K5, the plain version, bf16 matmuls of the
+    unquantized weights and the library yardstick (up to ``K5_LIB_ROWS``
+    rows), and the group's bound; then the odd shape's tails, alone and
+    grouped. Returns the Orpheus group at 4 rows (run Y's decode batch)
+    with the worst error over every shape."""
     import torch
 
     dev = torch.device("cuda")
     worst, served = 0.0, None
-    no_lib = ("not timed" if torch._C._dispatch_has_kernel_for_dispatch_key(
-        "aten::_weight_int8pack_mm", "CUDA") else "none")
+    has_lib = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
     for wi, width in enumerate(K5_WIDTHS):
         layer = k5_layer(dev, width, 50 + wi)
-        scratch = kernels.W8A16Scratch(
-            dev, sorted({(lin["K"], lin["N"]) for lin in layer}))
+        groups = k5_groups(layer)
+        scratch = kernels.W8A16Scratch(dev, groups)
         for M in K5_ROWS:
-            # the library yardstick at decode rows only: its CUDA kernel
-            # takes up to ~0.5 s a group at 1024 rows
             r = k5_group(kernels, layer, M, scratch, 70 + M,
-                         lib=M <= kernels.W8A16_SMALL_M)
+                         lib=M <= K5_LIB_ROWS)
             worst = max(worst, r["max_abs_err"])
             lib = r["library_ms"]
-            plan = ("small-M split-K" if M <= kernels.W8A16_SMALL_M
-                    else "tiled mma.sync")
-            log(f"K5 w8a16_linear {width} one layer's 7 linears M={M} "
-                f"({plan}): max_abs_err {r['max_abs_err']:.3e} (rel tol "
-                f"{K5_REL_TOL}) kernel_ms={r['ms']:.4f} plain_ms="
-                f"{r['plain_ms']:.4f} bf16_matmul_ms={r['bf16_ms']:.4f} "
-                f"weight_int8pack_mm_ms="
+            no_lib = ("not timed" if has_lib and M > K5_LIB_ROWS
+                      else "none")
+            plans = ", ".join(
+                "bm {} x {} splits {}".format(*[
+                    kernels.plan_w8a16(M, K, ns)[i] for i in (0, 1, 3)])
+                for K, ns in groups)
+            log(f"K5 w8a16_linear {width} one layer's 7 linears in 4 "
+                f"launches M={M} ({plans}): max_abs_err "
+                f"{r['max_abs_err']:.3e} (rel tol {K5_REL_TOL}) "
+                f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"bf16_matmul_ms={r['bf16_ms']:.4f} weight_int8pack_mm_ms="
                 f"{no_lib if lib is None else format(lib, '.4f')} "
                 f"{bound_text(r)}")
             if width == "orpheus" and M == 4:
@@ -923,26 +957,32 @@ def check_k5(kernels) -> dict:
         torch.cuda.empty_cache()
     (K, N), rows = K5_ODD
     g = torch.Generator(device=dev).manual_seed(9)
-    w = torch.randn((2, K, N), generator=g, device=dev)
     from vox_serve_tpu_torch.models.backbone import quantize_linear_params
 
-    leaf = quantize_linear_params({"w": w})
+    leaf = quantize_linear_params(
+        {"w": torch.randn((2, K, N), generator=g, device=dev)})
+    w_p = kernels.pack_w8a16(leaf["w_q"])
     b = torch.randn((N,), generator=g, device=dev).to(torch.bfloat16)
+    one = (w_p[1], leaf["w_s"][1], b)  # layer 1 of a stack, with a bias
+    group = [one, (w_p[0], leaf["w_s"][0], None), one]
     for M in rows:
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-        a = (x, leaf["w_q"][1], leaf["w_s"][1], b)
-        out = kernels.w8a16_linear(*a)
-        ref = kernels.w8a16_linear_plain(*a)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
-        if not torch.isfinite(out.float()).all() or rel > K5_REL_TOL:
-            raise AssertionError(f"K5 odd shape K={K} N={N} M={M}: rel err "
-                                 f"{rel} > {K5_REL_TOL}")
-        worst = max(worst, err)
-        log(f"K5 odd shape K={K} N={N} M={M} (layer 1 of a stack, bias, "
-            f"vector width {kernels.w8a16_vec(M, N, a[1].data_ptr())}): "
-            f"max_abs_err {err:.3e} rel {rel:.3e}")
+        outs = [kernels.w8a16_linear(x, *one),
+                *kernels.w8a16_linear_group(x, group)]
+        errs = []
+        for out, lv in zip(outs, [one, *group]):
+            ref = kernels.w8a16_linear_plain(x, *lv)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            if not torch.isfinite(out.float()).all() or rel > K5_REL_TOL:
+                raise AssertionError(f"K5 odd shape K={K} N={N} M={M}: rel "
+                                     f"err {rel} > {K5_REL_TOL}")
+            worst = max(worst, err)
+            errs.append(rel)
+        log(f"K5 odd shape K={K} N={N} M={M} (layer 1 of a stack, bias; "
+            f"alone and as a group of three, padded to {tuple(w_p.shape[1:3])}"
+            f" units): max rel err {max(errs):.3e}")
     return {**served, "max_abs_err": worst}
 
 
@@ -1387,9 +1427,9 @@ K1, K1Q, K4 = ("paged_decode_attention", "paged_decode_attention_quant",
 K3, K2 = "ragged_prefill_attention", "fused_resunit_stack"
 K2H = "fused_resunit_stack_bf16"
 K5 = "w8a16_linear"
-#: K5's launches per layer of a prefill or decode step: q, k, v, o, gate,
-#: up, down
-K5_PER_LAYER = 7
+#: K5's launches per layer of a prefill or decode step: q/k/v grouped, o,
+#: gate/up grouped, down
+K5_PER_LAYER = 4
 
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
@@ -2632,10 +2672,19 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
                 f"[{config}] {K5} launched {launches[K5]} times, expected "
                 f"{K5_PER_LAYER} x {layers} x ({prefills} prefill + "
                 f"{n_steps} decode steps)")
+        # and each prefill and decode graph launches it 4 times a layer
+        for key, cg in captured.items():
+            got = cg.get(f"{K5}.launches", 0)
+            if key.split()[0] in ("prefill", "decode") \
+                    and got != K5_PER_LAYER * layers:
+                raise AssertionError(
+                    f"[{config}] graph {key} launches {K5} {got} times a "
+                    f"replay, expected {K5_PER_LAYER} x {layers} layers")
         log(f"[{config}] {K5}: {launches[K5]} launches = {K5_PER_LAYER} "
-            f"linears x {layers} layers x ({prefills} prefill replays + "
-            f"{n_steps} decode steps); backbone "
-            f"{stats['backbone_bytes'] / 1e9:.3f} GB")
+            f"launches (q/k/v, o, gate/up, down) x {layers} layers x "
+            f"({prefills} prefill replays + {n_steps} decode steps), "
+            f"{K5_PER_LAYER} x {layers} in every prefill and decode graph, "
+            f"none eager; backbone {stats['backbone_bytes'] / 1e9:.3f} GB")
     # and every counter is the sum over graphs of replays x captured counts
     want = {name: 0 for name in launches}
     stacks = {K2: 0, K2H: 0}

@@ -2,8 +2,8 @@
 """Split one decode step of a model of the PyTorch port (GLM-4-Voice-9B,
 Step-Audio-2-mini, Zonos-v0.1 with its 9 codebooks, or Orpheus-3B) into
 its parts on the card: the embedding gather, the backbone (K1 over a bf16
-pool; with ``--weight-quant int8`` its matmuls through K5 over int8
-weights, as the worker serves them), the head(s) and the sampler (with the
+pool; with ``--weight-quant int8`` its matmuls through K5 over packed
+int8 weights, 4 launches a layer, as the worker serves them), the head(s) and the sampler (with the
 model's repetition penalty where it has one), each captured in a CUDA
 graph and timed by its replays, beside the whole step (``lm_step``, with
 Zonos's delay mask at ``gen_idx``) and each part's bound (the bytes it
@@ -28,7 +28,9 @@ import torch
 import chip_smoke as c
 from vox_serve_tpu_torch.models import get_model_class
 from vox_serve_tpu_torch.models.backbone import (backbone_forward,
-                                                 quantize_backbone_params)
+                                                 pack_backbone_params,
+                                                 quantize_backbone_params,
+                                                 w8a16_groups)
 from vox_serve_tpu_torch.ops import kernels
 from vox_serve_tpu_torch.ops.attention import AttnMetadata
 from vox_serve_tpu_torch.sampling import (init_repetition_cache,
@@ -57,11 +59,10 @@ def main() -> None:
     scratch = None
     if args.weight_quant == "int8":  # as the worker's weight_quant="int8"
         m.params = dict(m.params)
-        m.params["backbone"] = quantize_backbone_params(m.params["backbone"])
+        m.params["backbone"] = pack_backbone_params(quantize_backbone_params(
+            m.params["backbone"]))
         torch.cuda.empty_cache()
-        scratch = kernels.W8A16Scratch(dev, sorted({
-            tuple(t.shape[-2:]) for t in _leaves(m.params["backbone"])
-            if t.dtype == torch.int8}))
+        scratch = kernels.W8A16Scratch(dev, w8a16_groups(m.params["backbone"]))
     B, n, page = args.batch, args.context, 16
     L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     maxp = -(-n // page)

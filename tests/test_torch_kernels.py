@@ -616,59 +616,134 @@ def test_kernel_shape_limits_are_checked_before_launch(H, KH, D, max_group,
 # test_torch_weight_quant.py and chip_smoke.py)
 # ---------------------------------------------------------------------------
 
-#: the (K, N) of the served families' seven linears, and tails
-K5_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048),
-             (3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
-             (4096, 4096), (4096, 256), (4096, 13696), (13696, 4096),
-             (3584, 512), (3584, 18944), (18944, 3584), (1024, 4096),
-             (896, 128), (4864, 896), (200, 300), (64, 5)]
+#: the (K, output widths) of the served families' four launches a layer
+#: (q/k/v grouped, o, gate/up grouped, down), and tails
+K5_GROUPS = [
+    (2048, (2048, 1024, 1024)), (2048, (2048,)), (2048, (6144, 6144)),
+    (6144, (2048,)),                                          # Qwen3-TTS
+    (3072, (3072, 1024, 1024)), (3072, (3072,)), (3072, (8192, 8192)),
+    (8192, (3072,)),                                          # Orpheus
+    (4096, (4096, 256, 256)), (4096, (4096,)), (4096, (13696, 13696)),
+    (13696, (4096,)),                                         # GLM
+    (3584, (3584, 512, 512)), (3584, (3584,)), (3584, (18944, 18944)),
+    (18944, (3584,)),                                         # Step
+    (896, (896, 128, 128)), (4864, (896,)),                   # CosyVoice2
+    (1024, (1024, 1024, 1024)), (1024, (4096, 4096)),         # Chatterbox
+    (2048, (2048, 512, 512)), (8192, (2048,)),                # CSM, Zonos
+    (200, (300,)), (64, (5, 64, 8))]
+#: row counts: decode batches, token-tile edges, prefill buckets
+K5_ROWS = [1, 2, 4, 7, 8, 9, 16, 17, 32, 33, 64, 65, 128, 168, 192, 193,
+           256, 257, 300, 513, 1024]
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16])
+@pytest.mark.parametrize("M", K5_ROWS)
 def test_k5_plan_covers_k_and_fits_the_staging(M):
-    """Every split is whole 128-row chunks, the splits cover K exactly once
-    (no empty split), a split's x rows fit the CTA's staging, and the
-    vector width divides N and the view's offset."""
-    mt = 1 << (M - 1).bit_length()
-    for K, N in K5_SHAPES:
-        for off in (0, 4, K * N):
-            vec = kernels.w8a16_vec(M, N, off)
-            assert N % vec == 0 and off % vec == 0
-            assert vec <= (16 if M <= 4 else 8 if M <= 8 else 4)
-            strips, splits, rows = kernels.plan_w8a16(M, K, N, vec)
-            assert rows % kernels.W8A16_CHUNK == 0
-            assert mt * rows <= kernels.W8A16_SMEM_FLOATS
-            assert (splits - 1) * rows < K <= splits * rows
-            assert strips * kernels.w8a16_strip(vec) >= N
-            assert (strips - 1) * kernels.w8a16_strip(vec) < N
+    """The token tile is an instance that holds its share of the rows
+    (several tiles only past 256 rows, none of them empty); every split
+    holds whole K tiles, the splits cover K exactly once (no empty
+    split), and only a single token tile is split."""
+    for K, ns in K5_GROUPS:
+        bm, m_tiles, tiles, splits, per = kernels.plan_w8a16(M, K, ns)
+        assert bm in kernels.W8A16_TOKEN_TILES
+        assert (m_tiles - 1) * bm < M <= m_tiles * bm
+        assert (m_tiles == 1) == (M <= kernels.W8A16_TOKEN_TILES[-1])
+        assert tiles == kernels.w8a16_feature_tiles(ns) * m_tiles
+        kt = -(-K // kernels.W8A16_K_TILE)
+        assert (splits - 1) * per < kt <= splits * per
+        assert 1 <= splits <= kernels.W8A16_MAX_SPLITS
+        assert splits == 1 or m_tiles == 1
+
+
+@pytest.mark.parametrize("M,bm,m_tiles", [
+    (1, 8, 1), (8, 8, 1), (9, 16, 1), (17, 32, 1), (64, 64, 1),
+    (65, 128, 1), (168, 192, 1), (256, 256, 1), (257, 192, 2),
+    (384, 192, 2), (385, 256, 2), (1024, 256, 4), (1025, 256, 5)])
+def test_k5_token_tile(M, bm, m_tiles):
+    assert kernels.w8a16_token_tile(M) == (bm, m_tiles)
+
+
+def test_k5_feature_tiles_and_the_splits_of_the_served_widths():
+    """128-feature CTA tiles per linear (a lone last 64-feature unit in a
+    tile of its own). Orpheus at one decode row: q/k/v (40 tiles) split
+    six ways into the 264 slots of two CTAs an SM; gate/up (128 tiles,
+    nearly a CTA an SM) not at all; down (24 tiles over 128 K tiles) as
+    far as the slots allow; at 64 rows (one CTA an SM, a dearer merge)
+    q/k/v three ways; the 1024-token bucket (4 token tiles) never."""
+    assert kernels.w8a16_feature_tiles((3072, 1024, 1024)) == 40
+    assert kernels.w8a16_feature_tiles((300,)) == 3
+    assert kernels.w8a16_feature_tiles((5, 64, 8)) == 3
+    assert kernels.w8a16_feature_tiles((896, 128, 128)) == 9
+    assert kernels.plan_w8a16(1, 3072, (3072, 1024, 1024)) == (8, 1, 40, 6,
+                                                                8)
+    assert kernels.plan_w8a16(1, 3072, (8192, 8192)) == (8, 1, 128, 1, 48)
+    assert kernels.plan_w8a16(1, 8192, (3072,)) == (8, 1, 24, 11, 12)
+    assert kernels.plan_w8a16(64, 3072, (3072, 1024, 1024)) == (64, 1, 40,
+                                                                 3, 16)
+    assert kernels.plan_w8a16(1024, 3072, (8192, 8192)) == (256, 4, 512, 1,
+                                                            48)
 
 
 def test_k5_scratch_covers_every_small_launch():
-    floats, counters = kernels.w8a16_scratch_size(K5_SHAPES)
-    for K, N in K5_SHAPES:
-        for M in range(1, kernels.W8A16_SMALL_M + 1):
-            for vec in kernels.W8A16_VECS:
-                strips, splits, _ = kernels.plan_w8a16(M, K, N, vec)
-                if splits > 1:
-                    assert splits * M * N <= floats and strips <= counters
-    scratch = kernels.W8A16Scratch("cpu", K5_SHAPES)
+    """The scratch sized for the groups covers every launch over them at
+    every row count up to the largest prefill bucket (1024)."""
+    floats, counters = kernels.w8a16_scratch_size(K5_GROUPS)
+    for K, ns in K5_GROUPS:
+        for M in range(1, 1025):
+            bm, _, tiles, splits, _ = kernels.plan_w8a16(M, K, ns)
+            if splits > 1:
+                assert tiles * splits * 128 * bm <= floats
+                assert tiles <= counters
+    scratch = kernels.W8A16Scratch("cpu", K5_GROUPS)
     assert scratch.part.numel() == floats
     assert scratch.counters.numel() == counters
     assert not scratch.counters.any()
 
 
+def _k5_packed(g, K, N, bias=True):
+    q = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    s = torch.rand((N,), generator=g) / 127
+    b = torch.randn((N,), generator=g) if bias else None
+    return q, kernels.pack_w8a16(q), s, b
+
+
 def test_k5_wrapper_dispatch_on_cpu_and_other_devices():
-    """CPU tensors take the plain version (JAX's rule, no launch counted);
-    a device with no kernel raises."""
+    """CPU tensors take the plain version over the packed weight (JAX's
+    rule on the unpacked one, no launch counted); a device with no kernel
+    raises."""
     g = torch.Generator().manual_seed(0)
     x = torch.randn((3, 40), generator=g)
-    q = torch.randint(-127, 128, (40, 24), generator=g, dtype=torch.int8)
-    s = torch.rand((24,), generator=g) / 127
-    b = torch.randn((24,), generator=g)
+    q, w_p, s, b = _k5_packed(g, 40, 24)
     before = kernels.w8a16_linear.launches
-    out = kernels.w8a16_linear(x, q, s, b)
+    out = kernels.w8a16_linear(x, w_p, s, b)
     torch.testing.assert_close(out, (x @ q.float()) * s + b, atol=0, rtol=0)
     assert kernels.w8a16_linear.launches == before
     assert "w8a16_linear" in kernels.launch_counts()
+    assert {("w8a16_linear", f) for f in ("launches", "grouped", "split")} \
+        <= set(kernels.counters())
     with pytest.raises(ValueError, match="no K5 kernel"):
-        kernels.w8a16_linear(x.to("meta"), q.to("meta"), s.to("meta"))
+        kernels.w8a16_linear(x.to("meta"), w_p.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="no K5 kernel"):
+        kernels.w8a16_linear_group(x.to("meta"), [(w_p.to("meta"),
+                                                   s.to("meta"), None)])
+
+
+def test_k5_launch_checks_what_the_kernel_takes():
+    """The launch's argument checks (run before any launch on the card):
+    bf16 contiguous x, one to three packed leaves whose unit grid matches
+    x's K and the scales' N, f32 scales, bf16 biases of N."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 200), generator=g).to(torch.bfloat16)
+    _, w_p, s, _ = _k5_packed(g, 200, 300)
+    b = torch.randn((300,), generator=g).to(torch.bfloat16)
+    assert kernels._w8a16_check(x, [(w_p, s, b)] * 3) == [300] * 3
+    bad = [((x.float(), w_p, s, b), "dtype"), ((x.t(), w_p, s, b), "contig"),
+           ((x, w_p[:, :-1].contiguous(), s, b), "packed weight"),
+           ((x, w_p, s[:-64], b), "packed weight"),
+           ((x, w_p, s.to(torch.bfloat16), b), "dtype"),
+           ((x, w_p, s, b.float()), "dtype"), ((x, w_p, s, b[:-1]), "N=300"),
+           ((x[:, :128].contiguous(), w_p, s, b), "packed weight")]
+    for (xx, ww, ss, bb), match in bad:
+        with pytest.raises(ValueError, match=match):
+            kernels._w8a16_check(xx, [(ww, ss, bb)])
+    with pytest.raises(ValueError, match="4 linears"):
+        kernels._w8a16_check(x, [(w_p, s, b)] * 4)

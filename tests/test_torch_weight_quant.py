@@ -8,22 +8,27 @@ as the oracle, on the CPU at small widths:
   whole-stack quantization;
 * ``quantize_backbone_params``: JAX's keys, every untouched leaf (norms,
   q/k norms, biases) the same;
-* the int8 ``linear`` against JAX's: float32 within 1e-5, bf16 within one
-  bf16 step of the output's top binade, with and without a bias;
+* the int8 ``linear`` (over the leaf packed into K5's layout) against
+  JAX's: float32 within 1e-5, bf16 within one bf16 step of the output's
+  top binade, with and without a bias;
 * the quantized ``backbone_forward`` (prefill and 3 decode steps over the
   paged pool) against JAX's from the same JAX parameters through
-  ``params.tree_to_torch`` (which keeps ``w_s`` in float32): GQA groups of
-  2 and 3, q/k/v biases, ``use_layer_norm``; float32 within 1e-4, the
-  tolerance of the other backbone parity tests;
-* the worker: the dummy model's backbone under a 0.4 share of its float32
-  bytes and decoding, an unknown mode raising ``ValueError``, the flag
-  parsed by the launcher and the daemon into ``WorkerConfig``, and the
-  debug Qwen3-TTS served at int8 by both packages' workers with the same
-  greedy tokens, its depth stack left unquantized as in JAX.
+  ``params.tree_to_torch`` (which keeps ``w_s`` in float32) and
+  ``pack_backbone_params``: GQA groups of 2 and 3, q/k/v biases,
+  ``use_layer_norm``; float32 within 1e-4, the tolerance of the other
+  backbone parity tests;
+* the worker: the dummy model's backbone (packed into K5's layout, as on
+  the card) under a 0.4 share of its float32 bytes and decoding, an
+  unknown mode raising ``ValueError``, the flag parsed by the launcher and
+  the daemon into ``WorkerConfig``, and the debug Qwen3-TTS served at int8
+  by both packages' workers with the same greedy tokens, its packed
+  weights unpacking to JAX's and its depth stack left unquantized as in
+  JAX.
 
 K5 itself runs only on the card: the ``cuda``-marked tests below hold it
-against its plain version there (``test_torch_kernels.py`` has its
-wrapper's CPU-side checks).
+against its plain version there, at every token tile, grouped and alone,
+and inside a captured graph (``test_torch_kernels.py`` has its host plan
+and wrapper checks, ``test_torch_w8a16_pack.py`` the packed layout).
 """
 
 import inspect
@@ -174,6 +179,7 @@ def test_int8_linear_matches_jax(dtype, bias):
     tq = tparams.tree_to_torch(_np(jq), "cpu", getattr(torch, dtype))
     assert tq["w_s"].dtype == torch.float32 and tq["w_q"].dtype == torch.int8
     tx = tparams.to_tensor(np.asarray(x), "cpu")
+    tq["w_p"] = kernels.pack_w8a16(tq.pop("w_q"))  # the tree the port runs
     got = tbb.linear(tq, tx)
     assert got.dtype == tx.dtype
     got = got.float().numpy()
@@ -197,7 +203,8 @@ def test_quantized_backbone_matches_jax(case):
     kw = CASES[case]
     jcfg, tcfg = _bb_cfg(jbb, **kw), _bb_cfg(tbb, **kw)
     jq = jbb.quantize_backbone_params(_jax_params(jcfg, 5))
-    tq = tparams.tree_to_torch(_np(jq), "cpu", torch.float32)
+    tq = tbb.pack_backbone_params(  # the tree the port runs
+        tparams.tree_to_torch(_np(jq), "cpu", torch.float32))
     assert tq["layers"]["mlp"]["gate"]["w_s"].dtype == torch.float32
     plan = Plan(lens=(11, 6))
     shape = (2, plan.P, plan.page, 2 * kw["KH"], 16)
@@ -226,12 +233,13 @@ def test_dummy_worker_int8_quarter_bytes_and_decodes():
     model = DummyLM()
     worker = ModelWorker(model, WorkerConfig(
         max_batch_size=2, num_pages=64, page_size=16, weight_quant="int8"))
-    # f32 dev model: int8 weights + f32 scales ~ 1/4 of the matmul bytes;
-    # the norms stay f32. Under 40% shows the transform really applied.
+    # f32 dev model: int8 weights (the k / v projections padded to 64
+    # features by the pack) + f32 scales ~ 1/3 of the matmul bytes; the
+    # norms stay f32. Under 40% shows the transform really applied.
     assert _backbone_bytes(model) < 0.4 * base
     assert worker.backbone_bytes() == _backbone_bytes(model)
-    assert model.params["backbone"]["layers"]["mlp"]["up"]["w_q"].dtype \
-        == torch.int8
+    up = model.params["backbone"]["layers"]["mlp"]["up"]
+    assert set(up) == {"w_p", "w_s"} and up["w_p"].dtype == torch.int8
     req = Request(request_id="wq", prompt="hello world")
     worker.run_lm_prefill([req])
     for _ in range(4):
@@ -271,6 +279,23 @@ def test_weight_quant_flag_reaches_the_worker_config():
         == "none"
 
 
+def _unpacked(tree):
+    """A packed backbone tree with each ``w_p`` unpacked to JAX's
+    ``w_q`` (K from the layer's input width, N from the scales)."""
+    out = tparams.tree_map(lambda t: t, tree)
+    lay = out["layers"]
+    for part, names in tbb.LINEAR_GROUPS:
+        for n in names:
+            leaf = lay[part][n]
+            K = (lay["input_norm"].shape[-1] if n != "down"
+                 else lay["mlp"]["gate"]["w_s"].shape[-1])
+            if n == "o":
+                K = lay["attn"]["q"]["w_s"].shape[-1]
+            leaf["w_q"] = kernels.unpack_w8a16(leaf.pop("w_p"), K,
+                                               leaf["w_s"].shape[-1])
+    return out
+
+
 def test_qwen3_int8_workers_match_jax_and_keep_the_depth_stack():
     """The debug Qwen3-TTS at int8 in both packages' workers: the same
     greedy tokens over a prefill and decode steps, the top-level backbone
@@ -286,11 +311,12 @@ def test_qwen3_int8_workers_match_jax_and_keep_the_depth_stack():
     # JAX's worker quantizes under jit, where XLA turns the division by 127
     # into a product with its reciprocal: scales within one float32 step
     # of the eager formula the port follows, int8 values within one
+    # (the port's leaves unpacked from K5's layout to JAX's w_q)
     jax.tree.map(lambda a, t: np.testing.assert_allclose(
         t.numpy().astype(np.float64), a.astype(np.float64),
         rtol=2.0 ** -23, atol=1 if a.dtype == np.int8 else 0),
-        _np(jm.params["backbone"]), tm.params["backbone"])
-    assert set(tmlp) == {"w_q", "w_s"}
+        _np(jm.params["backbone"]), _unpacked(tm.params["backbone"]))
+    assert set(tmlp) == {"w_p", "w_s"}
     dup = tm.params["depth"]["backbone"]["layers"]["mlp"]["up"]
     assert set(dup) == {"w"} and dup["w"] is depth["w"]
     assert "w" in jm.params["depth"]["backbone"]["layers"]["mlp"]["up"]
@@ -330,13 +356,16 @@ def cuda_device():
 
 
 def _k5_case(dev, M, K, N, bias, seed=0, layers=1, layer=0):
+    """(x, packed weight, scales, bias) on ``dev``; the weight is layer
+    ``layer`` of a packed stack of ``layers``."""
     g = torch.Generator().manual_seed(seed)
     w = torch.randn((layers, K, N), generator=g) * K ** -0.5
     q = tbb.quantize_linear_params({"w": w})
     x = torch.randn((M, K), generator=g).to(torch.bfloat16)
     b = torch.randn((N,), generator=g).to(torch.bfloat16) if bias else None
     to = (lambda t: None if t is None else t.to(dev))
-    return to(x), to(q["w_q"])[layer], to(q["w_s"])[layer], to(b)
+    return (to(x), to(kernels.pack_w8a16(q["w_q"]))[layer],
+            to(q["w_s"])[layer], to(b))
 
 
 def _assert_k5_close(out, ref):
@@ -348,59 +377,103 @@ def _assert_k5_close(out, ref):
     assert rel <= K5_REL_TOL, rel
 
 
+#: every token tile and its edges, split and unsplit, past one tile
+K5_CARD_ROWS = [1, 4, 8, 16, 17, 32, 64, 168, 256, 257, 1024]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 7, 8, 16, 17, 64, 168])
-@pytest.mark.parametrize("K,N,bias", [(256, 512, True), (200, 300, False),
-                                      (264, 272, True), (1024, 96, False)])
-def test_k5_matches_plain_on_card(cuda_device, M, K, N, bias):
-    """Both plans (M <= 16 streaming split-K, larger M tiled mma.sync),
-    every vector width (N = 300: 4 bytes; 272: 16), K and N tails, a
-    bias and none; a layer view at an offset (layer 1 of a stack)."""
-    x, q, s, b = _k5_case(cuda_device, M, K, N, bias, layers=2, layer=1)
-    before = kernels.w8a16_linear.launches
-    out = kernels.w8a16_linear(x, q, s, b)
-    assert kernels.w8a16_linear.launches == before + 1
-    _assert_k5_close(out, kernels.w8a16_linear_plain(x, q, s, b))
+@pytest.mark.parametrize("M", K5_CARD_ROWS)
+@pytest.mark.parametrize("K,ns,bias", [
+    (256, (512,), True), (200, (300,), False), (264, (272,), True),
+    (1024, (96,), False), (3072, (3072, 1024, 1024), False),
+    (1024, (4096, 4096), True), (896, (896, 128, 128), True),
+    (64, (5, 64, 8), True)])
+def test_k5_matches_plain_on_card(cuda_device, M, K, ns, bias):
+    """The swap-AB plan at every token tile (8 to 256 tokens, several
+    tiles past 256 rows), split and not, grouped (q/k/v, gate/up shapes)
+    and alone, K and N tails padded by the pack, a bias and none, a layer
+    view at an offset (layer 1 of a stack); one launch per call."""
+    cases = [_k5_case(cuda_device, M, K, n, bias, seed=i, layers=2, layer=1)
+             for i, n in enumerate(ns)]
+    x = cases[0][0]
+    leaves = [c[1:] for c in cases]
+    before = dict(kernels.counters())
+    outs = kernels.w8a16_linear_group(x, leaves)
+    after = kernels.counters()
+    assert after[("w8a16_linear", "launches")] == \
+        before[("w8a16_linear", "launches")] + 1
+    assert after[("w8a16_linear", "grouped")] == \
+        before[("w8a16_linear", "grouped")] + (len(ns) > 1)
+    for out, lv in zip(outs, leaves):
+        _assert_k5_close(out, kernels.w8a16_linear_plain(x, *lv))
+    if len(ns) == 1:
+        _assert_k5_close(kernels.w8a16_linear(x, *leaves[0]),
+                         kernels.w8a16_linear_plain(x, *leaves[0]))
+
+
+@pytest.mark.cuda
+def test_k5_instances_fit_the_planned_ctas_per_sm(cuda_device):
+    """Every token tile's instance fits the CTAs an SM its registers are
+    capped for (two up to 32 tokens, one above: csrc/w8a16_linear.cu's
+    instance table)."""
+    lib = kernels.library()
+    for bm in kernels.W8A16_TOKEN_TILES:
+        planned = 2 if bm <= kernels.W8A16_TWO_PER_SM else 1
+        assert lib.vox_w8a16_occupancy(bm) >= planned, bm
+    assert lib.vox_w8a16_occupancy(24) == -1  # no such instance
 
 
 @pytest.mark.cuda
 def test_k5_scratch_shared_and_in_a_captured_graph(cuda_device):
     """One W8A16Scratch serves split launches of growing and shrinking
-    shape, eagerly and inside a captured CUDA graph, and the replays give
-    the same bits as the eager calls (no float atomics)."""
-    shapes = [(3072, 1024), (1024, 3072), (4096, 256)]
-    scratch = kernels.W8A16Scratch(cuda_device, shapes)
-    cases = [_k5_case(cuda_device, M, K, N, True, seed=i)
-             for i, (M, (K, N)) in enumerate(zip((4, 1, 16), shapes))]
-    eager = [kernels.w8a16_linear(*c, scratch=scratch) for c in cases]
-    for out, c in zip(eager, cases):
-        _assert_k5_close(out, kernels.w8a16_linear_plain(*c))
+    shape, grouped and alone, at decode and prefill rows, eagerly and
+    inside a captured CUDA graph, and the replays give the same bits as
+    the eager calls (no float atomics)."""
+    groups = [(3072, (3072, 1024, 1024)), (3072, (3072,)),
+              (1024, (4096, 4096)), (4096, (1024,))]
+    scratch = kernels.W8A16Scratch(cuda_device, groups)
+    cases = []
+    for i, (M, (K, ns)) in enumerate(zip((4, 1, 64, 168), groups)):
+        cs = [_k5_case(cuda_device, M, K, n, True, seed=10 * i + j)
+              for j, n in enumerate(ns)]
+        cases.append((cs[0][0], [c[1:] for c in cs]))
+    splits = kernels.w8a16_linear.split
+    eager = [kernels.w8a16_linear_group(x, lv, scratch) for x, lv in cases]
+    assert kernels.w8a16_linear.split - splits == 4  # every one split
+    for outs, (x, lv) in zip(eager, cases):
+        for out, leaf in zip(outs, lv):
+            _assert_k5_close(out, kernels.w8a16_linear_plain(x, *leaf))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        [kernels.w8a16_linear(*c, scratch=scratch) for c in cases]
+        [kernels.w8a16_linear_group(x, lv, scratch) for x, lv in cases]
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        outs = [kernels.w8a16_linear(*c, scratch=scratch) for c in cases]
+        outs = [kernels.w8a16_linear_group(x, lv, scratch)
+                for x, lv in cases]
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
-        for out, ref in zip(outs, eager):
-            assert torch.equal(out, ref)
+        for got, ref in zip(outs, eager):
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
     assert not scratch.counters.any()  # left at zero for the next launch
 
 
 @pytest.mark.cuda
 def test_k5_rejects_what_it_cannot_take_on_card(cuda_device):
-    x, q, s, b = _k5_case(cuda_device, 4, 64, 32, True)
-    for bad in (dict(x=x.float()), dict(q=q.to(torch.int16)),
+    x, w_p, s, b = _k5_case(cuda_device, 4, 64, 32, True)
+    for bad in (dict(x=x.float()), dict(w_p=w_p.to(torch.int16)),
                 dict(s=s.to(torch.bfloat16)), dict(b=b.float()),
-                dict(x=x[:, :32]), dict(q=q.t().contiguous())):
-        args = {**dict(x=x, q=q, s=s, b=b), **bad}
+                dict(x=x[:, :32]), dict(w_p=w_p[:, :, :2048])):
+        args = {**dict(x=x, w_p=w_p, s=s, b=b), **bad}
         with pytest.raises(ValueError):
-            kernels.w8a16_linear(args["x"], args["q"], args["s"], args["b"])
-    tiny = kernels.W8A16Scratch(cuda_device, [(64, 32)])  # one split
-    x2, q2, s2, b2 = _k5_case(cuda_device, 4, 4096, 256, False)
+            kernels.w8a16_linear(args["x"], args["w_p"], args["s"],
+                                 args["b"])
+    with pytest.raises(ValueError, match="4 linears"):
+        kernels.w8a16_linear_group(x, [(w_p, s, b)] * 4)
+    tiny = kernels.W8A16Scratch(cuda_device, [(64, (32,))])  # one split
+    x2, w2, s2, b2 = _k5_case(cuda_device, 4, 4096, 256, False)
     with pytest.raises(ValueError, match="too small"):
-        kernels.w8a16_linear(x2, q2, s2, b2, scratch=tiny)
+        kernels.w8a16_linear(x2, w2, s2, b2, scratch=tiny)

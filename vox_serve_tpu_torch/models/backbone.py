@@ -11,9 +11,12 @@ no ``use_pallas`` switch.
 
 int8 weight-only quantization (``quantize_backbone_params``, the worker's
 ``weight_quant="int8"``) turns each q/k/v/o and gate/up/down leaf into
-``{"w_q": int8 (d_in, d_out), "w_s": float32 (d_out,)}``; ``linear``
-dispatches on the leaf's keys, and on the card its ``w_q`` branch is K5
-(``ops/kernels.py`` ``w8a16_linear``).
+``{"w_q": int8 (d_in, d_out), "w_s": float32 (d_out,)}``, JAX's tree;
+``pack_backbone_params`` then replaces each ``w_q`` by ``w_p``, K5's packed
+layout (``ops/kernels.py`` ``pack_w8a16``), the tree ``backbone_forward``
+runs. ``linear`` dispatches on the leaf's keys: a ``w_p`` leaf is K5 on
+the card (``w8a16_linear``), and ``linear_group`` runs q/k/v and gate/up
+as one K5 launch each, 4 launches a layer.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import (AttnMetadata, paged_attention_decode,
                              ragged_prefill_attention, write_kv_prefill)
-from ..ops.kernels import W8A16Scratch, w8a16_linear
+from ..ops.kernels import (W8A16_K_TILE, W8A16Scratch, pack_w8a16,
+                           w8a16_linear, w8a16_linear_group)
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved,
                         rope_frequencies)
@@ -121,16 +125,27 @@ def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 def linear(p: dict, x: torch.Tensor,
            scratch: Optional[W8A16Scratch] = None) -> torch.Tensor:
-    """``x @ w (+ b)``; a quantized leaf (``w_q``, ``w_s``) takes JAX's
-    rule instead: ``(x @ w_q.astype(x.dtype)) * w_s.astype(x.dtype)``
-    (+ b), through K5 on the card (``scratch``: its split-K workspace)."""
-    if "w_q" in p:
-        return w8a16_linear(x, p["w_q"], p["w_s"], p.get("b"), scratch)
+    """``x @ w (+ b)``; a packed int8 leaf (``w_p``, ``w_s``;
+    ``pack_backbone_params``) takes JAX's rule instead, ``(x @
+    w_q.astype(x.dtype)) * w_s.astype(x.dtype)`` (+ b), through K5
+    (``scratch``: its split-K workspace)."""
+    if "w_p" in p:
+        return w8a16_linear(x, p["w_p"], p["w_s"], p.get("b"), scratch)
     x, w = promoted(x, p["w"])
     y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def linear_group(ps: list, x: torch.Tensor,
+                 scratch: Optional[W8A16Scratch] = None) -> tuple:
+    """``linear`` of each leaf of ``ps`` over the same x; packed leaves
+    (all of them) as one K5 launch (``w8a16_linear_group``)."""
+    if all("w_p" in p for p in ps):
+        return w8a16_linear_group(
+            x, [(p["w_p"], p["w_s"], p.get("b")) for p in ps], scratch)
+    return tuple(linear(p, x, scratch) for p in ps)
 
 
 def _quantize_weight(w: torch.Tensor, q: torch.Tensor,
@@ -179,6 +194,38 @@ def quantize_backbone_params(params: dict) -> dict:
                      for k, v in params["layers"]["mlp"].items()}
     out["layers"] = layers
     return out
+
+
+#: the linears of a layer by K5 launch: q/k/v and gate/up share x
+LINEAR_GROUPS = (("attn", ("q", "k", "v")), ("attn", ("o",)),
+                 ("mlp", ("gate", "up")), ("mlp", ("down",)))
+
+
+def pack_backbone_params(params: dict) -> dict:
+    """Replace each quantized leaf's ``w_q`` (L, d_in, d_out) by ``w_p``,
+    K5's packed layout (L, units, K tiles, 4096), one layer at a time
+    (``pack_w8a16``); ``w_s``, biases and every other leaf are shared with
+    ``params``."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for part, names in LINEAR_GROUPS:
+        sub = dict(layers[part])
+        for name in names:
+            leaf = dict(sub[name])
+            leaf["w_p"] = pack_w8a16(leaf.pop("w_q"))
+            sub[name] = leaf
+        layers[part] = sub
+    out["layers"] = layers
+    return out
+
+
+def w8a16_groups(params: dict) -> list[tuple[int, tuple[int, ...]]]:
+    """The (padded K, output widths) of each K5 launch a layer of the
+    packed tree makes (``W8A16Scratch``'s shapes)."""
+    lay = params["layers"]
+    return [(lay[part][names[0]]["w_p"].shape[-2] * W8A16_K_TILE,
+             tuple(lay[part][n]["w_s"].shape[-1] for n in names))
+            for part, names in LINEAR_GROUPS]
 
 
 def init_backbone_params(cfg: BackboneConfig, generator: torch.Generator,
@@ -253,8 +300,9 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     Writes this step's K/V into the pool(s) in place. Prefill runs ragged
     causal attention over the packed buffer (K3 on the card, for every
     bucket size); decode runs paged attention over the pool (K1, K1q or K4
-    on the card); a quantized tree's matmuls run K5 on the card, with
-    ``meta.linear_scratch`` as its split-K workspace. Returns the
+    on the card); a packed int8 tree's matmuls run K5 on the card, 4
+    launches a layer, with ``meta.linear_scratch`` as its split-K
+    workspace. Returns the
     final-norm hidden (T, hidden)."""
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
@@ -268,9 +316,9 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
     for li in range(cfg.num_layers):
         lp = tree_map(lambda a: a[li], params["layers"])  # views
         xin = _norm(cfg, h, lp, "input_norm")
-        q = linear(lp["attn"]["q"], xin, ws).reshape(T, H, hd)
-        k = linear(lp["attn"]["k"], xin, ws).reshape(T, KH, hd)
-        v = linear(lp["attn"]["v"], xin, ws).reshape(T, KH, hd)
+        q, k, v = linear_group([lp["attn"][n] for n in "qkv"], xin, ws)
+        q, k, v = (q.reshape(T, H, hd), k.reshape(T, KH, hd),
+                   v.reshape(T, KH, hd))
         if cfg.qk_norm:
             q = rms_norm(q, lp["attn"]["q_norm"], cfg.rms_eps)
             k = rms_norm(k, lp["attn"]["k_norm"], cfg.rms_eps)
@@ -288,7 +336,8 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
         h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd), ws)
 
         xin2 = _norm(cfg, h, lp, "post_norm")
-        gated = F.silu(linear(lp["mlp"]["gate"], xin2, ws)) * linear(
-            lp["mlp"]["up"], xin2, ws)
+        gate, up = linear_group([lp["mlp"]["gate"], lp["mlp"]["up"]], xin2,
+                                ws)
+        gated = F.silu(gate) * up
         h = h + linear(lp["mlp"]["down"], gated, ws)
     return _norm(cfg, h, params, "final_norm")

@@ -20,7 +20,9 @@ Six kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
   entry, counted as ``fused_resunit_stack_bf16``, the same Pallas kernel
   in the bf16 serving dtype;
 * K5 ``w8a16_linear`` (``csrc/w8a16_linear.cu``) is the int8 weight-only
-  linear of the backbone under ``weight_quant="int8"``. It replaces no
+  linear of the backbone under ``weight_quant="int8"``, over weights
+  packed once into its tile layout (``pack_w8a16``), up to three linears
+  that share x in one launch (``w8a16_linear_group``). It replaces no
   Pallas kernel: vox_serve_tpu/models/backbone.py ``linear`` leaves its
   ``w_q`` branch to an XLA fusion on the TPU.
 
@@ -158,8 +160,11 @@ def build(verbose: bool = False) -> Path:
             for entry in (lib.vox_resunit, lib.vox_resunit_bf16):
                 entry.argtypes = [vp] * 14 + [ci] * 6 + [vp]
                 entry.restype = ci
-            lib.vox_w8a16_linear.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+            lib.vox_w8a16_linear.argtypes = ([vp] * 13 + [ci] * 4 + [vp] * 2
+                                            + [ci] * 5 + [vp])
             lib.vox_w8a16_linear.restype = ci
+            lib.vox_w8a16_occupancy.argtypes = [ci]
+            lib.vox_w8a16_occupancy.restype = ci
             _lib = lib
         return path
 
@@ -659,168 +664,271 @@ ragged_prefill_attention.launches = 0
 # K5: int8 weight-only linear
 # ---------------------------------------------------------------------------
 
-#: the largest row count of K5's small-M (streaming, split-K) plan; more
-#: rows take the tiled mma.sync plan
-W8A16_SMALL_M = 16
-#: rows of K a small-M CTA loads per round (a split is whole chunks)
-W8A16_CHUNK = 128
-#: int8 columns a lane of the small-M plan loads per row, by the largest
-#: the row count allows (its M x VEC float32 accumulators stay at 64)
-W8A16_VECS = (16, 8, 4, 1)
-#: float32 x values a small-M CTA stages (its rows x its K range)
-W8A16_SMEM_FLOATS = 8192
+#: K per stage of K5 (one 128-byte row of bf16 x) and features per packed
+#: unit (one consumer warpgroup's wgmma rows)
+W8A16_K_TILE = 64
+W8A16_UNIT_FEATURES = 64
+#: bytes of one packed unit (64 features x 64 K of int8)
+W8A16_UNIT_BYTES = W8A16_K_TILE * W8A16_UNIT_FEATURES
+#: output features one K5 CTA owns (two consumer warpgroups)
+W8A16_TILE_FEATURES = 2 * W8A16_UNIT_FEATURES
+#: the token tiles (wgmma's N) K5 has instances for; more rows than the
+#: largest take several tiles
+W8A16_TOKEN_TILES = (8, 16, 32, 64, 128, 192, 256)
+#: most linears one K5 launch takes (q, k, v)
+W8A16_MAX_SEGMENTS = 3
+#: token tiles up to this width run two CTAs an SM (the instances'
+#: register cap), wider ones one
+W8A16_TWO_PER_SM = 32
+#: most K splits; a split's merge costs ``splits x token tile /
+#: W8A16_MERGE_TOKENS`` K tiles of work in the planner's model (its partial
+#: sums' round trip through L2 and the last CTA's serial read of them;
+#: fitted to a sweep of split counts at the served widths on an H100)
+W8A16_MAX_SPLITS = 16
+W8A16_MERGE_TOKENS = 32
 
 
-def w8a16_vec(M: int, N: int, byte_offset: int) -> int:
-    """The small-M plan's vector width: the widest of 16 / 8 / 4 bytes
-    that the row count allows (M <= 4: 16, M <= 8: 8, else 4) and that
-    divides both N and the weight view's address (a layer's view starts
-    ``li * K * N`` bytes into its stack), else 1."""
-    cap = 16 if M <= 4 else 8 if M <= 8 else 4
-    for v in W8A16_VECS:
-        if v <= cap and N % v == 0 and byte_offset % v == 0:
-            return v
-    return 1
+def pack_w8a16(w_q: torch.Tensor) -> torch.Tensor:
+    """K5's packed layout of an int8 weight: (..., K, N) -> (..., ceil(N /
+    64), ceil(K / 64), 4096), zero-padded to whole 64 x 64 units. Unit (u,
+    kt) holds features [64 u, 64 u + 64) over K [64 kt, 64 kt + 64), so a
+    CTA's stream of one unit row is one contiguous run. Inside a unit,
+    thread t of a consumer warpgroup (warp w = t / 32, g = lane / 4, q =
+    lane % 4) owns bytes [16 t, 16 t + 16) of each half c: its wgmma A
+    fragments of k16 steps 2c and 2c + 1, ordered (step, k half, row half,
+    k pair) over rows 16 w + g (+ 8) and k 2q (+ 1) (+ 8). Pure index
+    arithmetic, one (K, N) layer at a time."""
+    *lead, K, N = w_q.shape
+    kt, units = cdiv(K, W8A16_K_TILE), cdiv(N, W8A16_UNIT_FEATURES)
+    flat = w_q.reshape(-1, K, N)
+    out = torch.empty((flat.shape[0], units, kt, W8A16_UNIT_BYTES),
+                      dtype=torch.int8, device=w_q.device)
+    for i in range(flat.shape[0]):
+        pad = flat.new_zeros((kt * W8A16_K_TILE,
+                              units * W8A16_UNIT_FEATURES))
+        pad[:K, :N] = flat[i]
+        # k = 64 kt + 32 c + 16 j + 8 kh + 2 q + e; n = 64 u + 16 w + 8 nh
+        # + g -> (u, kt, c, w, g, q, j, kh, nh, e)
+        out[i] = (pad.view(kt, 2, 2, 2, 4, 2, units, 4, 2, 8)
+                  .permute(6, 0, 1, 7, 9, 4, 2, 3, 8, 5)
+                  .reshape(units, kt, W8A16_UNIT_BYTES))
+    return out.reshape(*lead, units, kt, W8A16_UNIT_BYTES)
 
 
-def w8a16_strip(vec: int) -> int:
-    """Columns one small-M CTA owns: 128 at a vector width of 4 or more
-    (a warp's load covers whole 128-byte lines), 32 at 1."""
-    return (128 // vec if vec >= 4 else 32) * vec
+def unpack_w8a16(w_p: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of ``pack_w8a16``: (..., units, kt, 4096) -> (..., K,
+    N), the padding dropped."""
+    *lead, units, kt, _ = w_p.shape
+    flat = w_p.reshape(-1, units, kt, W8A16_UNIT_BYTES)
+    out = torch.empty((flat.shape[0], K, N), dtype=torch.int8,
+                      device=w_p.device)
+    for i in range(flat.shape[0]):
+        full = (flat[i].view(units, kt, 2, 4, 8, 4, 2, 2, 2, 2)
+                .permute(1, 2, 6, 7, 5, 9, 0, 3, 8, 4)
+                .reshape(kt * W8A16_K_TILE, units * W8A16_UNIT_FEATURES))
+        out[i] = full[:K, :N]
+    return out.reshape(*lead, K, N)
 
 
-
-def plan_w8a16(M: int, K: int, N: int, vec: int, n_sm: int = 132
-               ) -> tuple[int, int, int]:
-    """K5's small-M grid: (strips, splits, rows per split). A strip is
-    ``w8a16_strip(vec)`` columns; the K axis is cut into whole 128-row
-    chunks so that strips x splits reaches four CTAs per SM where the
-    chunks allow (Orpheus's 3072 x 3072: 24 strips x 12 splits of 256
-    rows), and so that a split's x rows fit the CTA's staging (the row
-    count rounded up to a power of two, times its rows: at most 8,192
-    floats). Pure host arithmetic on the shapes."""
-    strips = cdiv(N, w8a16_strip(vec))
-    chunks = cdiv(K, W8A16_CHUNK)
-    mt = 1 << max(0, M - 1).bit_length()
-    most = W8A16_SMEM_FLOATS // (mt * W8A16_CHUNK)
-    per = min(most, max(1, cdiv(chunks, cdiv(4 * n_sm, strips))))
-    return strips, cdiv(chunks, per), per * W8A16_CHUNK
+def w8a16_token_tile(M: int) -> tuple[int, int]:
+    """(token tile, token tiles) of K5 at M rows: the narrowest instance
+    that holds M (256 at most), or, beyond 256 rows, the narrowest that
+    splits M into ceil(M / 256) tiles."""
+    per = cdiv(M, cdiv(M, W8A16_TOKEN_TILES[-1]))
+    bm = next(t for t in W8A16_TOKEN_TILES if t >= per)
+    return bm, cdiv(M, bm)
 
 
-def _w8a16_need(M: int, K: int, N: int, vec: int, n_sm: int
-                ) -> tuple[int, int, int]:
-    """(splits, partial-sum floats, counters) of one small-M launch."""
-    strips, splits, _ = plan_w8a16(M, K, N, vec, n_sm)
+def w8a16_feature_tiles(ns) -> int:
+    """128-feature CTA tiles over the linears of one launch (each linear's
+    features rounded up to whole 64-feature units, a lone last unit in a
+    tile of its own)."""
+    return sum(cdiv(cdiv(n, W8A16_UNIT_FEATURES), 2) for n in ns)
+
+
+def plan_w8a16(M: int, K: int, ns, n_sm: int = 132
+               ) -> tuple[int, int, int, int, int]:
+    """K5's grid at M rows over the linears of output widths ``ns`` that
+    share a K: (token tile, token tiles, CTA tiles, splits, K tiles per
+    split). The grid is (tiles, splits), tiles = feature tiles x token
+    tiles. Where a single token tile's CTAs leave a quarter of the SMs or
+    more without one, K is split so that the CTAs still fit one wave of
+    the SM slots (132, or
+    264 at token tiles up to 32), into the count that finishes soonest: K
+    tiles per split plus the merge (``W8A16_MERGE_TOKENS``), the fewer
+    splits on a tie. Every split holds at least one K tile. Pure host
+    arithmetic on the shapes."""
+    bm, m_tiles = w8a16_token_tile(M)
+    tiles = w8a16_feature_tiles(ns) * m_tiles
+    kt = cdiv(K, W8A16_K_TILE)
+    slots = n_sm * (2 if bm <= W8A16_TWO_PER_SM else 1)
+    best_cost, splits = kt, 1
+    if m_tiles == 1 and 4 * tiles <= 3 * n_sm:
+        for s in range(2, min(kt, W8A16_MAX_SPLITS, slots // tiles) + 1):
+            per = cdiv(kt, s)
+            s = cdiv(kt, per)
+            cost = per + s * bm / W8A16_MERGE_TOKENS
+            if cost < best_cost:
+                best_cost, splits = cost, s
+    return bm, m_tiles, tiles, splits, cdiv(kt, splits)
+
+
+def _w8a16_need(M: int, K: int, ns, n_sm: int) -> tuple[int, int, int]:
+    """(splits, partial-sum floats, counters) of one launch: 128 features
+    x the token tile per CTA and split, one counter per CTA tile."""
+    bm, _, tiles, splits, _ = plan_w8a16(M, K, ns, n_sm)
     if splits == 1:
         return 1, 0, 0
-    return splits, splits * M * N, strips
+    return splits, tiles * splits * W8A16_TILE_FEATURES * bm, tiles
 
 
-def w8a16_scratch_size(shapes, n_sm: int = 132) -> tuple[int, int]:
-    """(floats, counters) that cover every small-M launch over the (K, N)
-    weight shapes, at any row count and vector width."""
+def w8a16_scratch_size(groups, n_sm: int = 132) -> tuple[int, int]:
+    """(floats, counters) that cover every launch over the ``(K, ns)``
+    groups at any row count (more than one token tile never splits, so
+    the rows up to the widest tile are all there is to cover)."""
     floats = counters = 0
-    for K, N in shapes:
-        for M in range(1, W8A16_SMALL_M + 1):
-            for vec in W8A16_VECS:
-                _, f, c = _w8a16_need(M, K, N, vec, n_sm)
-                floats, counters = max(floats, f), max(counters, c)
+    for K, ns in groups:
+        for M in range(1, W8A16_TOKEN_TILES[-1] + 1):
+            _, f, c = _w8a16_need(M, K, ns, n_sm)
+            floats, counters = max(floats, f), max(counters, c)
     return floats, counters
 
 
 class W8A16Scratch:
-    """The workspace of split small-M K5 launches: partial sums and
-    per-strip arrival counters, which the kernel leaves at zero. Sized once
-    for the (K, N) shapes of its owner's quantized weights (the worker's
-    backbone) and never replaced, so a captured CUDA graph keeps valid
-    pointers while it lives. The launches that share one run in order on
-    one stream, as a worker's do."""
+    """The workspace of split K5 launches: partial sums and per-tile
+    arrival counters, which the kernel leaves at zero. Sized once for the
+    ``(K, (N, ...))`` launches of its owner's quantized weights (the
+    worker's backbone: ``models/backbone.py`` ``w8a16_groups``) and never
+    replaced, so a captured CUDA graph keeps valid pointers while it
+    lives. The launches that share one run in order on one stream, as a
+    worker's do."""
 
-    def __init__(self, device: torch.device, shapes):
+    def __init__(self, device: torch.device, groups):
         device = torch.device(device)
         n_sm = _sm_count(device) if device.type == "cuda" else 132
-        floats, counters = w8a16_scratch_size(shapes, n_sm)
+        floats, counters = w8a16_scratch_size(groups, n_sm)
         self.part = torch.empty(max(floats, 1), dtype=torch.float32,
                                 device=device)
         self.counters = torch.zeros(max(counters, 1), dtype=torch.int32,
                                     device=device)
 
 
-def w8a16_linear_plain(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
+def w8a16_linear_plain(x: torch.Tensor, w_p: torch.Tensor, w_s: torch.Tensor,
                        b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of K5 (the port of vox_serve_tpu's ``linear``
-    over a quantized leaf): ``(x @ w_q.astype(x.dtype)) * w_s.astype(
-    x.dtype)``, then ``+ b``. x: (..., K); w_q: (K, N) int8; w_s: (N,)."""
+    over a quantized leaf): the packed weight ``w_p`` (units, kt, 4096)
+    unpacked to ``w_q`` (K, N) (K from x, N from w_s), then ``(x @
+    w_q.astype(x.dtype)) * w_s.astype(x.dtype)``, then ``+ b``."""
+    w_q = unpack_w8a16(w_p, x.shape[-1], w_s.shape[0])
     y = (x @ w_q.to(x.dtype)) * w_s.to(x.dtype)
     if b is not None:
         y = y + b
     return y
 
 
-def w8a16_linear(x: torch.Tensor, w_q: torch.Tensor, w_s: torch.Tensor,
-                 b: Optional[torch.Tensor] = None,
-                 scratch: Optional[W8A16Scratch] = None) -> torch.Tensor:
-    """K5 wrapper. CPU tensors: the plain version. CUDA tensors: the kernel
-    (x (..., K) bf16 contiguous, w_q (K, N) int8 contiguous, w_s (N,)
-    float32, b (N,) bf16 or None), or raise. Up to ``W8A16_SMALL_M`` rows
-    take the streaming split-K plan, whose partial sums go to ``scratch``
-    (the worker's ``W8A16Scratch``; without one, a fresh one per split
-    launch); more rows the tiled mma.sync plan."""
-    if x.device.type == "cpu":
-        return w8a16_linear_plain(x, w_q, w_s, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"no K5 kernel for device {x.device}")
+def _w8a16_check(x: torch.Tensor, leaves) -> list[int]:
+    """The output widths of a K5 launch, after checking what the kernel
+    takes: x (..., K) bf16 contiguous; 1-3 leaves (w_p (ceil(N / 64),
+    ceil(K / 64), 4096) int8 contiguous, w_s (N,) float32, b (N,) bf16 or
+    None), all on x's device."""
     dev = x.device
     if x.dtype != torch.bfloat16:
         raise ValueError(f"x has dtype {x.dtype}, expected torch.bfloat16")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    _check("w_q", w_q, torch.int8, 2, dev)
-    _check("w_s", w_s, torch.float32, 1, dev)
-    K, N = w_q.shape
-    if x.shape[-1] != K or w_s.shape[0] != N:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_q "
-                         f"{tuple(w_q.shape)}, w_s {tuple(w_s.shape)}")
-    if b is not None:
-        _check("b", b, torch.bfloat16, 1, dev)
-        if b.shape[0] != N:
-            raise ValueError(f"b {tuple(b.shape)} does not match N={N}")
+    if not 1 <= len(leaves) <= W8A16_MAX_SEGMENTS:
+        raise ValueError(f"{len(leaves)} linears in one K5 launch (1 to "
+                         f"{W8A16_MAX_SEGMENTS})")
+    K = x.shape[-1]
+    ns = []
+    for w_p, w_s, b in leaves:
+        _check("w_p", w_p, torch.int8, 3, dev)
+        _check("w_s", w_s, torch.float32, 1, dev)
+        N = w_s.shape[0]
+        want = (cdiv(N, W8A16_UNIT_FEATURES), cdiv(K, W8A16_K_TILE),
+                W8A16_UNIT_BYTES)
+        if tuple(w_p.shape) != want:
+            raise ValueError(f"packed weight {tuple(w_p.shape)} does not "
+                             f"match x {tuple(x.shape)} and w_s "
+                             f"{tuple(w_s.shape)} (expected {want})")
+        if b is not None:
+            _check("b", b, torch.bfloat16, 1, dev)
+            if b.shape[0] != N:
+                raise ValueError(f"b {tuple(b.shape)} does not match N={N}")
+        ns.append(N)
+    return ns
+
+
+def w8a16_linear_group(x: torch.Tensor, leaves,
+                       scratch: Optional[W8A16Scratch] = None) -> tuple:
+    """K5 over up to three linears that share x (q, k, v; gate, up) in
+    one launch. ``leaves``: (w_p, w_s, b or None) each; returns their
+    outputs (..., N) in order. CPU tensors: the plain version per linear.
+    CUDA tensors: the kernel, or raise; its split partial sums go to
+    ``scratch`` (the worker's ``W8A16Scratch``; without one, a fresh one
+    per split launch). Counts on ``w8a16_linear``: ``launches``,
+    ``grouped`` (launches of 2-3 linears) and ``split`` (split-K
+    launches)."""
+    leaves = [tuple(leaf) for leaf in leaves]
+    if x.device.type == "cpu":
+        return tuple(w8a16_linear_plain(x, *leaf) for leaf in leaves)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {x.device}")
+    dev = x.device
+    ns = _w8a16_check(x, leaves)
+    K = x.shape[-1]
     M = x.numel() // K if K else 0
-    y = torch.empty(x.shape[:-1] + (N,), dtype=torch.bfloat16, device=dev)
+    ys = [torch.empty(x.shape[:-1] + (N,), dtype=torch.bfloat16, device=dev)
+          for N in ns]
+    xk = x.reshape(M, K)
+    if K % 8 or xk.data_ptr() % 16:
+        # the x tile's tensor map needs 16-byte rows and base: a zero-padded
+        # copy (the padding meets zero-padded weights)
+        xk = torch.nn.functional.pad(xk, (0, (-K) % 8))
+    bm, _, tiles, splits, per = plan_w8a16(M, K, ns, _sm_count(dev))
     part = cnt = None
-    vec = splits = rows = aligned = 0
-    if M <= W8A16_SMALL_M:
-        vec = w8a16_vec(M, N, w_q.data_ptr())
-        strips, splits, rows = plan_w8a16(M, K, N, vec, _sm_count(dev))
-        if splits > 1:
-            floats = splits * M * N
-            if scratch is None:
-                part = torch.empty(floats, dtype=torch.float32, device=dev)
-                cnt = torch.zeros(strips, dtype=torch.int32, device=dev)
-            else:
-                part, cnt = scratch.part, scratch.counters
-                if part.device != dev:
-                    raise ValueError(f"K5 scratch is on {part.device}, x on "
-                                     f"{dev}")
-                if part.numel() < floats or cnt.numel() < strips:
-                    raise ValueError(
-                        f"K5 scratch ({part.numel()} floats, {cnt.numel()} "
-                        f"counters) too small for M={M} K={K} N={N} "
-                        f"({floats}, {strips})")
-    else:
-        aligned = int(K % 8 == 0 and N % 16 == 0
-                      and x.data_ptr() % 16 == 0
-                      and w_q.data_ptr() % 16 == 0)
+    if splits > 1:
+        floats = tiles * splits * W8A16_TILE_FEATURES * bm
+        if scratch is None:
+            part = torch.empty(floats, dtype=torch.float32, device=dev)
+            cnt = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        else:
+            part, cnt = scratch.part, scratch.counters
+            if part.device != dev:
+                raise ValueError(f"K5 scratch is on {part.device}, x on "
+                                 f"{dev}")
+            if part.numel() < floats or cnt.numel() < tiles:
+                raise ValueError(
+                    f"K5 scratch ({part.numel()} floats, {cnt.numel()} "
+                    f"counters) too small for M={M} K={K} N={ns} "
+                    f"({floats}, {tiles})")
+    pad = [None] * (W8A16_MAX_SEGMENTS - len(leaves))
+    ws = [leaf[0].data_ptr() for leaf in leaves] + pad
+    ss = [leaf[1].data_ptr() for leaf in leaves] + pad
+    bs = [_ptr(leaf[2]) for leaf in leaves] + pad
+    yp = [y.data_ptr() for y in ys] + pad
+    nn = ns + [0] * len(pad)
     err = library().vox_w8a16_linear(
-        x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), _ptr(b), y.data_ptr(),
-        _ptr(part), _ptr(cnt), M, K, N, vec, splits, rows, aligned,
+        xk.data_ptr(), *ws, *ss, *bs, *yp, *nn, len(leaves), _ptr(part),
+        _ptr(cnt), M, xk.shape[1], bm, splits, per,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "w8a16_linear")
     w8a16_linear.launches += 1
-    return y
+    w8a16_linear.grouped += len(leaves) > 1
+    w8a16_linear.split += splits > 1
+    return tuple(ys)
+
+
+def w8a16_linear(x: torch.Tensor, w_p: torch.Tensor, w_s: torch.Tensor,
+                 b: Optional[torch.Tensor] = None,
+                 scratch: Optional[W8A16Scratch] = None) -> torch.Tensor:
+    """K5 wrapper over one linear (``w8a16_linear_group`` of one)."""
+    return w8a16_linear_group(x, [(w_p, w_s, b)], scratch)[0]
 
 
 w8a16_linear.launches = 0
+w8a16_linear.grouped = 0
+w8a16_linear.split = 0
 
 
 def wrappers() -> dict:
@@ -838,9 +946,11 @@ def wrappers() -> dict:
     }
 
 
-#: the counters a wrapper keeps beside ``launches`` (K2 also counts stacks)
+#: the counters a wrapper keeps beside ``launches`` (K2 also counts stacks,
+#: K5 its grouped and split launches)
 _EXTRA_COUNTERS = {"fused_resunit_stack": ("stacks",),
-                   "fused_resunit_stack_bf16": ("stacks",)}
+                   "fused_resunit_stack_bf16": ("stacks",),
+                   "w8a16_linear": ("grouped", "split")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -75,10 +75,11 @@ annotations).
 ``weight_quant="int8"`` quantizes the backbone's matmul weights (q/k/v/o,
 gate/up/down of ``model.params["backbone"]``; not the depth stacks, heads,
 embeddings or codecs) to int8 with per-output-channel float32 scales right
-after the KV config, before any graph is captured, and drops the bf16
-stacks; every LM graph then runs K5 (``ops/kernels.py`` ``w8a16_linear``)
-for those matmuls, with a ``W8A16Scratch`` sized here for its split-K
-partial sums.
+after the KV config, before any graph is captured, packs them into K5's
+layout and drops the bf16 stacks; every LM graph then runs K5
+(``ops/kernels.py`` ``w8a16_linear``) for those matmuls, 4 launches a
+layer (q/k/v and gate/up grouped), with a ``W8A16Scratch`` sized here for
+its split-K partial sums.
 
 Not ported: tensor parallelism (one card).
 
@@ -106,7 +107,9 @@ from ..ops.kernels import DecodeScratch, W8A16Scratch
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
                             alloc_kv_pages, combined_kv_supported)
 from ..params import tree_leaves, tree_map
-from ..models.backbone import quantize_backbone_params, seeded_generator
+from ..models.backbone import (pack_backbone_params,
+                               quantize_backbone_params, seeded_generator,
+                               w8a16_groups)
 from ..requests import Request
 from ..sampling import init_repetition_cache
 from ..watermark import WatermarkConfig, apply_watermark, init_watermarker
@@ -390,17 +393,19 @@ class ModelWorker:
     def _quantize_backbone(self) -> None:
         """Replace ``model.params["backbone"]`` by its int8 tree (before
         anything is captured: graphs hold pointers to the tensors they
-        read), free the bf16 stacks, and size K5's split-K scratch for the
-        quantized shapes."""
+        read), JAX's quantization then K5's packed layout, one layer at a
+        time (the CPU packs too, so both run the same tree); free the bf16
+        stacks and size K5's split-K scratch for the packed launches."""
         model, dev = self.model, self.device
         model.params = dict(model.params)
         model.params["backbone"] = quantize_backbone_params(
             model.params["backbone"])
+        model.params["backbone"] = pack_backbone_params(
+            model.params["backbone"])
         if dev.type == "cuda":
-            torch.cuda.empty_cache()  # the bf16 stacks' blocks
-            shapes = {tuple(a.shape[-2:]) for a in tree_leaves(
-                model.params["backbone"]) if a.dtype == torch.int8}
-            self.linear_scratch = W8A16Scratch(dev, sorted(shapes))
+            torch.cuda.empty_cache()  # the bf16 and unpacked int8 blocks
+            self.linear_scratch = W8A16Scratch(
+                dev, w8a16_groups(model.params["backbone"]))
         self.logger.info("backbone weights quantized to int8 "
                          "(per-output-channel scales): %.2fG",
                          self.backbone_bytes() / 2**30)
