@@ -234,6 +234,24 @@ exits non-zero without printing a result:
    time and graph pool size, TTFA and aggregate frames/s; G prints its text
    streams' TTFA (first piece to first PCM byte) beside its /generate
    streams'.
+   The launcher fills every serving-profile flag a run leaves unset from
+   its model's profile (``vox_serve_tpu_torch/profiles.py``: Qwen3-TTS,
+   CSM-1B and Orpheus-3B have one), so every run above passes
+   ``--max-batch-size 4 --max-num-pages 2048`` and each profile flag it
+   does not name at the value these runs served before (``PINNED``: page
+   16, no pipelines, no ramp, no fused decode, the float32 codec, prefill
+   buckets 128 and 1024 over 8 rows, the whole generation budget reserved).
+   Run Z then serves the flagship as its users start it: ``--model
+   qwen3-tts`` with no batch, page, lattice, pipeline or codec flag (only
+   the port, socket suffix, seed, ``--max-tokens 100`` and the stats
+   file), so its H100 profile applies; the daemon must report the
+   profile's batch, pages, page size, decode and prefill buckets,
+   pipelines, fused decode and codec dtype; one wave of as many streams
+   as the profile's top decode bucket must replay the full-batch decode
+   graphs, K1 and K3 only, all in graphs; every stream's PCM follows the
+   trim rule; it prints the ready and capture seconds, the pages, the
+   init memory and each card's memory after start-up, frames/s and the
+   TTFA median.
 
 6. checkpoints in the published layouts (``synthetic_checkpoints.py``):
    random weights from seeds at the published widths and tensor names,
@@ -319,6 +337,19 @@ exits non-zero without printing a result:
    context, P's clones the reference's 75 S3 v2 tokens, R's uploads their
    38 Whisper-VQ tokens, T's upload its 18 adaptor rows, V's and X's
    uploads as long as their text streams).
+7. two cards: where ``torch.cuda.device_count() >= 2``, run DG (A's
+   configuration with ``--scheduler-type disaggregation`` (which sets
+   ``--enable-disaggregation``) and ``VOX_FUSED_RESUNIT=1``: the
+   disaggregation scheduler's LM and detokenizer threads, the LM's
+   prefill and decode graphs with K1 and
+   K3 on cuda:0, the codec with K2 and every detokenize graph on cuda:1,
+   checked graph by graph from the stats file's ``graphs_by_device``) and
+   run DP (A's configuration at ``--dp-size 2``: one daemon a card, the
+   four streams round robin, both ranks must serve and launch K1 and K3
+   only). With one card the launcher must refuse both
+   ``--enable-disaggregation`` and ``--dp-size 2`` at start-up: exit
+   non-zero within 60 s, name the card count, leave no daemon alive; the
+   script prints that the two-card runs were not run, and why.
 
 The line before the last is a JSON object describing each kernel (at its
 largest shape); the last line is ``{"ok": true, "device": {...}}``.
@@ -1659,6 +1690,76 @@ CONFIGS.update({
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
 RANDOM_RUNS = "ABCDEFGHIYJKOQSUW"
+
+#: every serving-profile flag at the value the runs above served before the
+#: launcher applied the profiles (the generic defaults): a run's own flags
+#: come first and these fill the rest, so each run serves what it names
+#: whatever its family's profile holds (the profiles' batch-scaled lattices
+#: are dropped by the launcher under the runs' --max-batch-size 4)
+PINNED = {"--page-size": "16", "--pipeline-depth": "0",
+          "--first-chunk-frames": "0", "--ramp-frames": "0",
+          "--fused-decode-steps": "0", "--detok-pipeline-depth": "1",
+          "--codec-dtype": "float32", "--prefill-buckets": "128,1024",
+          "--max-prefill-requests": "8", "--kv-reserve-fraction": "1.0"}
+
+
+def pinned(flags: list) -> list:
+    """``flags`` followed by every ``PINNED`` flag they do not set."""
+    return [*flags, *(x for k, v in PINNED.items() if k not in flags
+                      for x in (k, v))]
+
+
+#: the flagship as its users start it: ``--model qwen3-tts`` with no batch,
+#: page, lattice, pipeline or codec flag (its H100 profile applies); one
+#: wave of as many streams as the profile's top decode bucket
+PROFILE_RUN = "Z"
+
+
+def profile_config() -> tuple:
+    """Run Z's entry of ``CONFIGS``: what the daemon must serve is the
+    profile of ``vox_serve_tpu_torch/profiles.py``."""
+    from vox_serve_tpu_torch.profiles import resolve_profile
+
+    prof = resolve_profile("qwen3-tts")
+
+    def buckets(spec):
+        return [int(x) for x in spec.split(",")]
+
+    served = {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+              "fused_resunit": False, "scheduler_type": "online",
+              "watermark": None,
+              "max_batch_size": prof["max_batch_size"],
+              "num_pages": prof["max_num_pages"],
+              "page_size": prof["page_size"],
+              "decode_buckets": buckets(prof["decode_buckets"]),
+              "prefill_token_buckets": buckets(prof["prefill_buckets"]),
+              "pipeline_depth": prof["pipeline_depth"],
+              "fused_decode_steps": prof["fused_decode_steps"],
+              "first_chunk_frames": prof["first_chunk_frames"],
+              "detok_pipeline_depth": prof["detok_pipeline_depth"],
+              "kv_reserve_fraction": prof["kv_reserve_fraction"] or 1.0,
+              "codec_dtypes": [prof["codec_dtype"] or "float32"]}
+    return [], {}, served, {K1, K3}
+
+
+#: the two-card runs (``torch.cuda.device_count() >= 2``): DG, Qwen3 with
+#: the LM on cuda:0 and the detokenizer (the codec with K2, every
+#: detokenize graph) on cuda:1, driven by the disaggregation scheduler's
+#: two threads (``--scheduler-type disaggregation`` sets
+#: ``--enable-disaggregation``); DP, A's flags at --dp-size 2, one daemon a
+#: card, both of which must serve streams
+CONFIGS.update({
+    "DG": (["--scheduler-type", "disaggregation"], {"VOX_FUSED_RESUNIT": "1"},
+           {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+            "fused_resunit": True, **SINGLE, **ONLINE_F32,
+            "scheduler_type": "disaggregation",
+            "lm_device": "cuda:0", "detokenizer_device": "cuda:1"},
+           {K1, K3, K2}),
+    "DP": (["--dp-size", "2"], {},
+           {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
+            "fused_resunit": False, **SINGLE, **ONLINE_F32, "rank": 0},
+           {K1, K3}),
+})
 #: the waves of concurrent requests a run serves, in turn (F's solo stream
 #: first: alone, the online scheduler takes the cold-start chain)
 WAVES = {"F": (1, 4), "M": (2,), "T": (2,)}
@@ -2102,20 +2203,29 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stream's TTFA (F), after checking what it served and which kernels and
     graphs ran. ``hub``: the Hugging Face hub cache the daemon resolves
     checkpoints in (``HF_HUB_CACHE``; L, M and N)."""
+    if config == PROFILE_RUN and config not in CONFIGS:
+        CONFIGS[config] = profile_config()
     flags, env_extra, served, must_run = CONFIGS[config]
     model = MODEL_OF.get(config, "qwen3-tts")
     fam = family(config)
     OUT.mkdir(exist_ok=True)
     port = free_port()
     stats_path = OUT / f"chip_smoke_server_stats_{config}.json"
-    if stats_path.exists():
-        stats_path.unlink()
+    for path in (stats_path, Path(f"{stats_path}.rank1")):
+        if path.exists():
+            path.unlink()
     log_path = OUT / f"chip_smoke_server_{config}.log"
     server_log = open(log_path, "w")
+    if config == PROFILE_RUN:  # the profile's batch, pages and lattices
+        flags = []
+        sizes = []
+    else:
+        flags = pinned(flags)
+        sizes = ["--device", "cuda", "--max-batch-size", "4",
+                 "--max-num-pages", "2048"]
     cmd = [sys.executable, "-m", "vox_serve_tpu_torch.launch",
-           "--model", model, "--device", "cuda",
+           "--model", model, *sizes,
            "--host", "127.0.0.1", "--port", str(port),
-           "--max-batch-size", "4", "--max-num-pages", "2048",
            "--max-tokens", str(max_tokens(config)), "--seed", "0",
            "--socket-suffix", f"_smoke{port}",
            "--stats-file", str(stats_path), *flags]
@@ -2142,12 +2252,16 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
             if time.monotonic() > deadline:
                 raise RuntimeError("server not healthy within 600 s")
             time.sleep(0.5)
+        out["ready_s"] = time.perf_counter() - t_start
         log(f"[{config}] {' '.join(flags)} "
             f"{' '.join(f'{k}={v}' for k, v in env_extra.items())} server "
-            f"ready in {time.perf_counter() - t_start:.1f} s")
-        for n in WAVES.get(config, (len(PROMPTS),)):
+            f"ready in {out['ready_s']:.1f} s")
+        waves = ((served["max_batch_size"],) if config == PROFILE_RUN
+                 else WAVES.get(config, (len(PROMPTS),)))
+        for n in waves:
+            prompts = [PROMPTS[i % len(PROMPTS)] for i in range(n)]
             results, frames, wall = serve_wave(
-                config, port, PROMPTS[:n], TEXT_STREAMS.get(config, 0))
+                config, port, prompts, TEXT_STREAMS.get(config, 0))
             ttfa = sorted(r["ttfa_s"] for r in results)
             if n == 1:
                 out["solo_ttfa_s"] = ttfa[0]
@@ -2192,7 +2306,15 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
     out["backbone_bytes"] = stats["backbone_bytes"]
+    if config == "DP":
+        # the streams' checks read both ranks' completed requests
+        stats["requests"] += check_dp_run(
+            config, Path(f"{stats_path}.rank1"), stats)
     check_run(config, card, stats, out)
+    if config == PROFILE_RUN:
+        check_profile_run(config, stats, out)
+    elif config == "DG":
+        check_split_run(config, stats)
     if fam == "step":
         check_step_windows(config, stats, out)
     elif fam in FEATURE_ROW_CODECS:
@@ -2556,6 +2678,129 @@ def check_feature_row_windows(config: str, stats: dict, out: dict) -> None:
         f"{cap.get('detok', 0.0):.2f} s, pool +{mib.get('detok', 0.0):.1f} "
         f"MiB; capture s by kind {cap}; init memory {stats['init_memory_gb']}"
         " GB")
+
+
+def check_profile_run(config: str, stats: dict, out: dict) -> None:
+    """Run Z: the full-batch decode graphs replayed, and its start-up."""
+    served = CONFIGS[config][2]
+    top = served["max_batch_size"]
+    steps = stats["steps"]
+    full = {k: c["replays"] for k, c in steps["captured"].items()
+            if k.startswith(f"decode {top} ") and c["replays"]}
+    if not full:
+        raise AssertionError(f"[{config}] no decode graph at the top bucket "
+                             f"B={top} was replayed: {steps['replays']}")
+    mem = stats["memory_gb"]
+    log(f"[{config}] the profile served: batch {top}, "
+        f"{stats['num_pages']} pages of {stats['page_size']} tokens, decode "
+        f"buckets {stats['decode_buckets']}, prefill buckets "
+        f"{stats['prefill_token_buckets']}, codec {stats['codec_dtypes']}, "
+        f"pipeline depth {stats['pipeline_depth']}; ready in "
+        f"{out['ready_s']:.1f} s, {len(steps['graphs'])} graphs captured in "
+        f"{steps['capture_s']:.2f} s; init memory {stats['init_memory_gb']}"
+        f" GB; after start-up {mem}; {len(out['streams'])} streams: "
+        f"{out['frames_per_s']:.1f} frames/s aggregate "
+        f"({out['frames_per_s'] / len(out['streams']):.2f} a stream, real "
+        f"time 12.50), TTFA median {out['ttfa_median_s'] * 1e3:.1f} ms; "
+        f"full-batch decode replays {full}")
+
+
+def check_split_run(config: str, stats: dict) -> None:
+    """Run DG: every detokenize graph on cuda:1 and every LM graph on
+    cuda:0; K2 only in detokenize graphs, K1 and K3 only in LM graphs."""
+    steps = stats["steps"]
+    by_dev = steps["graphs_by_device"]
+    lm = {" ".join(map(str, g)) for g in by_dev.get("cuda:0", [])}
+    detok = {" ".join(map(str, g)) for g in by_dev.get("cuda:1", [])}
+    if not detok or any(not k.startswith("detok ") for k in detok) or any(
+            k.startswith("detok ") for k in lm):
+        raise AssertionError(f"[{config}] graphs by device {by_dev}")
+    for key, c in steps["captured"].items():
+        for name, where in ((K2, detok), (K1, lm), (K3, lm)):
+            if c.get(f"{name}.launches", 0) and key not in where:
+                raise AssertionError(f"[{config}] {name} launched by graph "
+                                     f"{key} outside its card's graphs")
+    log(f"[{config}] LM graphs on cuda:0 ({len(lm)}), detokenize graphs on "
+        f"cuda:1 ({len(detok)}); pool MiB by card "
+        f"{steps['pool_mib_by_device']}; memory {stats['memory_gb']}; K1 "
+        f"{stats['launches'][K1]}, K3 {stats['launches'][K3]} on cuda:0, "
+        f"{K2} {stats['resunit_stacks']} stacks on cuda:1")
+
+
+def check_dp_run(config: str, rank1: Path, stats: dict) -> list:
+    """Run DP: rank 1's daemon served streams too (round robin), with K1
+    and K3 only; returns its completed requests."""
+    for _ in range(100):
+        if rank1.exists() and rank1.stat().st_size:
+            break
+        time.sleep(0.1)
+    st1 = json.loads(rank1.read_text())
+    served = {0: len(stats["requests"]), 1: len(st1["requests"])}
+    if st1["rank"] != 1 or min(served.values()) < 1:
+        raise AssertionError(f"[{config}] streams served per rank {served}")
+    for name, n in st1["launches"].items():
+        if (n > 0) != (name in (K1, K3)):
+            raise AssertionError(f"[{config}] rank 1 launched {name} {n} "
+                                 "times")
+    log(f"[{config}] streams served per rank {served}; rank 1 launches "
+        f"{st1['launches']}")
+    return st1["requests"]
+
+
+def refused(flags: list, count: int) -> float:
+    """The launcher asked for more cards than the machine has must exit
+    non-zero within 60 s, name the count and leave no daemon behind;
+    returns its seconds."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "vox_serve_tpu_torch.launch", "--model",
+           "qwen3-tts", "--host", "127.0.0.1", "--port", str(port),
+           "--socket-suffix", f"_refuse{port}", *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        raise AssertionError(f"{' '.join(flags)}: not refused within 60 s")
+    dt = time.perf_counter() - t0
+    try:
+        os.killpg(proc.pid, 0)
+        alive = True
+    except ProcessLookupError:
+        alive = False
+    if alive:
+        os.killpg(proc.pid, signal.SIGKILL)
+    want = f"this machine has {count}"
+    if proc.returncode == 0 or want not in text or alive:
+        raise AssertionError(
+            f"{' '.join(flags)}: exit {proc.returncode}, a daemon left "
+            f"{alive}, message {want!r} "
+            f"{'found' if want in text else 'missing'}; output tail:\n"
+            + "\n".join(text.splitlines()[-20:]))
+    line = next(x for x in text.splitlines() if want in x)
+    log(f"refused {' '.join(flags)} in {dt:.1f} s with exit "
+        f"{proc.returncode}: {line.strip()!r}; no daemon left")
+    return dt
+
+
+def two_card_phase(card: str) -> dict:
+    """DG and DP where the machine has two cards; else the refusals of
+    ``--enable-disaggregation`` and ``--dp-size 2``."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        log(f"{n} CUDA cards: runs DG and DP")
+        return {c: end_to_end(card, c) for c in ("DG", "DP")}
+    refused(["--enable-disaggregation"], n)
+    refused(["--dp-size", "2"], n)
+    log(f"two-card runs DG (--enable-disaggregation) and DP (--dp-size 2) "
+        f"not run: this machine has {n} CUDA card; both were refused at "
+        "start-up instead")
+    return {}
 
 
 def check_run(config: str, card: str, stats: dict, out: dict) -> None:
@@ -3568,13 +3813,15 @@ def main(argv=None) -> int:
     # the main path runs in each server's daemon, whose counters start at 0
     # (comparison launches above happened in this process and do not count)
     runs = {}
-    for c in RANDOM_RUNS:
+    for c in RANDOM_RUNS + PROFILE_RUN:
         runs[c] = end_to_end(card, c)
         marks.append((f"run {c}", time.perf_counter()))
     _loads, ckpt_runs = checkpoint_phase(card)
     marks.append(("checkpoints, L, M, N, P, R, T, V, X",
                   time.perf_counter()))
     runs.update(ckpt_runs)
+    runs.update(two_card_phase(card))
+    marks.append(("two cards", time.perf_counter()))
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)
         in zip(marks[1:], marks)) + f"; all after the build "

@@ -64,6 +64,8 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.models.zonos",
     "vox_serve_tpu_torch.models.zonos_conditioning",
     "vox_serve_tpu_torch.encoders.zonos_speaker",
+    "vox_serve_tpu_torch.profiles",
+    "vox_serve_tpu_torch.scheduler.disaggregation",
 ]
 
 
@@ -95,7 +97,8 @@ def test_port_sources_never_import_jax():
     pkg_import = re.compile(r"^\s*(?:from|import) vox_serve_tpu(?:\.([\w.]+))?"
                             r"(?=[\s,]|$)", re.M)
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-              ROOT / "synthetic_checkpoints.py"]:
+              ROOT / "synthetic_checkpoints.py",
+              ROOT / "scripts" / "torch_profile_sweep.py"]:
         used |= {m or "vox_serve_tpu"
                  for m in pkg_import.findall(p.read_text())}
     assert used <= allowed, used - allowed

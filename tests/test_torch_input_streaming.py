@@ -66,7 +66,7 @@ def test_registry_and_flags_offer_the_new_schedulers():
     from vox_serve_tpu_torch.scheduler_entry import build_parser
 
     assert set(SCHEDULER_REGISTRY) == {"base", "online", "offline",
-                                       "input_streaming"}
+                                       "input_streaming", "disaggregation"}
     for parser in (launch_parser(), build_parser()):
         action = next(a for a in parser._actions
                       if a.dest == "scheduler_type")

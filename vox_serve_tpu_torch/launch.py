@@ -2,10 +2,13 @@
 
 Serves the HTTP API of vox_serve_tpu (the port's copy of its aiohttp app,
 ``server/app.py`` ``build_app``) in front of the port's scheduler daemon,
-one per data-parallel rank. The JAX launcher's serving profiles
-(``profiles.py``) are not applied: their constants were measured on a TPU.
+one per data-parallel rank. Every flag of a serving profile left unset
+(batch, pages, page size, the bucket lattices, pipelines, fused decode,
+codec dtype, KV reserve) is filled from the model's profile in
+``profiles.py``, measured on one H100, as the JAX launcher does with its
+own; explicit flags win.
 
-    python -m vox_serve_tpu_torch.launch --model qwen3-tts --device cuda
+    python -m vox_serve_tpu_torch.launch --model qwen3-tts
     python -m vox_serve_tpu_torch.launch --model qwen3-tts --kv-quant int8
     python -m vox_serve_tpu_torch.launch --model dummy --device cpu
     python -m vox_serve_tpu_torch.launch --model qwen3-tts \
@@ -17,6 +20,14 @@ one per data-parallel rank. The JAX launcher's serving profiles
     python -m vox_serve_tpu_torch.launch --model qwen3-tts \
         --scheduler-type input_streaming --codec-dtype bfloat16 \
         --kv-reserve-fraction 0.5
+
+``--dp-size N`` serves N replicas, one daemon per card (``cuda:<rank>``,
+pinned with ``CUDA_VISIBLE_DEVICES``), requests assigned round robin.
+``--enable-disaggregation`` (or ``--scheduler-type disaggregation``) runs
+the LM on ``cuda:0`` and the detokenizer on ``cuda:1`` in one daemon; it
+excludes ``--dp-size > 1`` (exit 2). On ``--device cuda`` the launcher
+refuses to serve, and stops the daemons, when the machine has fewer cards
+than that asks for.
 
 The JAX package's environment switches apply as there: ``VOX_KV_COMBINED=0``
 serves the legacy head-major KV pair, ``VOX_FUSED_RESUNIT=1`` the codec's
@@ -35,6 +46,7 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import sys
 import tempfile
 
 from .utils import get_logger, set_global_log_level
@@ -50,16 +62,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scheduler-type", default="online",
-                   choices=["base", "online", "offline", "input_streaming"])
+                   choices=["base", "online", "offline", "input_streaming",
+                            "disaggregation"])
     p.add_argument("--async-scheduling", action="store_true",
                    help="overlap host scheduling with the device: decode "
                         "readback pipelined at depth 2 unless "
                         "--pipeline-depth is set")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--max-batch-size", type=int, default=8)
-    p.add_argument("--max-num-pages", type=int, default=2048)
-    p.add_argument("--page-size", type=int, default=16)
+    # None = from the model's serving profile (profiles.py), else the
+    # generic default there
+    p.add_argument("--max-batch-size", type=int, default=None)
+    p.add_argument("--max-num-pages", type=int, default=None)
+    p.add_argument("--page-size", type=int, default=None)
     p.add_argument("--prefill-buckets", default=None,
                    help="comma list of prefill token buckets (default "
                         "128,1024)")
@@ -136,7 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enable-profiling", action="store_true",
                    help="torch.profiler ranges around the worker's step "
                         "dispatches")
-    p.add_argument("--dp-size", type=int, default=1)
+    p.add_argument("--dp-size", type=int, default=1,
+                   help="data-parallel replicas, one card each")
+    p.add_argument("--enable-disaggregation", action="store_true",
+                   help="LM on cuda:0, detokenizer on cuda:1 (one daemon)")
     p.add_argument("--stats-file", default=None,
                    help="scheduler daemon writes kernel launch counts and "
                         "phase times here when it is terminated")
@@ -146,9 +164,33 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def cards_missing(args, count: int) -> str | None:
+    """Why ``count`` cards cannot serve ``args`` on the card (None: they
+    can): one card per data-parallel rank, two for disaggregation."""
+    if args.device.startswith("cuda"):
+        need = 2 if args.enable_disaggregation else args.dp_size
+        if count < need:
+            what = ("--enable-disaggregation" if args.enable_disaggregation
+                    else f"--dp-size {args.dp_size}")
+            return (f"{what} needs {need} CUDA cards; this machine has "
+                    f"{count}")
+    return None
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     set_global_log_level(args.log_level)
+
+    # coerce before the exclusion check, as the JAX launcher does
+    if args.scheduler_type == "disaggregation":
+        args.enable_disaggregation = True
+    if args.dp_size > 1 and args.enable_disaggregation:
+        logger.error("--dp-size > 1 and --enable-disaggregation are mutually "
+                     "exclusive")
+        sys.exit(2)
+    # fill the unset flags from the model's serving profile
+    from .profiles import apply_profile
+    apply_profile(args, logger)
 
     from aiohttp import web
     from .server.api import APIServer
@@ -188,6 +230,7 @@ def main(argv=None) -> None:
         "codec_dtype": args.codec_dtype,
         "kv_reserve_fraction": args.kv_reserve_fraction,
         "enable_profiling": args.enable_profiling,
+        "enable_disaggregation": args.enable_disaggregation,
         "stats_file": args.stats_file,
         "log_level": args.log_level,
     }
@@ -208,6 +251,12 @@ def main(argv=None) -> None:
 
         resolve_device(args.device)  # no CUDA: stop the daemons, fail
         cls = get_model_class(args.model)  # validates the name
+        if args.device.startswith("cuda"):
+            import torch
+
+            missing = cards_missing(args, torch.cuda.device_count())
+            if missing:
+                raise SystemExit(missing)
     except BaseException:
         server.cleanup()
         raise

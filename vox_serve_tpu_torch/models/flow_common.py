@@ -47,6 +47,8 @@ def window_noise(model, n_tokens: int, frames: int) -> torch.Tensor:
         noise = torch.randn((1, model._flow_cfg.mel_dim, frames),
                             generator=model._noise_generator,
                             device=model.device)
+        # a worker that runs the codec on another card says which
+        noise = noise.to(getattr(model, "codec_device", model.device))
         model._flow_noise[frames] = noise
     return noise
 

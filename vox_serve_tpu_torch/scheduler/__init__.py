@@ -1,8 +1,8 @@
-"""Scheduler registry of the port (vox_serve_tpu/scheduler/__init__.py,
-with the schedulers ported so far: base, online, offline and
-input_streaming; disaggregation is not ported)."""
+"""Scheduler registry of the port (vox_serve_tpu/scheduler/__init__.py):
+base, online, offline, input_streaming and disaggregation."""
 
 from .base import Scheduler
+from .disaggregation import DisaggregationScheduler
 from .input_streaming import InputStreamingScheduler
 from .offline import OfflineScheduler
 from .online import OnlineScheduler
@@ -12,6 +12,7 @@ SCHEDULER_REGISTRY: dict[str, type[Scheduler]] = {
     "online": OnlineScheduler,
     "offline": OfflineScheduler,
     "input_streaming": InputStreamingScheduler,
+    "disaggregation": DisaggregationScheduler,
 }
 
 

@@ -17,6 +17,10 @@ graph at its first use instead of at start-up), ``--prefill-buckets``,
 ``--kv-reserve-fraction`` and ``--enable-profiling``; ``--cfg-scale``
 overlays the model's sampling defaults, and ``--async-scheduling`` maps to
 decode pipelining at depth 2 when ``--pipeline-depth`` is 0, as there.
+``--enable-disaggregation`` puts the worker's detokenizer on ``cuda:1``
+(``WorkerConfig.detokenizer_device_index``), as the JAX daemon does; the
+``disaggregation`` scheduler needs it. The daemon takes explicit values:
+the launcher fills the unset ones from the model's serving profile.
 
 ``--stats-file PATH``: the daemon zeroes the kernel launch counters and the
 worker's step counters just before its loop starts and, when it is
@@ -39,7 +43,9 @@ backbone, codec, codec encoder, speaker encoder) and whether the
 tokenizer did (``tokenizer_loaded``), the KV reserve fraction, the
 fused-decode, pipeline, first-chunk and bucket settings, and the caching
 allocator's peak and reservation after the model's init,
-``init_memory_gb``) there as JSON: how a caller that drives the daemon over
+``init_memory_gb``; the batch, pages and decode lattice; each card's
+memory after start-up, ``memory_gb``) there as JSON (rank r > 0 writes
+``PATH.rank<r>``): how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
 """
@@ -72,7 +78,7 @@ def _run_scheduler_daemon(args) -> None:
                               use_fused_resunit)
     from .scheduler import load_scheduler
     from .watermark import watermark_kind
-    from .worker import ModelWorker, WorkerConfig
+    from .worker import ModelWorker
 
     model = load_model(
         args.model, device=args.device, seed=args.seed,
@@ -88,49 +94,7 @@ def _run_scheduler_daemon(args) -> None:
         "max_allocated": torch.cuda.max_memory_allocated(model.device) / 1e9,
         "reserved": torch.cuda.memory_reserved(model.device) / 1e9}
         if model.device.type == "cuda" else None)
-    # --async-scheduling (the reference's overlapped batch selection) maps
-    # to decode pipelining, as in the JAX daemon: the graph replays already
-    # run ahead of the host, and pipeline_depth defers the sampled-token
-    # readback
-    pipeline_depth = args.pipeline_depth
-    if args.async_scheduling and pipeline_depth == 0:
-        pipeline_depth = 2
-    wcfg = WorkerConfig(
-        max_batch_size=args.max_batch_size,
-        num_pages=args.max_num_pages,
-        page_size=args.page_size,
-        max_prefill_requests=args.max_prefill_requests,
-        seed=args.seed,
-        warmup=not args.no_warmup,
-        pipeline_depth=pipeline_depth,
-        detok_pipeline_depth=args.detok_pipeline_depth,
-        first_chunk_frames=args.first_chunk_frames,
-        ramp_frames=args.ramp_frames,
-        fused_decode_steps=args.fused_decode_steps,
-        fused_decode_buckets=(
-            _parse_buckets(args.fused_decode_buckets) or (1,)),
-        fused_k_schedule=_parse_buckets(args.fused_k_schedule) or None,
-        fused_min_batch=args.fused_min_batch or None,
-        decode_buckets_override=_parse_buckets(args.decode_buckets),
-        table_width_buckets=_parse_buckets(args.table_width_buckets),
-        detok_buckets_override=_parse_buckets(args.detok_buckets),
-        codec_dtype=args.codec_dtype,
-        enable_profiling=args.enable_profiling,
-        **({"kv_reserve_fraction": args.kv_reserve_fraction}
-           if args.kv_reserve_fraction is not None else {}),
-        **({"detok_frame_budget": args.detok_frame_budget}
-           if args.detok_frame_budget is not None else {}),
-        **({"prefill_token_buckets": _parse_buckets(args.prefill_buckets)}
-           if args.prefill_buckets else {}),
-        **({"kv_quant": args.kv_quant}
-           if args.kv_quant is not None else {}),
-        **({"kv_k_amax": args.kv_k_amax}
-           if args.kv_k_amax is not None else {}),
-        **({"kv_v_amax": args.kv_v_amax}
-           if args.kv_v_amax is not None else {}),
-        **({"weight_quant": args.weight_quant}
-           if args.weight_quant is not None else {}),
-    )
+    wcfg = worker_config(args)
     worker = ModelWorker(model, wcfg)
     if model.device.type == "cuda":
         kernels.build()
@@ -144,6 +108,9 @@ def _run_scheduler_daemon(args) -> None:
     )
     if args.stats_file:
         from .params import tree_leaves
+
+        stats_file = (args.stats_file if args.rank == 0
+                      else f"{args.stats_file}.rank{args.rank}")
 
         def _count(tree):
             return sum(a.numel() for a in tree_leaves(tree))
@@ -174,12 +141,21 @@ def _run_scheduler_daemon(args) -> None:
             "prefill_token_buckets": list(wcfg.prefill_token_buckets),
             "detok_buckets": list(wcfg.detok_buckets),
             "init_memory_gb": init_memory_gb,
+            "rank": args.rank,
+            "max_batch_size": wcfg.max_batch_size,
+            "num_pages": wcfg.num_pages,
+            "page_size": wcfg.page_size,
+            "decode_buckets": list(wcfg.decode_buckets),
+            "fused_min_batch": wcfg.fused_min_batch,
+            "lm_device": str(worker.lm_device),
+            "detokenizer_device": str(worker.detokenizer_device),
+            "memory_gb": worker.memory_report(),
         }
         kernels.reset_launch_counts()
         worker.reset_step_stats()
 
         def _dump(signum, frame):
-            with open(args.stats_file, "w") as f:
+            with open(stats_file, "w") as f:
                 json.dump({"launches": kernels.launch_counts(),
                            "resunit_stacks": fused_resunit_stack.stacks,
                            "resunit_bf16_stacks":
@@ -192,6 +168,57 @@ def _run_scheduler_daemon(args) -> None:
 
         signal.signal(signal.SIGTERM, _dump)
     scheduler.run_forever()
+
+
+def worker_config(args):
+    """The worker's configuration from the daemon's flags."""
+    from .worker import WorkerConfig
+
+    # --async-scheduling (the reference's overlapped batch selection) maps
+    # to decode pipelining, as in the JAX daemon: the graph replays already
+    # run ahead of the host, and pipeline_depth defers the sampled-token
+    # readback
+    pipeline_depth = args.pipeline_depth
+    if args.async_scheduling and pipeline_depth == 0:
+        pipeline_depth = 2
+    return WorkerConfig(
+        max_batch_size=args.max_batch_size,
+        num_pages=args.max_num_pages,
+        page_size=args.page_size,
+        max_prefill_requests=args.max_prefill_requests,
+        seed=args.seed,
+        warmup=not args.no_warmup,
+        pipeline_depth=pipeline_depth,
+        detok_pipeline_depth=args.detok_pipeline_depth,
+        first_chunk_frames=args.first_chunk_frames,
+        ramp_frames=args.ramp_frames,
+        fused_decode_steps=args.fused_decode_steps,
+        fused_decode_buckets=(
+            _parse_buckets(args.fused_decode_buckets) or (1,)),
+        fused_k_schedule=_parse_buckets(args.fused_k_schedule) or None,
+        fused_min_batch=args.fused_min_batch or None,
+        decode_buckets_override=_parse_buckets(args.decode_buckets),
+        table_width_buckets=_parse_buckets(args.table_width_buckets),
+        detok_buckets_override=_parse_buckets(args.detok_buckets),
+        codec_dtype=args.codec_dtype,
+        enable_profiling=args.enable_profiling,
+        detokenizer_device_index=(1 if args.enable_disaggregation
+                                  else None),
+        **({"kv_reserve_fraction": args.kv_reserve_fraction}
+           if args.kv_reserve_fraction is not None else {}),
+        **({"detok_frame_budget": args.detok_frame_budget}
+           if args.detok_frame_budget is not None else {}),
+        **({"prefill_token_buckets": _parse_buckets(args.prefill_buckets)}
+           if args.prefill_buckets else {}),
+        **({"kv_quant": args.kv_quant}
+           if args.kv_quant is not None else {}),
+        **({"kv_k_amax": args.kv_k_amax}
+           if args.kv_k_amax is not None else {}),
+        **({"kv_v_amax": args.kv_v_amax}
+           if args.kv_v_amax is not None else {}),
+        **({"weight_quant": args.weight_quant}
+           if args.weight_quant is not None else {}),
+    )
 
 
 def _parse_buckets(spec):
@@ -207,8 +234,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scheduler-type", default="online",
-                   choices=["base", "online", "offline", "input_streaming"])
+                   choices=["base", "online", "offline", "input_streaming",
+                            "disaggregation"])
     p.add_argument("--async-scheduling", action="store_true")
+    p.add_argument("--enable-disaggregation", action="store_true",
+                   help="detokenizer on cuda:1, the LM on cuda:0")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--max-num-pages", type=int, default=2048)

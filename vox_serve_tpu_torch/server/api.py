@@ -10,8 +10,9 @@ a TTL map.
 The port's copy of vox_serve_tpu/server/api.py. It differs only in its
 imports and in ``_start_schedulers``, which starts
 ``python -m vox_serve_tpu_torch.scheduler_entry`` per rank, pins each rank
-to one card with ``CUDA_VISIBLE_DEVICES`` when there is more than one rank,
-and drops the TPU device-pinning variables from the daemon's environment.
+to one card with ``CUDA_VISIBLE_DEVICES`` when there is more than one rank
+(never a disaggregated daemon, which uses two cards), and drops the TPU
+device-pinning variables from the daemon's environment.
 """
 
 from __future__ import annotations
@@ -36,6 +37,21 @@ from ..utils import get_logger
 #: the JAX server's TPU pinning variables, never passed to the port's daemon
 _TPU_ENV = ("TPU_VISIBLE_DEVICES", "TPU_CHIPS_PER_PROCESS_BOUNDS",
             "TPU_PROCESS_BOUNDS")
+
+
+def scheduler_flags(scheduler_args: dict) -> list[str]:
+    """The daemon's command-line flags for ``scheduler_args``: a true bool
+    is its flag alone, None is left out, anything else is flag and
+    value."""
+    out: list[str] = []
+    for k, v in scheduler_args.items():
+        flag = "--" + k.replace("_", "-")
+        if isinstance(v, bool):
+            if v:
+                out.append(flag)
+        elif v is not None:
+            out.extend([flag, str(v)])
+    return out
 
 
 class APIError(Exception):
@@ -152,9 +168,11 @@ class APIServer:
             env = os.environ.copy()
             for k in _TPU_ENV:
                 env.pop(k, None)
-            if self.dp_size > 1:
+            if (self.dp_size > 1
+                    and not self.scheduler_args.get("enable_disaggregation")):
                 # pin each DP replica to one card (the reference's
-                # CUDA_VISIBLE_DEVICES, launch.py:188-213)
+                # CUDA_VISIBLE_DEVICES, launch.py:188-213); a disaggregated
+                # daemon sees every card (its detokenizer is on cuda:1)
                 env["CUDA_VISIBLE_DEVICES"] = str(rank)
             cmd = [
                 sys.executable, "-m", "vox_serve_tpu_torch.scheduler_entry",
@@ -163,14 +181,8 @@ class APIServer:
                 "--rank", str(rank),
                 "--max-batch-size", str(self.max_batch_size),
                 "--socket-suffix", self.socket_suffix,
+                *scheduler_flags(self.scheduler_args),
             ]
-            for k, v in self.scheduler_args.items():
-                flag = "--" + k.replace("_", "-")
-                if isinstance(v, bool):
-                    if v:
-                        cmd.append(flag)
-                elif v is not None:
-                    cmd.extend([flag, str(v)])
             self.logger.info("starting scheduler rank %d: %s", rank,
                              " ".join(cmd))
             self.scheduler_processes.append(

@@ -81,7 +81,23 @@ layout and drops the bf16 stacks; every LM graph then runs K5
 layer (q/k/v and gate/up grouped), with a ``W8A16Scratch`` sized here for
 its split-K partial sums.
 
-Not ported: tensor parallelism (one card).
+``detokenizer_device_index`` splits the worker over two cards (LM /
+detokenizer disaggregation, the JAX worker's ``detokenizer_device``): the
+codec parameters, the slot codec caches (and a flow model's solver noise)
+and the watermark parameters move to that card, and every detokenize
+graph is captured there, in its own graph pool, and replayed there
+(``graphs.py``); prefill and decode stay on the LM's card. The token
+windows reach the detokenizer from the host, where the LM's readback
+(an event after the LM step's copies) put them; they go up through
+pinned staging on the detokenizer's card, whose stream also carries the
+admission-time codec-row writes, so nothing waits on a whole-device sync.
+A split worker has no chained first-chunk decode and no cold-start chain
+(both run the codec inside an LM graph), as in JAX. Every entry point a
+scheduler calls holds the dispatch lock (``_locked``), so the
+disaggregation scheduler's LM and detokenizer threads interleave whole
+entry points while the two cards run side by side.
+
+Not ported: tensor parallelism (one card per worker).
 
 Float32 matmuls and convolutions run in full float32 on the card
 (``allow_tf32`` off for cuBLAS and cuDNN, set here): the codec runs in
@@ -92,7 +108,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
+import threading
 import time
 from typing import Any, Optional
 
@@ -201,6 +219,9 @@ class WorkerConfig:
     codec_dtype: Optional[str] = None
     #: torch.profiler ranges around each step dispatch (off: none)
     enable_profiling: bool = False
+    #: put the detokenizer on ``cuda:<index>`` (disaggregation); None keeps
+    #: it on the LM's device
+    detokenizer_device_index: Optional[int] = None
 
     @property
     def decode_buckets(self) -> tuple[int, ...]:
@@ -254,12 +275,45 @@ class _PendingDetok:
     finish_check: list
 
 
+def _locked(fn):
+    """Serialize a ModelWorker entry point on the dispatch lock (see
+    ``ModelWorker._dispatch_lock``)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._dispatch_lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+def detokenizer_device_of(lm: torch.device,
+                          index: Optional[int]) -> torch.device:
+    """The detokenizer's device: the LM's, or ``cuda:<index>``."""
+    if index is None:
+        return lm
+    if lm.type != "cuda":
+        raise ValueError("a detokenizer device needs the LM on a CUDA card "
+                         f"(the LM is on {lm})")
+    count = torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise ValueError(f"detokenizer_device_index {index}: this machine "
+                         f"has {count} CUDA cards")
+    return torch.device("cuda", index)
+
+
 class ModelWorker:
     def __init__(self, model: BaseLM, config: WorkerConfig | None = None):
         self.model = model
         self.config = cfg = config or WorkerConfig()
         self.logger = get_logger("worker")
         self.device = dev = model.device
+        #: serializes the entry points' host bookkeeping (pending lists,
+        #: slots, allocator, graph staging): the disaggregation scheduler
+        #: drives LM and detokenize from two threads. RLock: entry points
+        #: nest (fail_request -> free_kv_cache -> sync).
+        self._dispatch_lock = threading.RLock()
+        self.lm_device = dev
+        self.detokenizer_device = detok = detokenizer_device_of(
+            dev, cfg.detokenizer_device_index)
         #: cumulative wall time per phase: name -> (total_s, calls)
         self.phase_stats: dict[str, tuple[float, int]] = {}
         if dev.type == "cuda":
@@ -347,12 +401,15 @@ class ModelWorker:
                 style=model.watermarker_type or "silentcipher",
                 sample_rate=model.sample_rate)
             self.watermark_params = init_watermarker(
-                self.watermark_cfg, seeded_generator(dev, cfg.seed + 101), dev)
+                self.watermark_cfg, seeded_generator(detok, cfg.seed + 101),
+                detok)
         if cfg.codec_dtype is not None:
             # before the cache is built and anything is captured: graphs and
             # K2's packed weights hold pointers to these tensors
             self._cast_codec(getattr(torch, cfg.codec_dtype))
         self.codec_cache = model.init_decoder_cache(rows)
+        if detok != dev:
+            self._move_codec(detok)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(cfg.seed)
 
@@ -369,18 +426,24 @@ class ModelWorker:
         self.max_pending_detok = 0
         self.polled = 0
         self.cold_starts = {"chain": 0, "two_dispatch": 0, "prefill": 0}
+        detok_gen = self.generator
+        if detok != dev:
+            detok_gen = torch.Generator(device=detok)
+            detok_gen.manual_seed(cfg.seed)
         self._steps = StepCache(
             dev, self._build_step, self.generator,
-            max(cfg.pipeline_depth, self._detok_depth) + 2)
+            max(cfg.pipeline_depth, self._detok_depth) + 2,
+            detok=(detok, detok_gen))
 
         def _nbytes(tree):
             return sum(a.numel() * a.element_size()
                        for a in tree_leaves(tree))
 
         self.logger.info(
-            "device %s: params %.2fG + KV pool %.2fG + codec %.2fG (%s) + "
-            "slot caches %.2fG; prefill buckets %s, decode buckets %s, table "
-            "widths %s, detokenize buckets %s, KV reserve fraction %g", dev,
+            "device %s (detokenizer %s): params %.2fG + KV pool %.2fG + "
+            "codec %.2fG (%s) + slot caches %.2fG; prefill buckets %s, "
+            "decode buckets %s, table widths %s, detokenize buckets %s, KV "
+            "reserve fraction %g", dev, detok,
             _nbytes(model.params) / 2**30,
             _nbytes([self.k_pages, self.v_pages]) / 2**30,
             _nbytes(model.codec_params) / 2**30, self.codec_dtypes(),
@@ -389,6 +452,51 @@ class ModelWorker:
             cfg.kv_reserve_fraction)
         if cfg.warmup:
             self.warmup()
+        for name, mem in self.memory_report().items():
+            self.logger.info(
+                "memory on %s: %.2f GB allocated, %.2f GB reserved, %.2f GB "
+                "free of %.2f GB", name, mem["allocated_gb"],
+                mem["reserved_gb"], mem["free_gb"], mem["total_gb"])
+
+    @property
+    def split(self) -> bool:
+        """The detokenizer runs on another card than the LM."""
+        return self.detokenizer_device != self.lm_device
+
+    def memory_report(self) -> dict[str, dict[str, float]]:
+        """Per card the worker uses: the caching allocator's allocation and
+        reservation and the card's free and total memory, in GB (nothing
+        on the CPU)."""
+        out = {}
+        for d in dict.fromkeys((self.lm_device, self.detokenizer_device)):
+            if d.type == "cuda":
+                free, total = torch.cuda.mem_get_info(d)
+                out[str(d)] = {
+                    "allocated_gb": torch.cuda.memory_allocated(d) / 1e9,
+                    "reserved_gb": torch.cuda.memory_reserved(d) / 1e9,
+                    "free_gb": free / 1e9, "total_gb": total / 1e9}
+        return out
+
+    def _move_codec(self, detok: torch.device) -> None:
+        """Put everything the detokenize graphs read on the detokenizer's
+        card (before anything is captured): the codec parameters, the slot
+        codec caches, every cache the model makes from now on, and a flow
+        model's solver noise."""
+        model = self.model
+
+        def move(tree):
+            return tree_map(lambda a: a.to(detok) if torch.is_tensor(a)
+                            else a, tree)
+
+        model.codec_params = move(model.codec_params)
+        self.codec_cache = move(self.codec_cache)
+        make_cache = model.init_decoder_cache
+        model.init_decoder_cache = lambda b: move(make_cache(b))
+        model.codec_device = detok
+        if getattr(model, "_flow_noise", None):
+            model._flow_noise = {k: v.to(detok)
+                                 for k, v in model._flow_noise.items()}
+        torch.cuda.empty_cache()
 
     def _quantize_backbone(self) -> None:
         """Replace ``model.params["backbone"]`` by its int8 tree (before
@@ -552,6 +660,7 @@ class ModelWorker:
             raise RuntimeError(f"request {req.request_id} already holds a slot")
         req.slot = self._free_slots.pop()
 
+    @_locked
     def fail_request(self, req: Request, reason: str) -> None:
         """Fail one request without touching the rest of the batch."""
         self.logger.error("request %s failed: %s", req.request_id, reason)
@@ -560,6 +669,7 @@ class ModelWorker:
         req.finish_reason = f"error: {reason}"
         self.free_kv_cache(req)
 
+    @_locked
     def free_kv_cache(self, req: Request) -> None:
         if req.extras.get("inflight"):
             self.sync()  # its in-flight steps still write its pages
@@ -576,12 +686,14 @@ class ModelWorker:
     # ------------------------------------------------------------------
     # slot-state helpers
     # ------------------------------------------------------------------
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor on the device without waiting for the steps in
-        flight (a pageable copy would)."""
-        if self.device.type == "cuda":
+    def _upload(self, t: torch.Tensor,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+        """A host tensor on the device (the LM's unless given) without
+        waiting for the steps in flight (a pageable copy would)."""
+        device = device or self.device
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     def _commit_step(self, out, slots: torch.Tensor) -> None:
         """Scatter a step's per-slot state back in place (padded rows land
@@ -597,7 +709,8 @@ class ModelWorker:
         slot still holds the previous occupant's streaming state."""
         if self.codec_cache is None or not slots:
             return
-        idx = self._upload(torch.tensor(slots, dtype=torch.long))
+        idx = self._upload(torch.tensor(slots, dtype=torch.long),
+                           self.detokenizer_device)
         tree_map(lambda a: a.index_fill_(0, idx, 0), self.codec_cache)
 
     def _write_slot_cache(self, slot: int, row: Any) -> None:
@@ -606,7 +719,7 @@ class ModelWorker:
         def put(a, r):
             t = r if torch.is_tensor(r) else torch.from_numpy(np.asarray(r))
             if t.device.type == "cpu":
-                t = self._upload(t.to(a.dtype))
+                t = self._upload(t.to(a.dtype), a.device)
             a[slot].copy_(t)
 
         tree_map(put, self.codec_cache, row)
@@ -624,11 +737,15 @@ class ModelWorker:
         host.copy_(t, non_blocking=True)
         return host
 
-    def _event(self) -> Optional[torch.cuda.Event]:
-        if self.device.type != "cuda":
+    def _event(self, device: Optional[torch.device] = None
+               ) -> Optional[torch.cuda.Event]:
+        """An event after the work issued so far on the device's (the
+        LM's unless given) current stream (None on the CPU)."""
+        device = device or self.device
+        if device.type != "cuda":
             return None
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(device))
         return event
 
     def _push_pending(self, sampled: torch.Tensor, requests: list[Request],
@@ -692,10 +809,12 @@ class ModelWorker:
         req.extras["ramp_next"] = window
         req.extras["ramp_size"] = min(window, self.model.detokenize_interval)
 
+    @_locked
     def sync(self) -> None:
         """Resolve all in-flight LM steps (host state catches up)."""
         self._drain(0)
 
+    @_locked
     def poll_resolved(self) -> list[Request]:
         """Resolve, without blocking, the in-flight LM steps and detokenize
         batches whose device work is done, oldest first (the device runs
@@ -904,6 +1023,7 @@ class ModelWorker:
             f"prefill of {total_tokens} tokens exceeds the largest bucket "
             f"{self.max_prefill_tokens}")
 
+    @_locked
     def run_lm_prefill(self, requests: list[Request]) -> None:
         requests = self._admit_prefills(requests)
         if not requests:
@@ -1269,6 +1389,7 @@ class ModelWorker:
                 req.waiting_for_text = True
         return tok
 
+    @_locked
     def run_lm_decode(self, requests: list[Request]) -> None:
         if not requests:
             return
@@ -1326,6 +1447,7 @@ class ModelWorker:
         limit = self.max_pages_per_seq * self.config.page_size
         return all(r.kv_token_len + n_steps <= limit for r in requests)
 
+    @_locked
     def run_lm_decode_multi(self, requests: list[Request], n_steps: int,
                             first_chunk: bool = False) -> None:
         """Run n_steps decode steps for the batch in ONE graph replay.
@@ -1428,16 +1550,19 @@ class ModelWorker:
     # ------------------------------------------------------------------
     def _chains_enabled(self) -> bool:
         """The chained first-chunk graphs exist: fused decode, a first
-        chunk of >= 2 frames, a model whose samples are audio rows."""
+        chunk of >= 2 frames, a model whose samples are audio rows, and
+        the codec on the LM's card."""
         return (self.config.fused_decode_steps >= 2
                 and self.first_chunk_frames >= 2
-                and self.model.supports_chained_detok)
+                and self.model.supports_chained_detok
+                and not self.split)
 
     def can_cold_start(self, req: Request) -> bool:
         return (self._chains_enabled()
                 and self._fused_bucket(1) is not None
                 and not req.is_input_streaming)
 
+    @_locked
     def run_cold_start(self, req: Request) -> None:
         """Prefill + fused k-step decode + first-chunk detokenize as ONE
         graph replay (``cold_chain``) over the prefill pack and the fused
@@ -1575,6 +1700,13 @@ class ModelWorker:
         }
         if self.device.type == "cuda":
             out["pool_mib"] = steps.pool_bytes() / 2**20
+            out["pool_mib_by_device"] = {
+                str(pl.device): steps.pool_bytes(pl) / 2**20
+                for pl in steps.places()}
+            out["graphs_by_device"] = {
+                str(pl.device): [list(k) for k in steps.steps
+                                 if steps.place(k) is pl]
+                for pl in steps.places()}
             out["capture_s_by_kind"] = dict(steps.capture_s_by_kind)
             out["pool_mib_by_kind"] = dict(steps.pool_mib_by_kind)
         return out
@@ -1626,6 +1758,7 @@ class ModelWorker:
             return 0
         return max(1, self.config.detok_pipeline_depth)
 
+    @_locked
     def run_detokenize(self, requests: list[Request]) -> list[Request]:
         """Decode the selected chunk windows (and first-chunk minis) into
         PCM on the device and emit them by the reference trim rule. The
@@ -1768,7 +1901,8 @@ class ModelWorker:
         with self._trace(f"detokenize_b{B}_l{length}"):
             pcm = self._steps.run(("detok", B, length), pack)
         self._pending_detok.append(_PendingDetok(
-            self._to_host(pcm), self._event(), mapping, finish_check))
+            self._to_host(pcm), self._event(self.detokenizer_device), mapping,
+            finish_check))
         self.max_pending_detok = max(self.max_pending_detok,
                                      len(self._pending_detok))
         self._stat("detok.dispatch", t0)
@@ -1857,6 +1991,7 @@ class ModelWorker:
                 touched.append(r)
         return touched
 
+    @_locked
     def flush_detokenize(self) -> list[Request]:
         """Resolve every in-flight detokenize batch."""
         out: list[Request] = []

@@ -27,6 +27,12 @@ failed capture raises: no step runs eagerly on the card. On the CPU, which
 the tests use, a key's step is an ``EagerStep`` that runs the same body on
 every call.
 
+A worker that puts its detokenizer on another card (disaggregation) gives
+the cache that card and a generator there: its ``("detok", B, L)`` steps
+are captured there, under that card's own graph pool and capture stream,
+and every other step on the LM's card. A graph is captured and replayed
+with its own card current, whatever the calling thread's.
+
 Kernel counters (``ops/kernels.py``: every wrapper's ``launches``, K2's
 ``stacks``) are Python increments in the wrappers, so a replay would not
 move them: a graph records what its capture counted (and takes that, and
@@ -37,7 +43,7 @@ replay.
 from __future__ import annotations
 
 import time
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -124,6 +130,10 @@ class StepGraph:
         kernels.set_counters(counts0)
 
     def __call__(self, *inputs: np.ndarray) -> Output:
+        with torch.cuda.device(self.device):
+            return self._replay(inputs)
+
+    def _replay(self, inputs: tuple) -> Output:
         i = self._next
         self._next = (i + 1) % len(self._staging)
         if self._staged[i] is not None:
@@ -146,26 +156,44 @@ class StepGraph:
         inputs, after one discarded replay (the JAX warmup's probe). Probe
         replays are start-up measurements: no launch or replay is
         counted."""
-        self.graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
+        with torch.cuda.device(self.device):
             self.graph.replay()
-        end.record()
-        end.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                self.graph.replay()
+            end.record()
+            end.synchronize()
         return start.elapsed_time(end) / n
+
+
+class _Place:
+    """Where steps run: a device, the generator their draws advance and,
+    on the card, their graph pool and capture stream."""
+
+    def __init__(self, device: torch.device, generator: torch.Generator):
+        self.device = device
+        self.generator = generator
+        self.pool = self.stream = None
+        if device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
 
 
 class StepCache:
     """Steps by key, built at first use (see the module docstring)."""
 
     def __init__(self, device: torch.device, build: Builder,
-                 generator: torch.Generator, n_staging: int):
-        self.device = device
+                 generator: torch.Generator, n_staging: int,
+                 detok: Optional[tuple[torch.device, torch.Generator]] = None):
+        """``detok``: the (device, generator) of the ``"detok"`` steps,
+        where they run on another card than the rest."""
         self._build = build
-        self._generator = generator
         self._n_staging = n_staging
+        self._main = _Place(device, generator)
+        self._detok = (self._main if detok is None or detok[0] == device
+                       else _Place(*detok))
         self.steps: dict[tuple, EagerStep | StepGraph] = {}
         #: True while a step is warmed up or captured (its body then runs
         #: on the card outside any replay without being a served step)
@@ -182,26 +210,32 @@ class StepCache:
         #: the last reset (the order in which step kinds were issued)
         self.spans: dict[str, list[int]] = {}
         self._runs = 0
-        self.pool = None
-        self._capture_stream = None
-        if device.type == "cuda":
-            self.pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(device)
+
+    def place(self, key: tuple) -> _Place:
+        """Where key's step runs."""
+        return self._detok if key[0] == "detok" else self._main
+
+    def places(self) -> list[_Place]:
+        """The LM's place, then the detokenizer's where it is another."""
+        return [self._main] + ([self._detok]
+                               if self._detok is not self._main else [])
 
     def get(self, key: tuple) -> EagerStep | StepGraph:
         step = self.steps.get(key)
         if step is None:
             body, warm_inputs = self._build(key)
-            if self.device.type != "cuda":
-                step = EagerStep(body, self.device)
+            place = self.place(key)
+            if place.device.type != "cuda":
+                step = EagerStep(body, place.device)
             else:
                 t0 = time.perf_counter()
                 pool0 = self.pool_bytes()
                 self.capturing = True
                 try:
-                    step = StepGraph(body, warm_inputs, self.device,
-                                     self.pool, self._capture_stream,
-                                     self._generator, self._n_staging)
+                    with torch.cuda.device(place.device):
+                        step = StepGraph(body, warm_inputs, place.device,
+                                         place.pool, place.stream,
+                                         place.generator, self._n_staging)
                 finally:
                     self.capturing = False
                 dt = time.perf_counter() - t0
@@ -255,8 +289,12 @@ class StepCache:
         self.spans.clear()
         self._runs = 0
 
-    def pool_bytes(self) -> int:
-        """Bytes the shared graph pool holds (card only)."""
-        snap = torch.cuda.memory._snapshot(self.device)
-        return sum(seg["total_size"] for seg in snap["segments"]
-                   if tuple(seg["segment_pool_id"]) == tuple(self.pool))
+    def pool_bytes(self, place: Optional[_Place] = None) -> int:
+        """Bytes the graph pools hold (card only): ``place``'s, else
+        all."""
+        total = 0
+        for pl in [place] if place is not None else self.places():
+            snap = torch.cuda.memory._snapshot(pl.device)
+            total += sum(seg["total_size"] for seg in snap["segments"]
+                         if tuple(seg["segment_pool_id"]) == tuple(pl.pool))
+        return total
