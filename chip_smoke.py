@@ -24,8 +24,9 @@ exits non-zero without printing a result:
    and 64, at GLM-4-Voice-9B's (H=32, KH=2, head dim 128: a group of
    16, four CTAs of 4 heads per KV head) at B=4 and 64, at Chatterbox's
    T3 (H=16, KH=16, head dim 64: a group of 1, one head per CTA) at B in
-   {1, 4, 8, 64}, and at Zonos-v0.1's (H=16, KH=16, head dim 128) at B in
-   {1, 4, 8, 64}.
+   {1, 4, 8, 64}, at Zonos-v0.1's (H=16, KH=16, head dim 128) at B in
+   {1, 4, 8, 64}, and at one rank's heads at ``--tp-size 4`` (B=4 and 64):
+   the flagship's 4 over 2 and GLM-4-Voice-9B's 8 over its one KV head.
 4. K3 ragged prefill attention vs its plain version at T in {64, 168, 256,
    1024} with 1-5 ragged segments (T=168: four 42-token prompts, the served
    prefill; valid rows compared); CUDA-event times of K3, its plain version
@@ -36,7 +37,8 @@ exits non-zero without printing a result:
    64 (T=168 and 1024), CosyVoice2's G = 7 at head dim 64 (T=168 and
    1024), GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024),
    Chatterbox's G = 1 at head dim 64 and Zonos's G = 1 at head dim 128
-   (T=168 and 1024: 32- and 64-token tiles).
+   (T=168 and 1024: 32- and 64-token tiles), and the two ``--tp-size 4``
+   rank layouts, 4 over 2 and 8 over 1 (T=168 and 1024).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -47,12 +49,26 @@ exits non-zero without printing a result:
    scaling, and once at Orpheus's heads with int8 weights (quantized once
    on the CPU): the card through K5, 4 launches per layer and step,
    against the CPU through K5's plain version.
+   Then tensor parallelism on the one card: the flagship's talker
+   backbone (2048 wide, 16 / 8 heads, MLP 6144) and GLM-4-Voice-9B's
+   (4096 wide, 32 / 2 heads, MLP 13696, q/k/v biases) at full width over
+   4 of their layers, random weights, split by ``shard_params`` at tp 2
+   and 4 (in bf16, and at int8: quantized whole, split, each shard packed)
+   and run rank after rank with the partial sums added in place of each
+   all-reduce (``backbone_forward_shards``), against the whole backbone on
+   the same inputs: a T=168 prefill of four 42-token prompts and three
+   B=4 decode steps, within 5e-2 of the whole one's peak in bf16; each
+   rank's K1 / K3 (and K5) launches counted, each rank's pool held against
+   its KV heads' rows of the whole pool.
    Then K5, the int8 weight-only linear (``--weight-quant int8``), for the
    seven linears of one layer (q, k, v, o, gate, up, down) as a group of
    four launches (q/k/v and gate/up each one launch, as the backbone makes
    them) at Qwen3-TTS (2048 / 6144), Orpheus (3072 / 8192), GLM-4-Voice
    (4096 / 13696, q/k/v biases), Step-Audio-2 (3584 / 18944, q/k/v
-   biases) and Chatterbox (1024 / 4096) widths, at M in {1, 4, 32, 64}
+   biases) and Chatterbox (1024 / 4096) widths and one ``--tp-size 4``
+   rank's (the flagship: q 512, k/v 256, o from 512, gate/up 1536, down
+   from 1536; GLM: q 1024, k/v 128, o from 1024, gate/up 3424, down from
+   3424), at M in {1, 4, 32, 64}
    rows (decode) and T in {168, 1024} (prefill), each output against its
    plain version on the same inputs; CUDA-graph times of K5, its plain
    version, bf16 ``x @ w`` of the unquantized weights (the path int8
@@ -351,8 +367,24 @@ exits non-zero without printing a result:
    non-zero within 60 s, name the card count, leave no daemon alive; the
    script prints that the two-card runs were not run, and why.
 
+8. four cards: where ``torch.cuda.device_count() >= 4``, run TP (A's
+   configuration at ``--tp-size 4``: the flagship's backbone and KV pool
+   split over four ranks, one process a card) and TPG (Q's at ``--tp-size
+   4 --weight-quant int8``: GLM-4-Voice-9B quantized whole, split, K5 at
+   the shard widths), each held to A's or Q's checks (the trim rule, K1
+   and K3 (and K5) on rank 0 once a layer per step, all in graphs) and to
+   ``check_tp_run``: every rank replayed every LM step as a graph, with no
+   eager call, launched K1 and K3 (and K5) as rank 0 did and nothing else,
+   and holds its KV heads only (the pool's bytes / 4); it prints each
+   rank's decode probes, the all-reduce's device ms per call at decode and
+   prefill rows and each run beside A or Q of this call. With fewer cards
+   the launcher must refuse ``--tp-size 4`` at start-up (exit non-zero
+   within 60 s, the count named, no daemon or rank process left); the
+   script prints that TP and TPG were not run, and why.
+
 The line before the last is a JSON object describing each kernel (at its
-largest shape); the last line is ``{"ok": true, "device": {...}}``.
+largest shape; launches summed over the tensor-parallel ranks); the last
+line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-only
 
@@ -816,13 +848,183 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3",
         f"{rel:.3e} (tol {BACKBONE_REL_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism on one card: the ranks one after another
+# ---------------------------------------------------------------------------
+
+#: the TP phase's backbones at full width (4 of their layers): the
+#: flagship's Qwen3 talker (16 / 8 heads: 4 / 2 a rank at tp 4) and
+#: GLM-4-Voice-9B's (32 / 2 heads: 8 / 1 a rank at tp 4, each KV head on
+#: two ranks)
+TP_BACKBONES = {
+    "qwen3-tts": dict(hidden_size=2048, num_heads=16, num_kv_heads=8,
+                      head_dim=128, intermediate_size=6144, qk_norm=True,
+                      rope_theta=1e6),
+    "glm": dict(hidden_size=4096, num_heads=32, num_kv_heads=2,
+                head_dim=128, intermediate_size=13696, qkv_bias=True,
+                rope_dim=64, rope_interleaved=True, rms_eps=1.5625e-07),
+}
+TP_LAYERS = 4
+#: the split backbone in bf16 against the whole one in bf16, relative to
+#: the whole one's peak: each o and down output is rounded to bf16 per
+#: rank and the partial sums add in bf16 (one rounding more per layer and
+#: sublayer than the whole matmul's), and the residual stream carries it
+#: through 4 layers and the final norm
+TP_REL_TOL = 5e-2
+
+
+def check_tp_backbone(kernels) -> list:
+    """A tensor-parallel backbone's ranks run one after another on the one
+    card, the partial sums added in place of each all-reduce
+    (``backbone_forward_shards``), at tp 2 and 4, against the whole
+    backbone on the same card and inputs: a T = 168 prefill (four 42-token
+    prompts) and three B = 4 decode steps, in bf16 and at int8 weights
+    (the whole tree quantized, then split, then each shard packed, as the
+    worker does). Every rank's K1 / K3 (and K5) launches counted; each
+    rank's pool held against its KV heads' rows of the whole pool. Returns
+    one result per (backbone, weights, tp)."""
+    import torch
+
+    from vox_serve_tpu_torch.models.backbone import (
+        BackboneConfig, backbone_forward, backbone_forward_shards,
+        init_backbone_params, pack_backbone_params, quantize_backbone_params,
+        seeded_generator, w8a16_groups)
+    from vox_serve_tpu_torch.ops.attention import AttnMetadata
+    from vox_serve_tpu_torch.ops.kv_cache import KVCacheConfig, alloc_kv_pages
+    from vox_serve_tpu_torch.parallel import shard_params
+    from vox_serve_tpu_torch.parallel.sharding import (kv_heads_of,
+                                                       shard_config)
+
+    dev = torch.device("cuda")
+    lens, page, P, B, steps = [42] * 4, 16, 64, 4, 3
+    T = sum(lens)
+    pages = [list(range(1 + 8 * i, 9 + 8 * i)) for i in range(B)]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.int32).to(dev)
+
+    seg = torch.cat([torch.full((n,), i) for i, n in enumerate(lens)])
+    pos = torch.cat([torch.arange(n) for n in lens])
+    pid = torch.cat([torch.tensor(pages[i])[torch.arange(n) // page]
+                     for i, n in enumerate(lens)])
+    out = []
+    for name, widths in TP_BACKBONES.items():
+        cfg = BackboneConfig(vocab_size=64, num_layers=TP_LAYERS, **widths,
+                             dtype=torch.bfloat16)
+        g = seeded_generator(dev, 11)
+        whole = init_backbone_params(cfg, g, dev)
+        for part in whole["layers"].values():
+            for leaf in (part.values() if isinstance(part, dict) else []):
+                if isinstance(leaf, dict) and "b" in leaf:
+                    leaf["b"].copy_(0.1 * torch.randn(
+                        leaf["b"].shape, generator=g, device=dev))
+        xs = [torch.randn((T, cfg.hidden_size), generator=g, device=dev)
+              .to(torch.bfloat16)] + [
+            torch.randn((B, cfg.hidden_size), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(steps)]
+        D, KH = cfg.head_dim, cfg.num_kv_heads
+        for wq in ("none", "int8"):
+            tree = quantize_backbone_params(whole) if wq == "int8" else whole
+            runs = {}
+            for tp in (1, 2, 4):
+                shards = [shard_params(tree, r, tp, KH) for r in range(tp)]
+                if wq == "int8":
+                    shards = [pack_backbone_params(s) for s in shards]
+                lcfg = shard_config(cfg, tp)
+                kvc = KVCacheConfig(TP_LAYERS, P, page, lcfg.num_kv_heads, D,
+                                    dtype=torch.bfloat16, combined=True)
+                pools = [alloc_kv_pages(kvc, dev) for _ in shards]
+                scratch = [(kernels.DecodeScratch(
+                    dev, B, lcfg.num_heads, lcfg.num_kv_heads, D, 8, page),
+                    kernels.W8A16Scratch(dev, w8a16_groups(s))
+                    if wq == "int8" else None) for s in shards]
+                counts0 = kernels.launch_counts()
+                hs = []
+                for s, x in enumerate(xs):
+                    if s == 0:
+                        metas = [AttnMetadata(True, t(pid), t(pos % page),
+                                              segment_ids=t(seg),
+                                              q_positions=t(pos),
+                                              linear_scratch=ws)
+                                 for _, ws in scratch]
+                        xpos = t(pos)
+                    else:
+                        cur = torch.tensor([n + s - 1 for n in lens])
+                        metas = [AttnMetadata(
+                            False, t([pages[i][int(c) // page]
+                                      for i, c in enumerate(cur)]),
+                            t(cur % page), block_tables=t(pages),
+                            seq_lens=t(cur + 1), decode_scratch=ds,
+                            linear_scratch=ws) for ds, ws in scratch]
+                        xpos = t(cur)
+                    if tp == 1:
+                        hs.append(backbone_forward(shards[0], cfg, x, xpos,
+                                                   metas[0], *pools[0]))
+                    else:
+                        hs.append(backbone_forward_shards(
+                            shards, cfg, x, xpos, metas, pools))
+                torch.cuda.synchronize()
+                counts = {k: v - counts0[k]
+                          for k, v in kernels.launch_counts().items()}
+                want = {K3: tp * TP_LAYERS, K1: tp * TP_LAYERS * steps}
+                if wq == "int8":
+                    want[K5] = tp * K5_PER_LAYER * TP_LAYERS * (1 + steps)
+                got = {k: n for k, n in counts.items() if n}
+                if got != want:
+                    raise AssertionError(f"TP {name} {wq} tp={tp}: kernel "
+                                         f"launches {got}, expected {want}")
+                runs[tp] = (hs, pools)
+            ref, ref_pools = runs[1]
+            for tp in (2, 4):
+                hs, pools = runs[tp]
+                rel = max(((a.float() - b.float()).abs().max()
+                           / b.float().abs().max()).item()
+                          for a, b in zip(hs, ref))
+                finite = all(torch.isfinite(h.float()).all() for h in hs)
+                pool_rel = 0.0
+                whole_pool = ref_pools[0][0].float()
+                for r, (pool, _) in enumerate(pools):
+                    rows = [2 * h + i for h in kv_heads_of(r, cfg.num_heads,
+                                                           KH, tp)
+                            for i in (0, 1)]
+                    want_pool = whole_pool[:, :, :, rows]
+                    pool_rel = max(pool_rel, (
+                        (pool.float() - want_pool).abs().max()
+                        / want_pool.abs().max()).item())
+                if not finite or rel > TP_REL_TOL or pool_rel > TP_REL_TOL:
+                    raise AssertionError(
+                        f"TP {name} {wq} tp={tp}: split vs whole rel err "
+                        f"{rel:.3e} (pools {pool_rel:.3e}, finite {finite})"
+                        f" > {TP_REL_TOL}")
+                lcfg = shard_config(cfg, tp)
+                log(f"TP {name} backbone (full width, {TP_LAYERS} of its "
+                    f"layers, {wq} weights) tp={tp}: {lcfg.num_heads}/"
+                    f"{lcfg.num_kv_heads} heads and MLP width "
+                    f"{lcfg.intermediate_size} a rank, the ranks one after "
+                    f"another on the card, partial sums added: prefill "
+                    f"T={T} + {steps} decode steps at B={B} vs the whole "
+                    f"backbone: max rel err {rel:.3e}, each rank's pool vs "
+                    f"its KV heads' rows {pool_rel:.3e} (tol {TP_REL_TOL})")
+                out.append({"backbone": name, "weights": wq, "tp": tp,
+                            "rel_err": rel, "pool_rel_err": pool_rel})
+            del runs, ref, ref_pools, tree
+        del whole
+        torch.cuda.empty_cache()
+    return out
+
+
 #: K5's widths: model -> (hidden, query heads, KV heads, head dim, MLP
 #: width, q/k/v bias); each times the seven linears of one layer
 K5_WIDTHS = {"qwen3-tts": (2048, 16, 8, 128, 6144, False),
              "orpheus": (3072, 24, 8, 128, 8192, False),
              "glm": (4096, 32, 2, 128, 13696, True),
              "step": (3584, 28, 4, 128, 18944, True),
-             "chatterbox": (1024, 16, 16, 64, 4096, False)}
+             "chatterbox": (1024, 16, 16, 64, 4096, False),
+             # one rank's linears at --tp-size 4: q/k/v and gate/up split
+             # by columns, o and down by rows (GLM's 13,696 / 4 = 3,424
+             # features, not a whole number of 64-wide units)
+             "qwen3-tts tp4": (2048, 4, 2, 128, 1536, False),
+             "glm tp4": (4096, 8, 1, 128, 3424, True)}
 #: rows K5 is timed at: decode batches (1, 4; 32, the smallest batched
 #: decode past 16 rows; 64) and prefill (168 = the served prefill of four
 #: 42-token prompts, 1024 the largest bucket)
@@ -1311,7 +1513,7 @@ MODEL_OF = {"I": "orpheus", "Y": "orpheus", "J": "csm", "K": "csm",
             "M": QWEN3_DESIGN, "N": CSM_ID, "O": "cosyvoice2", "P": COSY_ID,
             "Q": "glm", "R": GLM_ID, "S": "step-audio-2", "T": STEP_ID,
             "U": "chatterbox", "V": CHATTERBOX_ID, "W": "zonos",
-            "X": ZONOS_ID}
+            "X": ZONOS_ID, "TPG": "glm"}
 #: the family of a served id (its layers, audio unit and form fields)
 FAMILY = {"orpheus": "orpheus", "csm": "csm", CSM_ID: "csm",
           "cosyvoice2": "cosyvoice2", COSY_ID: "cosyvoice2", "glm": "glm",
@@ -1687,6 +1889,20 @@ CONFIGS.update({
                    "checkpoint": dict.fromkeys(ZONOS_PARTS, True)},
           {K1, K3}),
 })
+CONFIGS.update({
+    # tensor parallelism over four cards (``four_card_phase``): A at
+    # --tp-size 4, the flagship's backbone and KV pool split 4 ways (4 / 2
+    # heads a rank); Q at --tp-size 4 --weight-quant int8, GLM-4-Voice-9B's
+    # (8 / 1 heads a rank, K5 at the shard widths)
+    "TP": (["--tp-size", "4"], {}, {**CONFIGS["A"][2], "tp_size": 4},
+           {K1, K3}),
+    "TPG": (["--tp-size", "4", "--weight-quant", "int8"], {},
+            {**CONFIGS["Q"][2], "tp_size": 4, "weight_quant": "int8"},
+            {K1, K3, K5}),
+})
+#: the tensor-parallel runs and the one-card runs each is compared with
+TP_RUNS = {"TP": "A", "TPG": "Q"}
+TP_SIZE = 4
 #: the runs served from random weights, and those from checkpoints (the
 #: checkpoint phase writes their snapshots)
 RANDOM_RUNS = "ABCDEFGHIYJKOQSUW"
@@ -1787,7 +2003,7 @@ REQUESTS = {
     "Q": [{"fields": {}, "audio": True, "text": ""}] * 2
     + [{"fields": {}}] * 2,
 }
-REQUESTS["R"] = REQUESTS["Q"]
+REQUESTS["R"] = REQUESTS["TPG"] = REQUESTS["Q"]
 REQUESTS["S"] = REQUESTS["Q"]
 REQUESTS["T"] = [{"fields": {}, "audio": True, "text": ""}, {"fields": {}}]
 # Chatterbox's voice clones speak their text in the upload's voice
@@ -1963,6 +2179,7 @@ def step_upload_rows() -> int:
 
 #: the runs whose prompts are held to ``expected_prompt_tokens``
 PROMPT_LENGTHS = ("L", "M", "N", "P", "Q", "R", "S", "T", "U", "V", "W",
+                  "TPG",
                   "X")
 
 
@@ -2306,6 +2523,7 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stats = json.loads(stats_path.read_text())
     out["launches"] = stats["launches"]
     out["backbone_bytes"] = stats["backbone_bytes"]
+    out["probe_ms"] = stats["steps"]["probe_ms"]
     if config == "DP":
         # the streams' checks read both ranks' completed requests
         stats["requests"] += check_dp_run(
@@ -2315,6 +2533,8 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
         check_profile_run(config, stats, out)
     elif config == "DG":
         check_split_run(config, stats)
+    elif config in TP_RUNS:
+        check_tp_run(config, stats, out)
     if fam == "step":
         check_step_windows(config, stats, out)
     elif fam in FEATURE_ROW_CODECS:
@@ -2801,6 +3021,102 @@ def two_card_phase(card: str) -> dict:
         f"not run: this machine has {n} CUDA card; both were refused at "
         "start-up instead")
     return {}
+
+
+def check_tp_run(config: str, stats: dict, out: dict) -> None:
+    """Runs TP and TPG: every rank served every LM step as a graph replay
+    (no eager call), launched K1 and K3 (and K5 in TPG) once a layer per
+    step as rank 0 did, and nothing else, and holds its KV heads only:
+    the pool's bytes / tp; ``out["launches"]`` becomes the sum over the
+    ranks. Prints each rank's decode probes and the all-reduce's ms per
+    call at decode and prefill rows."""
+    from vox_serve_tpu_torch.parallel.sharding import tp_heads
+
+    fam = family(config)
+    layers = LAYERS[fam]
+    _, H, KH, D, _, _ = K5_WIDTHS[fam]
+    ranks = stats["tp_ranks"]
+    if stats["tp_size"] != TP_SIZE or [r.get("rank") for r in ranks] != \
+            list(range(TP_SIZE)):
+        raise AssertionError(f"[{config}] tp_size {stats['tp_size']}, "
+                             f"ranks {ranks}")
+    steps = stats["steps"]
+    n_steps, replays = steps["decode_steps"], steps["replays"]
+    prefills = replays.get("prefill", 0) + replays.get("cold_chain", 0)
+    lm = {k: n for k, n in replays.items() if k != "detok"}
+    want = {K1: layers * n_steps, K3: layers * prefills}
+    if K5 in CONFIGS[config][3]:
+        want[K5] = K5_PER_LAYER * layers * (prefills + n_steps)
+    kv_bytes = (layers * 2048 * 16 * 2 * tp_heads(H, KH, TP_SIZE)[1] * D
+                * 2)
+    total = dict(stats["launches"])
+    for r in ranks:
+        if any(r["eager_calls"].values()):
+            raise AssertionError(f"[{config}] rank {r['rank']} ran steps "
+                                 f"eagerly: {r['eager_calls']}")
+        if r["kv_pool_bytes"] != kv_bytes:
+            raise AssertionError(f"[{config}] rank {r['rank']}'s pool: "
+                                 f"{r['kv_pool_bytes']} bytes, expected "
+                                 f"{kv_bytes}")
+        if r["rank"] == 0:
+            continue
+        if r["replays"] != lm or r["graphs"] != [
+                g for g in ranks[0]["graphs"] if g[0] != "detok"]:
+            raise AssertionError(f"[{config}] rank {r['rank']} replays "
+                                 f"{r['replays']} / graphs {r['graphs']}, "
+                                 f"rank 0's LM steps {lm}")
+        got = {k: n for k, n in r["launches"].items() if n}
+        if got != want:
+            raise AssertionError(f"[{config}] rank {r['rank']} launched "
+                                 f"{got}, expected {want}")
+        for k, n in got.items():
+            total[k] += n
+    out["launches"] = total
+    out["allreduce_ms"] = stats["allreduce_ms"]
+    for r in ranks:
+        probes = {k: round(v, 3) for k, v in r["probe_ms"].items()
+                  if k.startswith("decode ")}
+        log(f"[{config}] rank {r['rank']} ({r['device']}): "
+            f"{len(r['graphs'])} graphs, pool {r.get('pool_mib', 0):.1f} "
+            f"MiB, KV pool {r['kv_pool_bytes'] / 2**20:.1f} MiB "
+            f"{r['kv_pool_shape']}, replays {r['replays']}, eager calls 0; "
+            f"decode probes (ms per replay) {probes}"
+            + (f"; pack message to the ranks "
+               f"{r['mirror_run_ms']:.4f} ms per step" if "mirror_run_ms"
+               in r else ""))
+    log(f"[{config}] all-reduce device ms per call by rows (hidden "
+        f"{K5_WIDTHS[fam][0]}, bf16, in a graph): {stats['allreduce_ms']}; "
+        f"launches summed over the {TP_SIZE} ranks {total}")
+
+
+def four_card_phase(card: str, runs: dict) -> dict:
+    """TP and TPG where the machine has four cards, each compared with the
+    one-card run of the same model served in this call (A, Q); else the
+    refusal of ``--tp-size 4``."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < TP_SIZE:
+        refused(["--tp-size", str(TP_SIZE)], n)
+        log(f"four-card runs TP and TPG (--tp-size {TP_SIZE}) not run: "
+            f"this machine has {n} CUDA card(s); the launcher refused "
+            f"--tp-size {TP_SIZE} at start-up instead")
+        return {}
+    log(f"{n} CUDA cards: runs TP and TPG")
+    out = {}
+    for config, base in TP_RUNS.items():
+        out[config] = r = end_to_end(card, config)
+        one = runs[base]
+        dec = sorted(k for k in r["probe_ms"] if k.startswith("decode 4 "))
+        log(f"[{config}] vs {base}: {r['frames_per_s']:.3f} / "
+            f"{one['frames_per_s']:.3f} units/s, TTFA median "
+            f"{r['ttfa_median_s'] * 1e3:.1f} / {one['ttfa_median_s'] * 1e3:.1f}"
+            f" ms, decode step wall {r['decode_step_ms']:.2f} / "
+            f"{one['decode_step_ms']:.2f} ms, decode probe at B=4 "
+            + ", ".join(f"{k}: {r['probe_ms'][k]:.3f} / "
+                        f"{one['probe_ms'].get(k, float('nan')):.3f}"
+                        for k in dec) + " ms")
+    return out
 
 
 def check_run(config: str, card: str, stats: dict, out: dict) -> None:
@@ -3737,6 +4053,7 @@ def main(argv=None) -> int:
     import argparse
 
     import torch
+    import torch.distributed
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3755,7 +4072,9 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     kind = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}"
+        f" nccl {torch.distributed.is_nccl_available()} "
+        f"{torch.cuda.nccl.version()}")
 
     t0 = time.perf_counter()
     path = kernels.build(verbose=True)
@@ -3793,6 +4112,13 @@ def main(argv=None) -> int:
     # 64 tokens per K3 tile) at head dim 128
     check_decode(kernels, "K1", H=16, KH=16, batches=(1, 4, 8, 64))
     check_k3(kernels, H=16, KH=16, shapes=((168, 4), (1024, 5)))
+    # one rank's heads at --tp-size 4: the flagship's 4 over 2 (G = 2) and
+    # GLM-4-Voice-9B's 8 over its one KV head (G = 8: two decode CTAs of 4
+    # heads; 4 or 8 tokens per K3 tile)
+    check_decode(kernels, "K1", H=4, KH=2, batches=(4, 64))
+    check_decode(kernels, "K1", H=8, KH=1, batches=(4, 64))
+    check_k3(kernels, H=4, KH=2, shapes=((168, 4), (1024, 5)))
+    check_k3(kernels, H=8, KH=1, shapes=((168, 4), (1024, 5)))
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -3802,6 +4128,8 @@ def main(argv=None) -> int:
     check_backbone("combined", heads="csm")
     check_backbone("combined", heads="orpheus", weight_quant="int8")
     marks.append(("backbones", time.perf_counter()))
+    check_tp_backbone(kernels)
+    marks.append(("TP backbones", time.perf_counter()))
     k5 = check_k5(kernels)
     marks.append(("K5", time.perf_counter()))
     k2 = check_k2()
@@ -3822,6 +4150,8 @@ def main(argv=None) -> int:
     runs.update(ckpt_runs)
     runs.update(two_card_phase(card))
     marks.append(("two cards", time.perf_counter()))
+    runs.update(four_card_phase(card, runs))
+    marks.append(("four cards", time.perf_counter()))
     log("seconds per phase: " + ", ".join(
         f"{name} {t - prev:.1f}" for (name, t), (_, prev)
         in zip(marks[1:], marks)) + f"; all after the build "

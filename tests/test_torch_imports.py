@@ -66,6 +66,10 @@ _ENTRY_MODULES = [
     "vox_serve_tpu_torch.encoders.zonos_speaker",
     "vox_serve_tpu_torch.profiles",
     "vox_serve_tpu_torch.scheduler.disaggregation",
+    "vox_serve_tpu_torch.parallel",
+    "vox_serve_tpu_torch.parallel.mesh",
+    "vox_serve_tpu_torch.parallel.sharding",
+    "vox_serve_tpu_torch.parallel.ranks",
 ]
 
 
@@ -98,7 +102,8 @@ def test_port_sources_never_import_jax():
                             r"(?=[\s,]|$)", re.M)
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
               ROOT / "synthetic_checkpoints.py",
-              ROOT / "scripts" / "torch_profile_sweep.py"]:
+              ROOT / "scripts" / "torch_profile_sweep.py",
+              ROOT / "scripts" / "torch_tp_capture_modes.py"]:
         used |= {m or "vox_serve_tpu"
                  for m in pkg_import.findall(p.read_text())}
     assert used <= allowed, used - allowed

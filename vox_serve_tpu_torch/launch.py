@@ -23,7 +23,10 @@ own; explicit flags win.
 
 ``--dp-size N`` serves N replicas, one daemon per card (``cuda:<rank>``,
 pinned with ``CUDA_VISIBLE_DEVICES``), requests assigned round robin.
-``--enable-disaggregation`` (or ``--scheduler-type disaggregation``) runs
+``--tp-size N`` splits each replica's backbone and KV pool over N cards
+(tensor parallelism, one process per card; replica r on cards r*N ..
+r*N+N-1). ``--enable-disaggregation`` (or ``--scheduler-type
+disaggregation``) runs
 the LM on ``cuda:0`` and the detokenizer on ``cuda:1`` in one daemon; it
 excludes ``--dp-size > 1`` (exit 2). On ``--device cuda`` the launcher
 refuses to serve, and stops the daemons, when the machine has fewer cards
@@ -153,6 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatches")
     p.add_argument("--dp-size", type=int, default=1,
                    help="data-parallel replicas, one card each")
+    p.add_argument("--tp-size", type=int, default=1,
+                   help="tensor-parallel cards per replica (the backbone "
+                        "and its KV pool split over them)")
     p.add_argument("--enable-disaggregation", action="store_true",
                    help="LM on cuda:0, detokenizer on cuda:1 (one daemon)")
     p.add_argument("--stats-file", default=None,
@@ -166,12 +172,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def cards_missing(args, count: int) -> str | None:
     """Why ``count`` cards cannot serve ``args`` on the card (None: they
-    can): one card per data-parallel rank, two for disaggregation."""
+    can): ``tp_size`` cards per data-parallel rank, two for
+    disaggregation."""
     if args.device.startswith("cuda"):
-        need = 2 if args.enable_disaggregation else args.dp_size
+        need = (2 if args.enable_disaggregation
+                else args.dp_size * args.tp_size)
         if count < need:
+            # the flags that ask for the cards
             what = ("--enable-disaggregation" if args.enable_disaggregation
-                    else f"--dp-size {args.dp_size}")
+                    else " ".join(f"--{k}-size {n}" for k, n in (
+                        ("dp", args.dp_size), ("tp", args.tp_size))
+                        if n > 1) or "--dp-size 1")
             return (f"{what} needs {need} CUDA cards; this machine has "
                     f"{count}")
     return None
@@ -231,6 +242,7 @@ def main(argv=None) -> None:
         "kv_reserve_fraction": args.kv_reserve_fraction,
         "enable_profiling": args.enable_profiling,
         "enable_disaggregation": args.enable_disaggregation,
+        "tp_size": args.tp_size,
         "stats_file": args.stats_file,
         "log_level": args.log_level,
     }

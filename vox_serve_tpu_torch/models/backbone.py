@@ -34,6 +34,7 @@ from ..ops.kernels import (W8A16_K_TILE, W8A16Scratch, pack_w8a16,
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved,
                         rope_frequencies)
+from ..parallel.sharding import shard_config
 from ..params import tree_map
 
 
@@ -285,25 +286,32 @@ def _norm(cfg: BackboneConfig, x: torch.Tensor, p: dict,
 # ---------------------------------------------------------------------------
 
 
-def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
-                     positions: torch.Tensor, meta: AttnMetadata,
-                     k_pages: torch.Tensor,
-                     v_pages: Optional[torch.Tensor] = None,
-                     kv_scales: Optional[tuple[float, float]] = None
-                     ) -> torch.Tensor:
-    """Run the decoder stack.
+def _row_linear(p: dict, x: torch.Tensor, ws: Optional[W8A16Scratch],
+                split: bool) -> torch.Tensor:
+    """A row-parallel linear (o, down): on a rank of a split backbone its
+    partial sum without the bias, which ``_add_row_bias`` adds once after
+    the reduce; whole, ``linear``."""
+    if split and "b" in p:
+        p = {k: v for k, v in p.items() if k != "b"}
+    return linear(p, x, ws)
 
-    x: (T, hidden) token embeddings; positions: (T,) absolute positions.
-    k_pages, v_pages: the combined pool and None, or the legacy pair.
-    kv_scales: static dequant multipliers when the pool is quantized
-    (ops/kv_cache.py KVCacheConfig.kv_scales); None = full precision.
-    Writes this step's K/V into the pool(s) in place. Prefill runs ragged
-    causal attention over the packed buffer (K3 on the card, for every
-    bucket size); decode runs paged attention over the pool (K1, K1q or K4
-    on the card); a packed int8 tree's matmuls run K5 on the card, 4
-    launches a layer, with ``meta.linear_scratch`` as its split-K
-    workspace. Returns the
-    final-norm hidden (T, hidden)."""
+
+def _add_row_bias(p: dict, y: torch.Tensor, split: bool) -> torch.Tensor:
+    return y + p["b"] if split and "b" in p else y
+
+
+def backbone_layers(params: dict, cfg: BackboneConfig, x: torch.Tensor,
+                    positions: torch.Tensor, meta: AttnMetadata,
+                    k_pages: torch.Tensor,
+                    v_pages: Optional[torch.Tensor] = None,
+                    kv_scales: Optional[tuple[float, float]] = None,
+                    split: bool = False):
+    """The decoder stack as a generator: it yields each layer's output of
+    o, then of down, and takes back their sums over the ranks (the tensor
+    itself when the backbone is whole); it returns the final-norm hidden.
+    ``split``: ``params`` and ``cfg`` are one rank's
+    (``parallel/sharding.py``), so o and down yield partial sums and
+    their biases wait for the sums."""
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     inv_freq = rope_frequencies(cfg.rope_dim or hd, cfg.rope_theta,
@@ -333,11 +341,89 @@ def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
             attn_out = paged_attention_decode(q, k_pages, v_pages, li, meta,
                                               scale=cfg.attn_scale,
                                               kv_scales=kv_scales)
-        h = h + linear(lp["attn"]["o"], attn_out.reshape(T, H * hd), ws)
+        o = yield _row_linear(lp["attn"]["o"], attn_out.reshape(T, H * hd),
+                              ws, split)
+        h = h + _add_row_bias(lp["attn"]["o"], o, split)
 
         xin2 = _norm(cfg, h, lp, "post_norm")
         gate, up = linear_group([lp["mlp"]["gate"], lp["mlp"]["up"]], xin2,
                                 ws)
         gated = F.silu(gate) * up
-        h = h + linear(lp["mlp"]["down"], gated, ws)
+        d = yield _row_linear(lp["mlp"]["down"], gated, ws, split)
+        h = h + _add_row_bias(lp["mlp"]["down"], d, split)
     return _norm(cfg, h, params, "final_norm")
+
+
+def drive_layers(gens: list, reduce) -> list:
+    """Run ``backbone_layers`` generators in lock step: at each of their
+    yields, ``reduce`` takes the list of yielded tensors and gives back
+    the list each generator receives. Returns their results."""
+    outs = [next(g) for g in gens]
+    while True:
+        results, nxt = [], []
+        for g, s in zip(gens, reduce(outs)):
+            try:
+                nxt.append(g.send(s))
+            except StopIteration as stop:
+                results.append(stop.value)
+        if results:
+            return results
+        outs = nxt
+
+
+def backbone_forward(params: dict, cfg: BackboneConfig, x: torch.Tensor,
+                     positions: torch.Tensor, meta: AttnMetadata,
+                     k_pages: torch.Tensor,
+                     v_pages: Optional[torch.Tensor] = None,
+                     kv_scales: Optional[tuple[float, float]] = None,
+                     tp=None) -> torch.Tensor:
+    """Run the decoder stack.
+
+    x: (T, hidden) token embeddings; positions: (T,) absolute positions.
+    k_pages, v_pages: the combined pool and None, or the legacy pair.
+    kv_scales: static dequant multipliers when the pool is quantized
+    (ops/kv_cache.py KVCacheConfig.kv_scales); None = full precision.
+    Writes this step's K/V into the pool(s) in place. Prefill runs ragged
+    causal attention over the packed buffer (K3 on the card, for every
+    bucket size); decode runs paged attention over the pool (K1, K1q or K4
+    on the card); a packed int8 tree's matmuls run K5 on the card, 4
+    launches a layer, with ``meta.linear_scratch`` as its split-K
+    workspace. Returns the final-norm hidden (T, hidden).
+
+    ``tp`` (``parallel/ranks.py`` ``TPGroup``): this process is one rank
+    of a tensor-parallel backbone. ``params`` and the pool are its shard,
+    ``cfg`` the whole backbone's; x (in the backbone's dtype) comes from
+    rank 0 by broadcast, and each layer all-reduces its o and down
+    partial sums: two collectives a layer."""
+    if tp is None:
+        gens = [backbone_layers(params, cfg, x, positions, meta, k_pages,
+                                v_pages, kv_scales)]
+        return drive_layers(gens, lambda outs: outs)[0]
+    cfg = shard_config(cfg, tp.size)
+    x = tp.broadcast(x.to(cfg.dtype).contiguous())
+    gens = [backbone_layers(params, cfg, x, positions, meta, k_pages,
+                            v_pages, kv_scales, split=True)]
+    return drive_layers(gens, lambda outs: [tp.all_reduce(outs[0])])[0]
+
+
+def backbone_forward_shards(shards: list, cfg: BackboneConfig,
+                            x: torch.Tensor, positions: torch.Tensor,
+                            metas: list, pools: list,
+                            kv_scales: Optional[tuple[float, float]] = None
+                            ) -> torch.Tensor:
+    """A tensor-parallel backbone's ranks run one after another on one
+    device, the sum of their partial products in place of each
+    all-reduce: ``shards`` (``shard_params``), ``metas`` and ``pools``
+    (each a (k_pages, v_pages) pair) one per rank. Returns rank 0's final
+    hidden, the one a served step reads."""
+    lcfg = shard_config(cfg, len(shards))
+    gens = [backbone_layers(p, lcfg, x, positions, m, *pool, kv_scales,
+                            split=True)
+            for p, m, pool in zip(shards, metas, pools)]
+
+    def add(outs):
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o
+        return [total] * len(outs)
+    return drive_layers(gens, add)[0]

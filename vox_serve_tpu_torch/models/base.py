@@ -119,6 +119,10 @@ class BaseLM(abc.ABC):
     #: (k_scale, v_scale) dequant multipliers threaded into the backbone
     #: (ops/kv_cache.py KVCacheConfig.kv_scales)
     kv_quant_scales: Optional[tuple[float, float]] = None
+    #: set by the worker of a tensor-parallel replica (``tp_size > 1``):
+    #: this process's rank of the backbone (``parallel/ranks.py``
+    #: ``TPGroup``), handed to ``backbone_forward``; None = whole
+    tp: Any = None
     #: which parts of the model came from a checkpoint (True) and which
     #: from random init (False), by part name; empty for a weight-free model
     checkpoint_parts: dict = {}
@@ -224,7 +228,7 @@ class BaseLM(abc.ABC):
                             gen_idx)
         h = backbone_forward(params["backbone"], self.backbone_config, x,
                              positions, meta, k_pages, v_pages,
-                             kv_scales=self.kv_quant_scales)
+                             kv_scales=self.kv_quant_scales, tp=self.tp)
         if last_token_idx is not None:
             h = h[last_token_idx.long()]  # (B, hidden)
         logits = self.adjust_logits(self.logits(params, h))

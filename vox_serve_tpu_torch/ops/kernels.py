@@ -202,6 +202,17 @@ def _check_heads(H: int, KH: int, D: int, max_group: int) -> None:
         raise ValueError(f"head dim {D} unsupported (multiple of 8, <= 128)")
 
 
+def check_attention_heads(H: int, KH: int, D: int,
+                          pool_dtype: torch.dtype) -> None:
+    """Raise unless K1/K1q/K4 and K3 take H query heads over KH KV heads
+    at head dim D over a pool of ``pool_dtype`` (a tensor-parallel rank's
+    local heads are checked at start-up, before anything launches)."""
+    _check_heads(H, KH, D, MAX_GROUP)
+    if torch.empty((), dtype=pool_dtype).element_size() == 1 and D % 16:
+        raise ValueError(f"head dim {D} unsupported for a 1-byte pool "
+                         "(multiple of 16)")
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

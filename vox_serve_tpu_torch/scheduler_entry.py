@@ -17,6 +17,9 @@ graph at its first use instead of at start-up), ``--prefill-buckets``,
 ``--kv-reserve-fraction`` and ``--enable-profiling``; ``--cfg-scale``
 overlays the model's sampling defaults, and ``--async-scheduling`` maps to
 decode pipelining at depth 2 when ``--pipeline-depth`` is 0, as there.
+``--tp-size N`` makes the worker rank 0 of a tensor-parallel replica over
+the process's first N cards (``WorkerConfig.tp_size``, ``parallel/``);
+its other ranks are processes of its own, which end with it.
 ``--enable-disaggregation`` puts the worker's detokenizer on ``cuda:1``
 (``WorkerConfig.detokenizer_device_index``), as the JAX daemon does; the
 ``disaggregation`` scheduler needs it. The daemon takes explicit values:
@@ -44,7 +47,11 @@ tokenizer did (``tokenizer_loaded``), the KV reserve fraction, the
 fused-decode, pipeline, first-chunk and bucket settings, and the caching
 allocator's peak and reservation after the model's init,
 ``init_memory_gb``; the batch, pages and decode lattice; each card's
-memory after start-up, ``memory_gb``) there as JSON (rank r > 0 writes
+memory after start-up, ``memory_gb``; ``tp_size``, and at tp > 1 per
+rank, ``tp_ranks``: its device and pid, graphs, replays, eager calls,
+kernel counts per replay, kernel launches, graph pool MiB and KV pool
+bytes and shape, and ``allreduce_ms``, the device ms of one all-reduce at
+the decode batch's and the largest prefill bucket's rows) there as JSON (rank r > 0 writes
 ``PATH.rank<r>``): how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently.
@@ -150,11 +157,18 @@ def _run_scheduler_daemon(args) -> None:
             "lm_device": str(worker.lm_device),
             "detokenizer_device": str(worker.detokenizer_device),
             "memory_gb": worker.memory_report(),
+            "tp_size": wcfg.tp_size,
+            "tp_devices": [str(d) for d in worker.tp_devices],
+            "allreduce_ms": worker.allreduce_ms,
         }
         kernels.reset_launch_counts()
         worker.reset_step_stats()
 
         def _dump(signum, frame):
+            try:
+                tp_ranks = worker.tp_stats()
+            except Exception as e:  # the stats must still be written
+                tp_ranks = [{"unavailable": repr(e)}]
             with open(stats_file, "w") as f:
                 json.dump({"launches": kernels.launch_counts(),
                            "resunit_stacks": fused_resunit_stack.stacks,
@@ -163,7 +177,8 @@ def _run_scheduler_daemon(args) -> None:
                            "phase_stats": worker.phase_stats,
                            "steps": worker.step_stats(),
                            "requests": list(scheduler.completed),
-                           "param_count": param_count, **served}, f)
+                           "param_count": param_count,
+                           "tp_ranks": tp_ranks, **served}, f)
             os._exit(0)
 
         signal.signal(signal.SIGTERM, _dump)
@@ -204,6 +219,7 @@ def worker_config(args):
         enable_profiling=args.enable_profiling,
         detokenizer_device_index=(1 if args.enable_disaggregation
                                   else None),
+        tp_size=args.tp_size,
         **({"kv_reserve_fraction": args.kv_reserve_fraction}
            if args.kv_reserve_fraction is not None else {}),
         **({"detok_frame_budget": args.detok_frame_budget}
@@ -240,6 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enable-disaggregation", action="store_true",
                    help="detokenizer on cuda:1, the LM on cuda:0")
     p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--tp-size", type=int, default=1,
+                   help="tensor-parallel ranks of this replica, one card "
+                        "each")
     p.add_argument("--max-batch-size", type=int, default=8)
     p.add_argument("--max-num-pages", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=16)

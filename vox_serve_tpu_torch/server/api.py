@@ -10,9 +10,11 @@ a TTL map.
 The port's copy of vox_serve_tpu/server/api.py. It differs only in its
 imports and in ``_start_schedulers``, which starts
 ``python -m vox_serve_tpu_torch.scheduler_entry`` per rank, pins each rank
-to one card with ``CUDA_VISIBLE_DEVICES`` when there is more than one rank
-(never a disaggregated daemon, which uses two cards), and drops the TPU
-device-pinning variables from the daemon's environment.
+to its ``tp_size`` cards (``replica_cards``) with ``CUDA_VISIBLE_DEVICES``
+when there is more than one rank (never a disaggregated daemon, which
+uses two cards), and drops the TPU device-pinning variables from the
+daemon's environment. (The JAX server pins each rank to one chip, so its
+``--dp-size > 1 --tp-size > 1`` fails in ``make_mesh``.)
 """
 
 from __future__ import annotations
@@ -52,6 +54,13 @@ def scheduler_flags(scheduler_args: dict) -> list[str]:
         elif v is not None:
             out.extend([flag, str(v)])
     return out
+
+
+def replica_cards(rank: int, tp_size: int) -> str:
+    """``CUDA_VISIBLE_DEVICES`` of data-parallel replica ``rank``: its
+    ``tp_size`` cards, ``rank * tp_size`` on (the intent of the JAX
+    worker's ``WorkerConfig.devices``)."""
+    return ",".join(str(rank * tp_size + i) for i in range(tp_size))
 
 
 class APIError(Exception):
@@ -170,10 +179,11 @@ class APIServer:
                 env.pop(k, None)
             if (self.dp_size > 1
                     and not self.scheduler_args.get("enable_disaggregation")):
-                # pin each DP replica to one card (the reference's
+                # pin each DP replica to its cards (the reference's
                 # CUDA_VISIBLE_DEVICES, launch.py:188-213); a disaggregated
                 # daemon sees every card (its detokenizer is on cuda:1)
-                env["CUDA_VISIBLE_DEVICES"] = str(rank)
+                env["CUDA_VISIBLE_DEVICES"] = replica_cards(
+                    rank, int(self.scheduler_args.get("tp_size") or 1))
             cmd = [
                 sys.executable, "-m", "vox_serve_tpu_torch.scheduler_entry",
                 "--model", self.model_name,

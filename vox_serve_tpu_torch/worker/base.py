@@ -97,7 +97,21 @@ scheduler calls holds the dispatch lock (``_locked``), so the
 disaggregation scheduler's LM and detokenizer threads interleave whole
 entry points while the two cards run side by side.
 
-Not ported: tensor parallelism (one card per worker).
+``tp_size > 1`` makes the worker rank 0 of a tensor-parallel replica
+over ``tp_size`` cards (``parallel/``): it builds or loads the model as
+at tp 1 (under ``weight_quant="int8"`` it quantizes the whole backbone
+first, JAX's order), starts one shard process per other card, sends each
+its slice of the backbone by the Megatron rules of
+``parallel/sharding.py`` over the replica's ``torch.distributed`` group,
+and keeps its own slice (packed for K5 after slicing); every rank's KV
+pool holds its own KV heads only, and the decode scratch and K5's
+workspace are sized for the local heads and widths. Each LM step's
+capture, run and probe goes to the other ranks before rank 0 runs it
+(``worker/graphs.py``), and the backbone inside rank 0's step
+broadcasts its input and all-reduces after o and down. Everything else
+(embeddings, heads, depth loops, sampling, the codec, the watermark, the
+host bookkeeping) stays on the LM's card, as at tp 1. ``close`` ends the
+other ranks; so does this process's exit.
 
 Float32 matmuls and convolutions run in full float32 on the card
 (``allow_tf32`` off for cuBLAS and cuDNN, set here): the codec runs in
@@ -120,6 +134,7 @@ import torch
 from ..utils import cdiv, get_logger
 
 from ..models.base import BaseLM
+from ..ops import kernels
 from ..ops.attention import AttnMetadata
 from ..ops.kernels import DecodeScratch, W8A16Scratch
 from ..ops.kv_cache import (KVCacheConfig, PageAllocator, PageAllocatorError,
@@ -128,6 +143,9 @@ from ..params import tree_leaves, tree_map
 from ..models.backbone import (pack_backbone_params,
                                quantize_backbone_params, seeded_generator,
                                w8a16_groups)
+from ..parallel.mesh import make_mesh
+from ..parallel.ranks import ShardRanks, ShardSpec
+from ..parallel.sharding import shard_config, shard_params
 from ..requests import Request
 from ..sampling import init_repetition_cache
 from ..watermark import WatermarkConfig, apply_watermark, init_watermarker
@@ -222,6 +240,13 @@ class WorkerConfig:
     #: put the detokenizer on ``cuda:<index>`` (disaggregation); None keeps
     #: it on the LM's device
     detokenizer_device_index: Optional[int] = None
+    #: tensor parallelism: the backbone and its KV pool split over this
+    #: many cards, one process each (``parallel/ranks.py``)
+    tp_size: int = 1
+    #: this worker's cards, the LM's first (its tp_size ranks' devices);
+    #: None -> the LM's card and the machine's next cards (on the CPU, the
+    #: CPU for every rank)
+    devices: Optional[tuple] = None
 
     @property
     def decode_buckets(self) -> tuple[int, ...]:
@@ -302,6 +327,15 @@ def detokenizer_device_of(lm: torch.device,
 
 class ModelWorker:
     def __init__(self, model: BaseLM, config: WorkerConfig | None = None):
+        #: the other ranks of a tensor-parallel replica (None at tp 1)
+        self.tp_ranks = None
+        try:
+            self._setup(model, config)
+        except BaseException:
+            self.close()
+            raise
+
+    def _setup(self, model: BaseLM, config: WorkerConfig | None) -> None:
         self.model = model
         self.config = cfg = config or WorkerConfig()
         self.logger = get_logger("worker")
@@ -335,6 +369,13 @@ class ModelWorker:
 
         bb = model.backbone_config
         head_dim = bb.resolved_head_dim
+        # one rank's heads and widths (the whole backbone's at tp 1);
+        # raises, naming H, KH and tp, for a split no rank layout serves
+        self.local_config = lcfg = shard_config(bb, cfg.tp_size)
+        self.tp_devices = [dev]
+        if cfg.tp_size > 1:
+            self.tp_devices = self._tp_devices()
+        # the layout and quant follow the whole pool's KV heads (JAX's rule)
         combined = combined_kv_supported(head_dim, bb.num_kv_heads, bb.dtype)
         if os.environ.get("VOX_KV_COMBINED", "") in ("0", "false"):
             combined = False  # escape hatch: the legacy pair layout (K4)
@@ -357,27 +398,30 @@ class ModelWorker:
         # K4 / K3 take any page size, head dim <= 128 and token count.
         self.kv_config = KVCacheConfig(
             num_layers=bb.num_layers, num_pages=cfg.num_pages,
-            page_size=cfg.page_size, num_kv_heads=bb.num_kv_heads,
+            page_size=cfg.page_size, num_kv_heads=lcfg.num_kv_heads,
             head_dim=head_dim, dtype=bb.dtype, combined=combined,
             quant=kv_quant, k_amax=cfg.kv_k_amax, v_amax=cfg.kv_v_amax)
+        if cfg.tp_size > 1:
+            # the kernels must take a rank's local heads over its pool
+            kernels.check_attention_heads(
+                lcfg.num_heads, lcfg.num_kv_heads, head_dim,
+                self.kv_config.pool_dtype)
         model.kv_quant_scales = self.kv_config.kv_scales
+        self._init_width_lattice()
         # K5's split-K workspace (card, int8 backbone only)
         self.linear_scratch = None
-        if cfg.weight_quant == "int8":
-            self._quantize_backbone()
-        elif cfg.weight_quant != "none":
+        if cfg.weight_quant not in ("none", "int8"):
             raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}")
+        self._install_backbone()
         self.k_pages, self.v_pages = alloc_kv_pages(self.kv_config, dev)
         self.allocator = PageAllocator(cfg.num_pages)
-        self._init_width_lattice()
         # the decode kernel's split workspace, sized once for the largest
         # decode launch (widest bucket over the block-table limit)
         self.decode_scratch = None
         if dev.type == "cuda":
             self.decode_scratch = DecodeScratch(
-                dev, max((cfg.max_batch_size, *cfg.fused_decode_buckets)),
-                bb.num_heads, bb.num_kv_heads, head_dim,
-                self.max_pages_per_seq, cfg.page_size)
+                dev, self._decode_rows, lcfg.num_heads, lcfg.num_kv_heads,
+                head_dim, self.max_pages_per_seq, cfg.page_size)
 
         self._free_slots = list(range(cfg.max_batch_size - 1, -1, -1))
         # slot state: one row per slot plus the sentinel row (index
@@ -431,9 +475,11 @@ class ModelWorker:
             detok_gen = torch.Generator(device=detok)
             detok_gen.manual_seed(cfg.seed)
         self._steps = StepCache(
-            dev, self._build_step, self.generator,
-            max(cfg.pipeline_depth, self._detok_depth) + 2,
-            detok=(detok, detok_gen))
+            dev, self._build_step, self.generator, self._n_staging,
+            detok=(detok, detok_gen), mirror=self.tp_ranks)
+        #: device ms per all-reduce by rows (decode batch, prefill bucket),
+        #: timed after the capture (tensor-parallel, card only)
+        self.allreduce_ms: dict = {}
 
         def _nbytes(tree):
             return sum(a.numel() * a.element_size()
@@ -498,25 +544,99 @@ class ModelWorker:
                                  for k, v in model._flow_noise.items()}
         torch.cuda.empty_cache()
 
-    def _quantize_backbone(self) -> None:
-        """Replace ``model.params["backbone"]`` by its int8 tree (before
-        anything is captured: graphs hold pointers to the tensors they
-        read), JAX's quantization then K5's packed layout, one layer at a
-        time (the CPU packs too, so both run the same tree); free the bf16
-        stacks and size K5's split-K scratch for the packed launches."""
-        model, dev = self.model, self.device
+    @property
+    def _n_staging(self) -> int:
+        """Pinned staging buffers of each graph's inputs."""
+        return max(self.config.pipeline_depth, self._detok_depth) + 2
+
+    @property
+    def _decode_rows(self) -> int:
+        """The widest decode launch's rows (the decode scratch's)."""
+        cfg = self.config
+        return max((cfg.max_batch_size, *cfg.fused_decode_buckets))
+
+    def _tp_devices(self) -> list[torch.device]:
+        """The replica's cards, the LM's first (``make_mesh``'s checks)."""
+        cfg, dev = self.config, self.device
+        if cfg.devices is not None:
+            devices = [torch.device(d) for d in cfg.devices]
+        elif dev.type == "cuda":
+            devices = [dev] + [torch.device("cuda", i)
+                               for i in range(torch.cuda.device_count())
+                               if i != dev.index]
+        else:
+            devices = [dev] * cfg.tp_size
+        row = make_mesh(dp=1, tp=cfg.tp_size, devices=devices)[0]
+        if row[0] != dev:
+            raise ValueError(f"the worker's first device {row[0]} is not "
+                             f"the LM's {dev}")
+        return row
+
+    def _install_backbone(self) -> None:
+        """Put the served backbone tree in ``model.params["backbone"]``
+        before anything is captured (graphs hold pointers to the tensors
+        they read): under ``weight_quant="int8"`` JAX's quantization of
+        the whole tree; at ``tp_size > 1`` this rank's slice, after the
+        other ranks got theirs (``_start_ranks``); then, int8, K5's packed
+        layout, one layer at a time (the CPU packs too, so both run the
+        same tree), and K5's split-K scratch sized for it."""
+        cfg, model, dev = self.config, self.model, self.device
+        params = model.params["backbone"]
+        if cfg.weight_quant == "int8":
+            params = quantize_backbone_params(params)
+        if cfg.tp_size > 1:
+            params = self._start_ranks(params)
+        if cfg.weight_quant == "int8":
+            params = pack_backbone_params(params)
         model.params = dict(model.params)
-        model.params["backbone"] = quantize_backbone_params(
-            model.params["backbone"])
-        model.params["backbone"] = pack_backbone_params(
-            model.params["backbone"])
+        model.params["backbone"] = params
+        del params
         if dev.type == "cuda":
-            torch.cuda.empty_cache()  # the bf16 and unpacked int8 blocks
-            self.linear_scratch = W8A16Scratch(
-                dev, w8a16_groups(model.params["backbone"]))
-        self.logger.info("backbone weights quantized to int8 "
-                         "(per-output-channel scales): %.2fG",
-                         self.backbone_bytes() / 2**30)
+            torch.cuda.empty_cache()  # the unquantized and unsplit blocks
+            if cfg.weight_quant == "int8":
+                self.linear_scratch = W8A16Scratch(
+                    dev, w8a16_groups(model.params["backbone"]))
+        if cfg.weight_quant == "int8":
+            self.logger.info("backbone weights quantized to int8 "
+                             "(per-output-channel scales): %.2fG",
+                             self.backbone_bytes() / 2**30)
+
+    def _start_ranks(self, params: dict) -> dict:
+        """Start ranks 1..tp-1 on the replica's other cards, send each its
+        slice of ``params`` over the group, and return rank 0's
+        (``parallel/ranks.py``)."""
+        cfg, model, dev = self.config, self.model, self.device
+        bb, tp = model.backbone_config, cfg.tp_size
+        if dev.type == "cuda":
+            kernels.build()  # once, before the ranks' first launches
+        self.tp_ranks = ShardRanks(self.tp_devices)
+        spec = ShardSpec(
+            cfg=bb, tp=tp, kv=self.kv_config, weight_quant=cfg.weight_quant,
+            max_batch=self._decode_rows,
+            max_pages_per_seq=self.max_pages_per_seq,
+            n_codebooks=model.n_codebooks,
+            max_prefill_requests=cfg.max_prefill_requests,
+            cold_chain_batch=self._fused_bucket(1),
+            cold_chain_width=self.table_width_buckets[0],
+            n_staging=self._n_staging)
+        self.tp_ranks.distribute(
+            spec, lambda r: shard_params(params, r, tp, bb.num_kv_heads))
+        model.tp = self.tp_ranks.group
+        self.logger.info(
+            "tensor parallelism over %s: %d/%d query/KV heads and MLP "
+            "width %d a rank", [str(d) for d in self.tp_devices],
+            self.local_config.num_heads, self.local_config.num_kv_heads,
+            self.local_config.intermediate_size)
+        return shard_params(params, 0, tp, bb.num_kv_heads)
+
+    def close(self) -> None:
+        """End the other ranks of a tensor-parallel replica and leave its
+        group (nothing at tp 1)."""
+        if self.tp_ranks is not None:
+            self.tp_ranks.close()
+            self.tp_ranks = None
+            if getattr(self, "model", None) is not None:
+                self.model.tp = None
 
     def backbone_bytes(self) -> int:
         """Bytes of ``model.params["backbone"]``, read from the tensors."""
@@ -1675,6 +1795,12 @@ class ModelWorker:
         for key in self.warmup_keys():
             ms = self._steps.probe(key)
             self.logger.info("warmup: %s captured (%.3f ms/replay)", key, ms)
+        if self.tp_ranks is not None:
+            bb = self.model.backbone_config
+            self.allreduce_ms = self.tp_ranks.time_all_reduce(
+                [max(self.config.decode_buckets),
+                 self.max_prefill_tokens], bb.hidden_size, bb.dtype)
+            self.logger.info("all-reduce ms by rows: %s", self.allreduce_ms)
         self.logger.info(
             "warmup done in %.1fs: %d graphs, capture %.1fs, graph pool "
             "%.1f MiB", time.monotonic() - t0, len(self._steps.steps),
@@ -1711,10 +1837,44 @@ class ModelWorker:
             out["pool_mib_by_kind"] = dict(steps.pool_mib_by_kind)
         return out
 
+    def tp_stats(self) -> list[dict]:
+        """Per rank of a tensor-parallel replica (none at tp 1): its
+        device and pid, graphs, replays, eager calls, kernel counts per
+        replay, probe ms, kernel launches since the last reset, graph pool
+        MiB and KV pool bytes and shape; rank 0's first."""
+        if self.tp_ranks is None:
+            return []
+        steps = self._steps
+        own = {
+            "rank": 0, "device": str(self.device), "pid": os.getpid(),
+            "graphs": [list(k) for k in steps.steps],
+            "replays": steps.replays(),
+            "eager_calls": {k: n for k, n in self.eager_calls.items() if n},
+            "captured": steps.captured_counts(),
+            "probe_ms": {" ".join(map(str, k)): ms
+                         for k, ms in steps.probe_ms.items()},
+            "launches": kernels.launch_counts(),
+            "kv_pool_bytes": sum(t.numel() * t.element_size()
+                                 for t in (self.k_pages, self.v_pages)
+                                 if t is not None),
+            "kv_pool_shape": list(self.k_pages.shape),
+        }
+        if self.device.type == "cuda":
+            own["pool_mib"] = steps.pool_bytes() / 2**20
+        if self.tp_ranks.runs:
+            # host ms of sending a step's key and pack to the other ranks
+            own["mirror_run_ms"] = (self.tp_ranks.run_s * 1e3
+                                    / self.tp_ranks.runs)
+        return [own] + self.tp_ranks.stats()
+
     def reset_step_stats(self) -> None:
         """Zero the per-run counters (phase times, replays, eager calls,
-        pipeline depths seen, cold starts): what a served run reports
-        starts here."""
+        pipeline depths seen, cold starts; every rank's of a
+        tensor-parallel replica): what a served run reports starts
+        here."""
+        if self.tp_ranks is not None:
+            self.tp_ranks.send("reset")
+            self.tp_ranks.run_s, self.tp_ranks.runs = 0.0, 0
         self.phase_stats.clear()
         self._steps.reset_counts()
         self.eager_calls = dict.fromkeys(STEP_KINDS, 0)

@@ -33,6 +33,15 @@ are captured there, under that card's own graph pool and capture stream,
 and every other step on the LM's card. A graph is captured and replayed
 with its own card current, whatever the calling thread's.
 
+A tensor-parallel replica (``parallel/ranks.py``) gives rank 0's cache a
+mirror: each LM step key's capture, run and probe goes to the other ranks
+first, in order, so that every rank captures and replays the same keys in
+the same order (their collectives pair up), whether a key is built at
+start-up or at its first use. Graphs that hold collectives are captured
+like the others, in ``torch.cuda.graph``'s default ("global") mode:
+``ProcessGroupNCCL``'s watchdog thread does not break such a capture
+(``scripts/torch_tp_capture_modes.py``).
+
 Kernel counters (``ops/kernels.py``: every wrapper's ``launches``, K2's
 ``stacks``) are Python increments in the wrappers, so a replay would not
 move them: a graph records what its capture counted (and takes that, and
@@ -186,10 +195,14 @@ class StepCache:
 
     def __init__(self, device: torch.device, build: Builder,
                  generator: torch.Generator, n_staging: int,
-                 detok: Optional[tuple[torch.device, torch.Generator]] = None):
+                 detok: Optional[tuple[torch.device, torch.Generator]] = None,
+                 mirror=None):
         """``detok``: the (device, generator) of the ``"detok"`` steps,
-        where they run on another card than the rest."""
+        where they run on another card than the rest; ``mirror``: the
+        other ranks of a tensor-parallel replica (``parallel/ranks.py``
+        ``ShardRanks``)."""
         self._build = build
+        self._mirror = mirror
         self._n_staging = n_staging
         self._main = _Place(device, generator)
         self._detok = (self._main if detok is None or detok[0] == device
@@ -224,6 +237,8 @@ class StepCache:
         step = self.steps.get(key)
         if step is None:
             body, warm_inputs = self._build(key)
+            if self._mirrored(key):
+                self._mirror.capture(key, warm_inputs[0])
             place = self.place(key)
             if place.device.type != "cuda":
                 step = EagerStep(body, place.device)
@@ -249,15 +264,23 @@ class StepCache:
             self.steps[key] = step
         return step
 
+    def _mirrored(self, key: tuple) -> bool:
+        return self._mirror is not None and self._mirror.mirrors(key)
+
     def run(self, key: tuple, *inputs: np.ndarray) -> Output:
         step = self.get(key)
+        if self._mirrored(key):
+            self._mirror.run(key, inputs[0])
         self._runs += 1
         self.spans.setdefault(key[0], [self._runs, self._runs])[1] = self._runs
         return step(*inputs)
 
     def probe(self, key: tuple) -> float:
         """Capture ``key`` if needed and time its replay (card only)."""
-        ms = self.get(key).probe_ms()
+        step = self.get(key)
+        if self._mirrored(key):
+            self._mirror.probe(key)
+        ms = step.probe_ms()
         self.probe_ms[key] = ms
         return ms
 
