@@ -75,9 +75,9 @@ def test_registry_and_flags_offer_the_new_schedulers():
 
 @pytest.mark.parametrize("on", [False, True])
 def test_enable_profiling_ranges(on):
-    """--enable-profiling: a torch.profiler range around each step
-    dispatch, named as the JAX worker's trace annotations; none when
-    off."""
+    """--enable-profiling: a span in the worker's recorder around each
+    step dispatch, named as the JAX worker's trace annotations, and no
+    profiler range; no recorder when off."""
     w = ModelWorker(DummyLM(max_tokens=40), WorkerConfig(
         max_batch_size=2, num_pages=32, page_size=8,
         prefill_token_buckets=(64,), enable_profiling=on))
@@ -86,10 +86,14 @@ def test_enable_profiling_ranges(on):
         w.run_lm_prefill([req])
         w.run_lm_decode([req])
         w.sync()
-    names = {e.name for e in prof.events()}
     ranges = {"lm_prefill_t64_b1", "lm_decode_b1"}
-    assert (ranges <= names) == on
-    assert on or not ranges & names
+    assert not ranges & {e.name for e in prof.events()}
+    assert (w.spans is not None) == on
+    if on:
+        spans = list(w.spans.spans)
+        assert ranges <= {s.name for s in spans}
+        assert all(s.start_ns <= s.end_ns and s.parent is None
+                   for s in spans)
 
 
 def test_cfg_scale_is_overlaid_on_the_sampling_defaults():

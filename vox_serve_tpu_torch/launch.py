@@ -152,8 +152,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "reserved at admission (1.0 = never defer; <1 "
                         "overcommits for concurrency)")
     p.add_argument("--enable-profiling", action="store_true",
-                   help="torch.profiler ranges around the worker's step "
-                        "dispatches")
+                   help="record each scheduler round, step dispatch and "
+                        "blocking wait on the card as a span; the daemon "
+                        "writes them with its --stats-file as "
+                        "STATS_FILE.spans.json (Chrome trace events)")
     p.add_argument("--dp-size", type=int, default=1,
                    help="data-parallel replicas, one card each")
     p.add_argument("--tp-size", type=int, default=1,

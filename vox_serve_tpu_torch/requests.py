@@ -81,11 +81,9 @@ class Request:
     chunk_send_timestamps: list[float] = dataclasses.field(default_factory=list)
     chunk_durations: list[float] = dataclasses.field(default_factory=list)
 
-    # lifecycle stamps (time.monotonic): "recv" at scheduler intake,
-    # "prefill_dispatch" when the prefill/cold chain is dispatched,
-    # "first_audio" at the first AUDIO send. Deltas go out in the
-    # COMPLETION message ("timing") so the HTTP goodput client can
-    # separate server TTFA from the ZMQ/HTTP hop (VERDICT r4 #1).
+    # lifecycle stamps (time.monotonic, the first of each kept): "api",
+    # "recv", "prefill_dispatch", "first_detok", "first_audio" (see
+    # scheduler/base.py)
     lifecycle: dict = dataclasses.field(default_factory=dict)
 
     # model-specific host-side scratch (e.g. depth hidden handles)

@@ -15,6 +15,17 @@ Wire protocol (preserved bit-for-bit from the reference):
       ``rid|TEXT_COMPLETE|``.
   scheduler -> API: ``rid|AUDIO|<pcm16 bytes>`` and ``rid|COMPLETION|<json>``.
 
+Each request carries stamps on ``time.monotonic()`` in ``lifecycle``, the
+first occurrence of each kept: ``api`` (the API server built its first
+frame; the frame's ``t_api``), ``recv`` (intake at the top of a round),
+``prefill_dispatch`` (admission), ``first_detok`` (the worker dispatched
+the device work of its first PCM) and ``first_audio`` (its first chunk
+went to the result socket). A completed request's stamps go to
+``lifecycle``, the scheduler's bounded record. A round that did work
+(``_round``) adds its wall seconds to the worker's
+``phase_stats["round"]`` and the seconds the worker blocked on the card
+inside it to ``phase_stats["round.wait"]``.
+
 JAX's async dispatch already overlaps host scheduling with device execution
 inside the worker; the `async_scheduling` flag additionally overlaps ZMQ and
 response IO using a deferred-readback step (reference's asyncio.gather
@@ -53,6 +64,14 @@ def result_ipc_path(suffix: str = "") -> str:
     return f"ipc:///tmp/vox_serve_result{suffix}.ipc"
 
 
+def stamp_api(req: Request, frame: dict) -> None:
+    """The ``api`` stamp from a first frame's ``t_api``, where it has
+    one."""
+    t_api = frame.get("t_api")
+    if isinstance(t_api, (int, float)):
+        req.lifecycle.setdefault("api", float(t_api))
+
+
 class Scheduler:
     def __init__(
         self,
@@ -76,6 +95,8 @@ class Scheduler:
         #: detokenize windows (first token, length) and finish reasons, for
         #: the daemon's stats file (bounded: a server runs on)
         self.completed: collections.deque = collections.deque(maxlen=256)
+        #: the last completed requests' lifecycle stamps, with their ids
+        self.lifecycle: collections.deque = collections.deque(maxlen=8192)
 
         model = model_worker.model
         self.sample_rate = model.sample_rate
@@ -117,7 +138,7 @@ class Scheduler:
         idle_steps = 0
         last_report = time.monotonic()
         while True:
-            did_work = self._step()
+            did_work = self._round()
             now = time.monotonic()
             if now - last_report > 5.0:
                 last_report = now
@@ -139,6 +160,33 @@ class Scheduler:
                 continue
             idle_steps += 1
             time.sleep(0.0005 if idle_steps < 200 else 0.005)
+
+    def _round(self) -> bool:
+        """One scheduler round (``_step``). One that did work adds its wall
+        seconds and the seconds the worker blocked on the card inside it
+        to ``phase_stats`` ("round": per round; "round.wait": per wait);
+        under ``enable_profiling`` it is a ``round`` span, the parent of
+        the round's dispatch and wait spans."""
+        w = self.model_worker
+        spans = w.spans
+        span = spans.begin("round") if spans is not None else None
+        wait0, waits0 = w.wait_s, w.waits
+        t0 = time.perf_counter()
+        did_work = False
+        try:
+            did_work = self._step()
+        finally:
+            dt = time.perf_counter() - t0
+            if span is not None:
+                spans.end(span, keep=did_work)
+        if did_work:
+            stats = w.phase_stats
+            tot, n = stats.get("round", (0.0, 0))
+            stats["round"] = (tot + dt, n + 1)
+            tot, n = stats.get("round.wait", (0.0, 0))
+            stats["round.wait"] = (tot + w.wait_s - wait0,
+                                   n + w.waits - waits0)
+        return did_work
 
     def _step(self) -> bool:
         self._prepare_requests()
@@ -512,7 +560,7 @@ class Scheduler:
         except Exception:
             self.logger.warning("bad request JSON: %r", payload[:80])
             return None
-        return Request(
+        req = Request(
             request_id=d["request_id"],
             prompt=d.get("prompt"),
             audio_path=(d.get("audio_path")
@@ -522,6 +570,8 @@ class Scheduler:
             is_pressing=d.get("is_streaming", False),
             model_kwargs=d.get("model_kwargs", {}),
         )
+        stamp_api(req, d)
+        return req
 
     # ------------------------------------------------------------------
     # batch selection (reference scheduler/base.py:234-333)
@@ -616,27 +666,15 @@ class Scheduler:
         # drain any chunks produced by the final detokenize
         while not req.output_audio.empty():
             chunk = req.output_audio.get()
+            req.lifecycle.setdefault("first_audio", time.monotonic())
             self._send(req.request_id.encode() + b"|AUDIO|" + chunk)
         self.model_worker.free_kv_cache(req)
         msg = {"status": "completed",
                "reason": req.finish_reason or "unknown"}
-        lc = req.lifecycle
-        if "recv" in lc:
-            timing = {}
-            if "prefill_dispatch" in lc:
-                timing["queue_ms"] = (lc["prefill_dispatch"]
-                                      - lc["recv"]) * 1e3
-            if "first_audio" in lc:
-                timing["ttfa_server_ms"] = (lc["first_audio"]
-                                            - lc["recv"]) * 1e3
-            if timing:
-                msg["timing"] = {k: round(v, 1) for k, v in timing.items()}
-                self.logger.info(
-                    "lifecycle %s %s", req.request_id[:8],
-                    " ".join(f"{k}={v:.1f}" for k, v in timing.items()))
         self._send(req.request_id.encode() + b"|COMPLETION|"
                    + json.dumps(msg).encode())
         req.extras["completion_sent"] = True
+        self.lifecycle.append({"rid": req.request_id, **req.lifecycle})
         self.completed.append({
             "request_id": req.request_id,
             "prompt_tokens": req.input_length,

@@ -17,8 +17,10 @@ only the imports differ (the port's Request and online scheduler).
 from __future__ import annotations
 
 import json
+import time
 
 from ..requests import Request
+from .base import stamp_api
 from .online import OnlineScheduler
 
 MIN_INITIAL_TEXT_CHARS = 20
@@ -68,6 +70,8 @@ class InputStreamingScheduler(OnlineScheduler):
             is_input_streaming=True,
             model_kwargs=cfg.get("model_kwargs", {}),
         )
+        stamp_api(req, cfg)
+        req.lifecycle.setdefault("recv", time.monotonic())
         self._streams[rid] = req
         self.active_requests.append(req)
         self.logger.debug("text stream started: %s", rid)

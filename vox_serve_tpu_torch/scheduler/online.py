@@ -330,11 +330,6 @@ class OnlineScheduler(Scheduler):
             selected.append(req)
             return len(idxs)
 
-        stats = getattr(self.model_worker, "phase_stats", None)
-        if stats is not None:
-            t, c = stats.get("sched.detok_candidates", (0.0, 0))
-            stats["sched.detok_candidates"] = (t + len(candidates), c + 1)
-
         for req, quota in zip(critical, assigned):
             if quota > 0:
                 used += take_chunks(req, quota)
@@ -354,8 +349,4 @@ class OnlineScheduler(Scheduler):
         for req in background:
             if req.done_all and not any(r is req for r in selected):
                 selected.append(req)
-
-        if stats is not None:
-            t, c = stats.get("sched.detok_windows_sel", (0.0, 0))
-            stats["sched.detok_windows_sel"] = (t + used, c + 1)
         return mini_sel + selected

@@ -35,7 +35,9 @@ capture seconds, each graph's device ms per replay from the start-up
 probe, the deepest readback pipelines seen, cold starts by path, the
 graph pool's size), the last completed requests' prompt lengths,
 audio-token counts, detokenize windows, prompt rows that took a feature
-row and finish reasons, and the
+row and finish reasons, their ``lifecycle`` stamps (``time.monotonic()``
+seconds: ``api``, ``recv``, ``prefill_dispatch``, ``first_detok``,
+``first_audio``; the last 8,192 requests, each with its ``rid``), and the
 configuration it served
 (model, scheduler type, KV layout and pool dtype, whether the codec ran
 the fused residual-unit stacks, the codec's tensor dtypes as read from
@@ -54,7 +56,14 @@ bytes and shape, and ``allreduce_ms``, the device ms of one all-reduce at
 the decode batch's and the largest prefill bucket's rows) there as JSON (rank r > 0 writes
 ``PATH.rank<r>``): how a caller that drives the daemon over
 HTTP learns which kernels the served requests ran, and that no option fell
-back silently.
+back silently. Its ``phase_stats`` hold ``round`` (wall seconds and count
+of the scheduler rounds that did work) and ``round.wait`` (the seconds and
+count of the blocking waits on the card inside them). With
+``--enable-profiling`` the daemon also writes its span recorder
+(``worker/spans.py``: each such round, each step dispatch inside it, each
+blocking wait) to ``PATH.spans.json`` as Chrome trace events on the epoch
+clock, which open in Perfetto beside a ``torch.profiler`` trace of the
+daemon.
 """
 
 from __future__ import annotations
@@ -177,8 +186,11 @@ def _run_scheduler_daemon(args) -> None:
                            "phase_stats": worker.phase_stats,
                            "steps": worker.step_stats(),
                            "requests": list(scheduler.completed),
+                           "lifecycle": list(scheduler.lifecycle),
                            "param_count": param_count,
                            "tp_ranks": tp_ranks, **served}, f)
+            if worker.spans is not None:
+                worker.spans.write(f"{stats_file}.spans.json")
             os._exit(0)
 
         signal.signal(signal.SIGTERM, _dump)
@@ -311,7 +323,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--codec-dtype", default=None,
                    help="serve the audio codec at this dtype (bfloat16)")
     p.add_argument("--kv-reserve-fraction", type=float, default=None)
-    p.add_argument("--enable-profiling", action="store_true")
+    p.add_argument("--enable-profiling", action="store_true",
+                   help="record each scheduler round, step dispatch and "
+                        "blocking wait on the card as a span; written with "
+                        "the stats file as STATS_FILE.spans.json (Chrome "
+                        "trace events)")
     p.add_argument("--stats-file", default=None,
                    help="write kernel launch counts and phase times here "
                         "as JSON when terminated")

@@ -15,6 +15,9 @@ when there is more than one rank (never a disaggregated daemon, which
 uses two cards), and drops the TPU device-pinning variables from the
 daemon's environment. (The JAX server pins each rank to one chip, so its
 ``--dp-size > 1 --tp-size > 1`` fails in ``make_mesh``.)
+Each request's first frame also carries ``t_api``, the API's
+``time.monotonic()`` when it built the frame: the daemon's ``api`` stamp
+(``scheduler/base.py``).
 """
 
 from __future__ import annotations
@@ -350,6 +353,7 @@ class APIServer:
         msg = json.dumps({
             "request_id": rid, "prompt": text, "audio_path": audio_path,
             "is_streaming": True, "model_kwargs": model_kwargs or {},
+            "t_api": time.monotonic(),
         }).encode() + b"|audio_data_placeholder"
         self._register(rid, entry, msg)
         return rid
@@ -363,7 +367,8 @@ class APIServer:
             "streaming": True, "input_streaming": True,
             "consumed_chunks": 0, "rank": rank, "upload_path": audio_path,
         }
-        cfg = {"audio_path": audio_path, "model_kwargs": model_kwargs or {}}
+        cfg = {"audio_path": audio_path, "model_kwargs": model_kwargs or {},
+               "t_api": time.monotonic()}
         self._register(rid, entry,
                        rid.encode() + b"|TEXT_STREAM_START|"
                        + json.dumps(cfg).encode())

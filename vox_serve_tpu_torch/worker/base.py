@@ -68,9 +68,16 @@ the cache is built and before any graph is captured, so graphs and K2's
 packed weights read the cast tensors. ``kv_reserve_fraction`` below 1
 overcommits the KV pool: admission reserves that share of a request's
 generation budget, and a decode row that finds no page is deferred until a
-completion frees one. ``enable_profiling`` wraps each step dispatch in a
-``torch.profiler.record_function`` range (the JAX worker's trace
-annotations).
+completion frees one. ``enable_profiling`` records each step dispatch
+(named as the JAX worker's trace annotations) and each blocking wait on the
+card as a span in ``spans`` (``worker/spans.py``), which the daemon writes
+beside its stats file.
+
+Every blocking wait on the card (the readback events of LM steps and
+detokenize batches, a staging buffer still being read) goes through
+``_wait``, which adds its seconds to ``wait_s`` and counts it in
+``waits``: the scheduler splits each round's wall time into host work and
+waiting on the card with them.
 
 ``weight_quant="int8"`` quantizes the backbone's matmul weights (q/k/v/o,
 gate/up/down of ``model.params["backbone"]``; not the depth stacks, heads,
@@ -150,6 +157,7 @@ from ..requests import Request
 from ..sampling import init_repetition_cache
 from ..watermark import WatermarkConfig, apply_watermark, init_watermarker
 from .graphs import StepCache
+from .spans import SpanRecorder
 
 #: block-table widths are whole multiples of this many tokens (the JAX
 #: worker's lattice unit, its Pallas kernel's DMA chunk; kept so that both
@@ -235,7 +243,8 @@ class WorkerConfig:
     kv_reserve_fraction: float = 1.0
     #: serve the codec at this dtype ("bfloat16"); None keeps its own
     codec_dtype: Optional[str] = None
-    #: torch.profiler ranges around each step dispatch (off: none)
+    #: record step dispatches and blocking waits in the span recorder
+    #: (off: none)
     enable_profiling: bool = False
     #: put the detokenizer on ``cuda:<index>`` (disaggregation); None keeps
     #: it on the LM's device
@@ -350,6 +359,11 @@ class ModelWorker:
             dev, cfg.detokenizer_device_index)
         #: cumulative wall time per phase: name -> (total_s, calls)
         self.phase_stats: dict[str, tuple[float, int]] = {}
+        #: seconds blocked on the card (``_wait``) and the waits, since start
+        self.wait_s = 0.0
+        self.waits = 0
+        #: the span recorder (``enable_profiling``; None when off)
+        self.spans = SpanRecorder() if cfg.enable_profiling else None
         if dev.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -476,7 +490,7 @@ class ModelWorker:
             detok_gen.manual_seed(cfg.seed)
         self._steps = StepCache(
             dev, self._build_step, self.generator, self._n_staging,
-            detok=(detok, detok_gen), mirror=self.tp_ranks)
+            detok=(detok, detok_gen), mirror=self.tp_ranks, wait=self._wait)
         #: device ms per all-reduce by rows (decode batch, prefill bucket),
         #: timed after the capture (tensor-parallel, card only)
         self.allreduce_ms: dict = {}
@@ -667,11 +681,24 @@ class ModelWorker:
                        if torch.is_tensor(a) and a.is_floating_point()})
 
     def _trace(self, name: str):
-        """A ``torch.profiler`` range around a step dispatch (the JAX
-        worker's trace annotations); nothing unless ``enable_profiling``."""
-        if not self.config.enable_profiling:
+        """A span around a step dispatch (named as the JAX worker's trace
+        annotations); nothing unless ``enable_profiling``."""
+        if self.spans is None:
             return contextlib.nullcontext()
-        return torch.profiler.record_function(name)
+        return self.spans.span(name)
+
+    def _wait(self, event: torch.cuda.Event) -> None:
+        """Block until the card has passed ``event``: every blocking wait
+        of the served path, added to ``wait_s`` and ``waits`` (and a
+        ``wait`` span under ``enable_profiling``)."""
+        t0 = time.perf_counter()
+        if self.spans is None:
+            event.synchronize()
+        else:
+            with self.spans.span("wait"):
+                event.synchronize()
+        self.wait_s += time.perf_counter() - t0
+        self.waits += 1
 
     def _init_width_lattice(self) -> None:
         """Block-table limit and width lattice (the JAX worker's): the limit
@@ -888,7 +915,7 @@ class ModelWorker:
         e = self._pending.pop(0)
         t0 = time.perf_counter()
         if e.event is not None:
-            e.event.synchronize()
+            self._wait(e.event)
         # copies: the pinned buffers return to their allocator once dropped
         sampled = e.tokens.numpy().reshape(
             e.n_steps, -1, e.tokens.shape[-1]).copy()
@@ -1588,6 +1615,10 @@ class ModelWorker:
              else self._table_width(requests, K))
         pack, hard_stopped = self._plan_decode_multi(requests, K, B, W)
         self._stat("decode_multi.plan", t0)
+        if first_chunk:
+            now = time.monotonic()
+            for r in requests:
+                r.lifecycle.setdefault("first_detok", now)
         t0 = time.perf_counter()
         if first_chunk:
             with self._trace(f"lm_cold_start_b{B}_k{K}"):
@@ -1722,6 +1753,7 @@ class ModelWorker:
             self._dispatch_prefill(admitted, parr)
             self.cold_starts["prefill"] += 1
             return
+        req.lifecycle.setdefault("first_detok", time.monotonic())
         with self._trace(f"lm_cold_chain_t{parr['T']}_k{K}"):
             sampled_all, pcm = self._steps.run(
                 ("cold_chain", parr["T"], K),
@@ -2057,6 +2089,9 @@ class ModelWorker:
         for i, (w, s) in enumerate(zip(windows, slots)):
             token_ids[i] = w
             slot_ids[i] = s
+        now = time.monotonic()
+        for m in mapping:
+            m[0].lifecycle.setdefault("first_detok", now)
         t0 = time.perf_counter()
         with self._trace(f"detokenize_b{B}_l{length}"):
             pcm = self._steps.run(("detok", B, length), pack)
@@ -2130,7 +2165,7 @@ class ModelWorker:
         e = self._pending_detok.pop(0)
         t0 = time.perf_counter()
         if e.event is not None:
-            e.event.synchronize()
+            self._wait(e.event)
         audio = e.audio.numpy()  # (B, channels, samples) int16
         self._stat("detok.audio_get", t0)
         touched: list[Request] = []

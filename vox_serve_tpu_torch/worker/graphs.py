@@ -42,6 +42,11 @@ like the others, in ``torch.cuda.graph``'s default ("global") mode:
 ``ProcessGroupNCCL``'s watchdog thread does not break such a capture
 (``scripts/torch_tp_capture_modes.py``).
 
+Before a replay overwrites a staging buffer, the host waits for the copy
+that last read it through the cache's ``wait`` (the worker's ``_wait``,
+which counts the time blocked on the card; by default the event's own
+``synchronize``).
+
 Kernel counters (``ops/kernels.py``: every wrapper's ``launches``, K2's
 ``stacks``) are Python increments in the wrappers, so a replay would not
 move them: a graph records what its capture counted (and takes that, and
@@ -64,6 +69,13 @@ Output = Union[torch.Tensor, tuple]
 Body = Callable[..., Output]
 #: key -> (body, fully padded inputs of the key's shapes)
 Builder = Callable[[tuple], tuple[Body, tuple[np.ndarray, ...]]]
+#: blocks until the card has passed an event
+Wait = Callable[[torch.cuda.Event], None]
+
+
+def _synchronize(event: torch.cuda.Event) -> None:
+    event.synchronize()
+
 
 #: decode steps one replay takes, by step kind (key[2] holds k)
 _DECODE_STEPS = {"decode": lambda key: 1,
@@ -108,8 +120,10 @@ class StepGraph:
 
     def __init__(self, body: Body, warm_inputs: tuple[np.ndarray, ...],
                  device: torch.device, pool, capture_stream: torch.cuda.Stream,
-                 generator: torch.Generator, n_staging: int):
+                 generator: torch.Generator, n_staging: int,
+                 wait: Wait = _synchronize):
         self.device = device
+        self._wait = wait
         self.static_in = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                           for a in warm_inputs]
         self._staging = [[torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -148,7 +162,7 @@ class StepGraph:
         if self._staged[i] is not None:
             # the copies that last read these staging buffers must be done
             # before they are overwritten (the host may run steps ahead)
-            self._staged[i].synchronize()
+            self._wait(self._staged[i])
         for buf, a, dst in zip(self._staging[i], inputs, self.static_in):
             buf.numpy()[...] = a
             dst.copy_(buf, non_blocking=True)
@@ -196,12 +210,14 @@ class StepCache:
     def __init__(self, device: torch.device, build: Builder,
                  generator: torch.Generator, n_staging: int,
                  detok: Optional[tuple[torch.device, torch.Generator]] = None,
-                 mirror=None):
+                 mirror=None, wait: Wait = _synchronize):
         """``detok``: the (device, generator) of the ``"detok"`` steps,
         where they run on another card than the rest; ``mirror``: the
         other ranks of a tensor-parallel replica (``parallel/ranks.py``
-        ``ShardRanks``)."""
+        ``ShardRanks``); ``wait``: how a replay blocks on a staging
+        buffer's last copy."""
         self._build = build
+        self._wait = wait
         self._mirror = mirror
         self._n_staging = n_staging
         self._main = _Place(device, generator)
@@ -250,7 +266,8 @@ class StepCache:
                     with torch.cuda.device(place.device):
                         step = StepGraph(body, warm_inputs, place.device,
                                          place.pool, place.stream,
-                                         place.generator, self._n_staging)
+                                         place.generator, self._n_staging,
+                                         self._wait)
                 finally:
                     self.capturing = False
                 dt = time.perf_counter() - t0
