@@ -38,7 +38,10 @@ exits non-zero without printing a result:
    1024), GLM-4-Voice's G = 16 at head dim 128 (T=168 and 1024),
    Chatterbox's G = 1 at head dim 64 and Zonos's G = 1 at head dim 128
    (T=168 and 1024: 32- and 64-token tiles), and the two ``--tp-size 4``
-   rank layouts, 4 over 2 and 8 over 1 (T=168 and 1024).
+   rank layouts, 4 over 2 and 8 over 1 (T=168 and 1024). Then K6, the
+   depth layer's four kernels, each against its plain version at
+   Qwen3-TTS's and CSM's depth stacks, B in {1, 16, 128} (attention's
+   yardstick: SDPA with the causal mask over the same cache).
    Every kernel line also gives its bound: the larger of its bytes over
    3.35 TB/s and its operations over the H100's peak for the inputs' type.
    Then a small-width talker backbone (prefill + 3 decode steps over the
@@ -383,12 +386,14 @@ exits non-zero without printing a result:
    script prints that TP and TPG were not run, and why.
 
 The line before the last is a JSON object describing each kernel (at its
-largest shape; launches summed over the tensor-parallel ranks); the last
+largest shape, K6 at Qwen3-TTS's stack and B = 128; launches summed over
+the tensor-parallel ranks); the last
 line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-4's attention-kernel checks only and prints no result lines.
+runs phases 1-4's attention-kernel checks and K6 only and prints no result
+lines.
 The script builds and times the port beside it, so a copy of it placed in
 another checkout (a parent commit unpacked with ``git archive``) times
 that checkout's kernels at this script's shapes.
@@ -846,6 +851,101 @@ def check_backbone(kv: str = "combined", heads: str = "qwen3",
     log(f"backbone (2x256, {layout}, prefill {list(lens)} + 3 decode steps, "
         f"{kv} KV{quant}) card bf16 kernels vs CPU f32 plain: max rel err "
         f"{rel:.3e} (tol {BACKBONE_REL_TOL})")
+
+
+# ---------------------------------------------------------------------------
+# K6: the depth layer's kernels alone
+# ---------------------------------------------------------------------------
+
+#: the depth stacks K6 serves: (hidden, H, KH, intermediate, max_seq, q/k
+#: norm, rope theta), and the batches of their decode buckets
+K6_SHAPES = {"qwen3": (1024, 16, 8, 3072, 17, True, 1e6),
+             "csm": (1024, 8, 2, 8192, 33, False, 5e5)}
+K6_BATCHES = (1, 16, 128)
+
+
+def check_k6(kernels) -> dict:
+    """Each K6 kernel against its plain version at the served depth
+    stacks' shapes, one new token a row at ``K6_BATCHES`` rows, attention
+    at the middle of a frame (position max_seq // 2): max abs error and
+    CUDA-graph times of kernel and plain version, beside the kernel's byte
+    bound (each input read once, each output written once; its operations
+    are far below the tensor cores' line). Attention's library yardstick
+    is SDPA with the causal mask over the same bf16 cache. Returns each
+    kernel's entry of the result line by its name: its numbers at
+    Qwen3-TTS's stack and B = 128 (the served cell's decode bucket), with
+    its largest error over every stack and batch."""
+    import torch
+    import torch.nn.functional as F
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    out = {}
+    for name, (C, H, KH, I, S, qk, theta) in K6_SHAPES.items():
+        D, pos = 128, S // 2
+        for B in K6_BATCHES:
+            g = torch.Generator(device=dev).manual_seed(B)
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(bf)
+
+            h, r, w = rnd(B, 1, C), rnd(B, 1, C), rnd(C) * 0.1 + 1
+            qkv = rnd(B, 1, (H + 2 * KH) * D)
+            nw = (rnd(D) * 0.1 + 1) if qk else None
+            kc, vc = rnd(B, S, KH, D), rnd(B, S, KH, D)
+            q, gu = rnd(B, 1, H, D), rnd(B, 2 * I)
+            mask = (torch.arange(S, device=dev) <= pos)[None]
+            qt, kt, vt = (q.transpose(1, 2), kc.transpose(1, 2),
+                          vc.transpose(1, 2))
+            cases = {
+                "K6a depth_add_rms_norm": (
+                    lambda: kernels.depth_add_rms_norm(h, r, w),
+                    lambda: kernels.depth_add_rms_norm_plain(h, r, w),
+                    None, 4 * B * C * 2 + C * 2),
+                "K6b depth_qkv_rope": (
+                    lambda: kernels.depth_qkv_rope(qkv, nw, nw, kc, vc, pos,
+                                                   theta),
+                    lambda: kernels.depth_qkv_rope_plain(qkv, nw, nw, kc, vc,
+                                                         pos, theta),
+                    None, B * D * 2 * (2 * H + 4 * KH) + 4 * D),
+                "K6c depth_attention": (
+                    lambda: kernels.depth_attention(q, kc, vc, pos),
+                    lambda: kernels.depth_attention_plain(q, kc, vc, pos),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                    2 * B * H * D * 2 + 2 * B * (pos + 1) * KH * D * 2),
+                "K6d depth_silu_mul": (
+                    lambda: kernels.depth_silu_mul(gu),
+                    lambda: kernels.depth_silu_mul_plain(gu),
+                    None, 3 * B * I * 2),
+            }
+            for kname, (kern, plain, lib, nbytes) in cases.items():
+                got, want = kern(), plain()
+                if isinstance(got, tuple):
+                    got, want = got[1], want[1]
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.isfinite(got.float()).all() or \
+                        err > 2.0 ** -6 * max(want.float().abs().max()
+                                              .item(), 1.0):
+                    raise AssertionError(f"{kname} {name} B={B}: max abs "
+                                         f"err {err}")
+                ms, plain_ms = alternate_times(plain, kern, graph=True)
+                lib_ms = (None if lib is None else
+                          (cuda_time_ms(lib, graph=True)
+                           + cuda_time_ms(lib, graph=True)) / 2)
+                res = result(err, ms, plain_ms, bound(nbytes, 0, "bf16"),
+                             lib_ms)
+                out[name, kname, B] = res
+                log(f"{kname} {name} B={B} pos={pos}: max_abs_err "
+                    f"{err:.3e} kernel_ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.4f} {bound_text(res)}")
+    served = {}
+    for kname in {k for _, k, _ in out}:
+        worst = max(r["max_abs_err"] for (_, k, _), r in out.items()
+                    if k == kname)
+        served[kname.split()[1]] = {**out["qwen3", kname, 128],
+                                    "max_abs_err": worst}
+    return served
 
 
 # ---------------------------------------------------------------------------
@@ -1663,6 +1763,16 @@ K5 = "w8a16_linear"
 #: K5's launches per layer of a prefill or decode step: q/k/v grouped, o,
 #: gate/up grouped, down
 K5_PER_LAYER = 4
+#: K6, the depth loop's layer kernels: every run of a family with a depth
+#: transformer launches all four
+K6 = ("depth_add_rms_norm", "depth_qkv_rope", "depth_attention",
+      "depth_silu_mul")
+
+
+def depth_kernels(config: str) -> frozenset:
+    """K6 for a run of Qwen3-TTS or CSM (their depth loops), else none."""
+    return frozenset(K6 if family(config) in ("qwen3-tts", "csm") else ())
+
 
 #: served configurations: name -> (launch flags, environment, what the
 #: daemon must report it served, kernels that must launch). Every other
@@ -2948,8 +3058,8 @@ def check_split_run(config: str, stats: dict) -> None:
 
 
 def check_dp_run(config: str, rank1: Path, stats: dict) -> list:
-    """Run DP: rank 1's daemon served streams too (round robin), with K1
-    and K3 only; returns its completed requests."""
+    """Run DP: rank 1's daemon served streams too (round robin), with K1,
+    K3 and K6 only; returns its completed requests."""
     for _ in range(100):
         if rank1.exists() and rank1.stat().st_size:
             break
@@ -2959,7 +3069,7 @@ def check_dp_run(config: str, rank1: Path, stats: dict) -> list:
     if st1["rank"] != 1 or min(served.values()) < 1:
         raise AssertionError(f"[{config}] streams served per rank {served}")
     for name, n in st1["launches"].items():
-        if (n > 0) != (name in (K1, K3)):
+        if (n > 0) != (name in {K1, K3} | depth_kernels(config)):
             raise AssertionError(f"[{config}] rank 1 launched {name} {n} "
                                  "times")
     log(f"[{config}] streams served per rank {served}; rank 1 launches "
@@ -3123,6 +3233,7 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
     """Print a served run's numbers and hold its stats file to what the
     configuration must have run (see the module docstring)."""
     _flags, _env, served, must_run = CONFIGS[config]
+    must_run = must_run | depth_kernels(config)
     model, fam = MODEL_OF.get(config, "qwen3-tts"), family(config)
     layers = LAYERS[fam]
     ph = stats["phase_stats"]
@@ -4119,6 +4230,7 @@ def main(argv=None) -> int:
     check_decode(kernels, "K1", H=8, KH=1, batches=(4, 64))
     check_k3(kernels, H=4, KH=2, shapes=((168, 4), (1024, 5)))
     check_k3(kernels, H=8, KH=1, shapes=((168, 4), (1024, 5)))
+    k6 = check_k6(kernels)
     if args.kernels_only:
         return 0
     marks.append(("attention kernels", time.perf_counter()))
@@ -4217,6 +4329,10 @@ def main(argv=None) -> int:
          "source": "vox_serve_tpu_torch/csrc/w8a16_linear.cu",
          "replaces": "vox_serve_tpu/models/backbone.py:83",
          "launches": total[K5], **k5},
+        *({"name": name, "route": "cuda",
+           "source": "vox_serve_tpu_torch/csrc/depth_layer.cu",
+           "replaces": "vox_serve_tpu/models/depth.py:110",
+           "launches": total[name], **k6[name]} for name in K6),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,9 @@ Mimi of the CPU tests) in bf16, each graph replayed and its step body run
 eagerly from the same state:
 
 * the prefill graph (K3, one launch per layer) and a single-step decode
-  graph (K1, one launch per layer, the 31-codebook depth step) give the
-  eager step's greedy tokens and every state tensor bit for bit;
+  graph (K1, one launch per layer), each with the 31-codebook depth step
+  through K6, give the eager step's greedy tokens and every state tensor
+  bit for bit;
 * the detokenize graph (Mimi with its per-slot transformer ring, then the
   watermark) gives the eager body's int16 PCM and codec-cache rows: bit
   for bit with the float32 codec, whose PCM is shown to be the marked one;
@@ -48,7 +49,7 @@ def _csm_worker(device, **kw):
             rope_theta=5e5, llama31_rope_scaling=True, dtype=bf16),
         debug_depth=DepthConfig(
             hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
-            head_dim=16, intermediate_size=128, max_seq=33, dtype=bf16),
+            head_dim=128, intermediate_size=128, max_seq=33, dtype=bf16),
         debug_codec=MimiConfig(
             vq_dim=8, num_filters=8, upsample_ratios=(4, 3), hidden_size=16,
             intermediate_size=32, head_dim=8, num_heads=2, num_kv_heads=2,
@@ -66,6 +67,17 @@ def _counts(w, key):
             for fn, field, n in w._steps.get(key).counts}
 
 
+def _k6_counts(w):
+    """K6's launches in one frame of the depth loop: 31 forwards (codebooks
+    0-1, then one per codebook up to 31), each two norms a layer and the
+    final one, the other three kernels once a layer."""
+    L = w.model.depth_config.num_layers
+    return {("depth_add_rms_norm", "launches"): 31 * (2 * L + 1),
+            ("depth_qkv_rope", "launches"): 31 * L,
+            ("depth_attention", "launches"): 31 * L,
+            ("depth_silu_mul", "launches"): 31 * L}
+
+
 @pytest.mark.cuda
 def test_prefill_and_decode_graphs_match_eager_on_card(cuda_device):
     w = _csm_worker(cuda_device)
@@ -76,7 +88,7 @@ def test_prefill_and_decode_graphs_match_eager_on_card(cuda_device):
     out = _graph_vs_eager(w, ("prefill", 64, 4), arr)
     assert out[0].shape == (4, 33) and not out[0][:, -1].any()
     assert _counts(w, ("prefill", 64, 4)) == {
-        ("ragged_prefill_attention", "launches"): 2}
+        ("ragged_prefill_attention", "launches"): 2, **_k6_counts(w)}
     w._dispatch_prefill(reqs, w._prefill_host_arrays(reqs))
     w.sync()
     B, W = 4, w.table_width_buckets[0]
@@ -85,7 +97,7 @@ def test_prefill_and_decode_graphs_match_eager_on_card(cuda_device):
     out = _graph_vs_eager(w, ("decode", B, W), (pack,))
     assert out[0].shape == (B, 33)
     assert _counts(w, ("decode", B, W)) == {
-        ("paged_decode_attention", "launches"): 2}
+        ("paged_decode_attention", "launches"): 2, **_k6_counts(w)}
 
 
 def _detok_inputs(w, seed=0):

@@ -56,7 +56,7 @@ def _qwen3(device, decoder_dim=64):
             qk_norm=True, rope_theta=1e6, dtype=bf16),
         debug_depth=DepthConfig(
             hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
-            head_dim=16, intermediate_size=64, max_seq=17, qk_norm=True,
+            head_dim=128, intermediate_size=64, max_seq=17, qk_norm=True,
             dtype=bf16),
         debug_codec=Qwen3CodecConfig(
             codebook_dim=32, codebook_size=2048, latent_dim=48,
@@ -229,17 +229,22 @@ def test_replay_counts_captured_launches_on_card(cuda_device, monkeypatch):
     before = kernels.launch_counts()
     step = w._steps.get(("decode", 4, W))
     assert kernels.launch_counts() == before  # capture counts nothing
+    # the depth loop's 15 forwards a frame (codebooks 0-1, then one per
+    # codebook up to 14), each through K6: two norms a layer and the final
+    # one, the other three kernels once a layer
+    Ld = w.model.depth_config.num_layers
+    moved = {"paged_decode_attention": L,
+             "depth_add_rms_norm": 15 * (2 * Ld + 1),
+             "depth_qkv_rope": 15 * Ld, "depth_attention": 15 * Ld,
+             "depth_silu_mul": 15 * Ld}
     assert [(fn.__name__, field, n) for fn, field, n in step.counts] == [
-        ("paged_decode_attention", "launches", L)]
+        (name, "launches", n) for name, n in moved.items()]
     for _ in range(3):
         pack, _ = w._plan_decode(reqs, 4, W)
         w._steps.run(("decode", 4, W), pack)
     after = kernels.launch_counts()
-    assert after["paged_decode_attention"] == \
-        before["paged_decode_attention"] + 3 * L
-    assert {k: after[k] - before[k] for k in after
-            if k != "paged_decode_attention"} == {
-        k: 0 for k in after if k != "paged_decode_attention"}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 3 * moved.get(k, 0) for k in after}
     assert w.eager_calls["decode"] == 0
     assert w.step_stats()["decode_steps"] == 3
 

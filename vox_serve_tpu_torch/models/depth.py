@@ -5,23 +5,21 @@ The depth "prefill" over [backbone hidden; embed(cb0)] and then one small
 decode per codebook, with static shapes and no host reads, so that the
 worker can capture it in its decode graphs. Its KV is a dense
 ``(L, B, max_seq, KH, D)`` tensor pair (max_seq = n_codebooks + 1 makes
-paging pointless), updated in place; no kernel of its own. The fused
-q|k|v and gate|up projections are concatenated once
-(``prepare_depth_layers``), outside the codebook loop.
+paging pointless), updated in place. Around its four projections each
+layer runs K6 on the card (``ops/kernels.py``, ``csrc/depth_layer.cu``)
+and the kernels' plain versions on the CPU. The fused q|k|v and gate|up
+projections are concatenated once (``prepare_depth_layers``), outside the
+codebook loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
-import torch.nn.functional as F
 
 from ..models.backbone import _init_linear, linear
-from ..ops.kernels import NEG_INF
-from ..ops.norms import rms_norm
-from ..ops.rope import rope_frequencies
+from ..ops import kernels
 from ..params import tree_map
 
 
@@ -97,57 +95,37 @@ def depth_forward(params: dict, cfg: DepthConfig, x: torch.Tensor,
                   v_cache: torch.Tensor) -> torch.Tensor:
     """Process t new tokens x: (B, t, hidden) at positions start_pos..;
     writes their K/V into the caches in place and returns the last token's
-    final-norm hidden (B, hidden)."""
-    B, t, _ = x.shape
-    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    S = cfg.max_seq
-    inv_freq = rope_frequencies(hd, cfg.rope_theta, device=x.device)
-    positions = torch.arange(start_pos, start_pos + t, device=x.device)
-    angles = positions[:, None].float() * inv_freq[None, :]   # (t, hd/2)
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    cache_pos = torch.arange(S, device=x.device)
-    mask = cache_pos[None, :] <= positions[:, None]            # (t, S)
-    scale = 1.0 / math.sqrt(hd)
-    rep = H // KH
+    final-norm hidden (B, hidden).
 
-    def rot(v):
-        v1, v2 = v[..., :hd // 2], v[..., hd // 2:]
-        return torch.cat([v1 * cos - v2 * sin, v2 * cos + v1 * sin],
-                         dim=-1).to(v.dtype)
+    Around the four projections (plain ``x @ w``) a layer is four ops: the
+    residual add with the norm after it, q/k norm with the rotary and the
+    cache write, attention, SiLU. On the CPU they are the plain versions;
+    on any other device K6's wrappers, which raise on a shape or type they
+    refuse."""
+    B, t, _ = x.shape
+    if x.device.type == "cpu":
+        add_norm, qkv_rope, attention, silu_mul = (
+            kernels.depth_add_rms_norm_plain, kernels.depth_qkv_rope_plain,
+            kernels.depth_attention_plain, kernels.depth_silu_mul_plain)
+    else:
+        add_norm, qkv_rope, attention, silu_mul = (
+            kernels.depth_add_rms_norm, kernels.depth_qkv_rope,
+            kernels.depth_attention, kernels.depth_silu_mul)
 
     layers = prepare_depth_layers(params)["layers"]
-    h = x
+    h, r = x, None
     for li in range(cfg.num_layers):
         lp = tree_map(lambda a: a[li], layers)
-        xin = rms_norm(h, lp["input_norm"], cfg.rms_eps)
-        qkv = xin.reshape(B * t, -1) @ lp["w_qkv"]
-        q, k, v = torch.split(qkv, [H * hd, KH * hd, KH * hd], dim=-1)
-        q = q.reshape(B, t, H, hd)
-        k = k.reshape(B, t, KH, hd)
-        v = v.reshape(B, t, KH, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, lp["attn"]["q_norm"], cfg.rms_eps)
-            k = rms_norm(k, lp["attn"]["k_norm"], cfg.rms_eps)
-        q = rot(q)
-        k = rot(k)
-        k_cache[li, :, start_pos:start_pos + t] = k.to(k_cache.dtype)
-        v_cache[li, :, start_pos:start_pos + t] = v.to(v_cache.dtype)
-
-        k_all = k_cache[li].float()  # (B, S, KH, D)
-        v_all = v_cache[li].float()
-        qg = q.reshape(B, t, KH, rep, hd).float() * scale
-        scores = torch.einsum("btkrd,bskd->bkrts", qg, k_all)
-        scores = torch.where(mask[None, None, None], scores,
-                             torch.full_like(scores, NEG_INF))
-        probs = torch.softmax(scores, dim=-1)
-        attn = torch.einsum("bkrts,bskd->btkrd", probs, v_all)
-        attn = attn.reshape(B * t, H * hd).to(h.dtype)
-        h = h + linear(lp["attn"]["o"], attn).reshape(B, t, -1)
-
-        xin3 = rms_norm(h, lp["post_norm"], cfg.rms_eps)
-        gu = xin3.reshape(B * t, -1) @ lp["w_gu"]
-        g, u = torch.chunk(gu, 2, dim=-1)
-        h = h + linear(lp["mlp"]["down"], F.silu(g) * u).reshape(B, t, -1)
-    h = rms_norm(h, params["final_norm"], cfg.rms_eps)
+        h, xin = add_norm(h, r, lp["input_norm"], cfg.rms_eps)
+        qkv = (xin.reshape(B * t, -1) @ lp["w_qkv"]).reshape(B, t, -1)
+        qn, kn = ((lp["attn"]["q_norm"], lp["attn"]["k_norm"])
+                  if cfg.qk_norm else (None, None))
+        q = qkv_rope(qkv, qn, kn, k_cache[li], v_cache[li], start_pos,
+                     cfg.rope_theta, cfg.rms_eps)
+        attn = attention(q, k_cache[li], v_cache[li], start_pos)
+        o = linear(lp["attn"]["o"], attn.reshape(B * t, -1))
+        h, xin = add_norm(h, o.reshape(B, t, -1), lp["post_norm"], cfg.rms_eps)
+        gu = xin.reshape(B * t, -1) @ lp["w_gu"]
+        r = linear(lp["mlp"]["down"], silu_mul(gu)).reshape(B, t, -1)
+    _, h = add_norm(h, r, params["final_norm"], cfg.rms_eps)
     return h[:, -1]

@@ -1,7 +1,8 @@
 """The port's hand-written Hopper kernels, their wrappers and their plain
 PyTorch versions.
 
-Six kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
+Ten kernels (K2 in two types, K6 in four), all CUDA C++ for ``sm_90a`` under
+``csrc/``:
 
 * K1 ``paged_decode_attention`` (``csrc/paged_decode.cu``) replaces the
   Pallas ``ragged_paged_attention`` that vox_serve_tpu/ops/attention.py
@@ -24,7 +25,15 @@ Six kernels (K2 in two types), all CUDA C++ for ``sm_90a`` under ``csrc/``:
   packed once into its tile layout (``pack_w8a16``), up to three linears
   that share x in one launch (``w8a16_linear_group``). It replaces no
   Pallas kernel: vox_serve_tpu/models/backbone.py ``linear`` leaves its
-  ``w_q`` branch to an XLA fusion on the TPU.
+  ``w_q`` branch to an XLA fusion on the TPU;
+* K6 (``csrc/depth_layer.cu``) is the depth transformer's layer around its
+  four projections (models/depth.py ``depth_forward``): ``depth_add_rms_norm``
+  (K6a, the residual add with the RMS norm after it), ``depth_qkv_rope``
+  (K6b, q/k norm, rotary, the cache write), ``depth_attention`` (K6c) and
+  ``depth_silu_mul`` (K6d). It replaces no Pallas kernel either: the JAX
+  package leaves that chain to XLA's fusions. Its wrappers run on CUDA
+  tensors only and raise on any input they refuse, on every device; the
+  depth forward runs the plain versions on the CPU.
 
 Build: ``nvcc`` compiles every source into one shared library with a plain
 C interface, loaded with ``ctypes``, at the first launch (or an explicit
@@ -63,15 +72,18 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import cdiv
+from .norms import rms_norm
+from .rope import rope_frequencies
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("paged_decode.cu", "ragged_prefill.cu", "resunit.cu",
-            "w8a16_linear.cu")
+            "w8a16_linear.cu", "depth_layer.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -165,6 +177,15 @@ def build(verbose: bool = False) -> Path:
             lib.vox_w8a16_linear.restype = ci
             lib.vox_w8a16_occupancy.argtypes = [ci]
             lib.vox_w8a16_occupancy.restype = ci
+            lib.vox_depth_add_rms_norm.argtypes = [vp] * 5 + [ci, ci, cf, vp]
+            lib.vox_depth_qkv_rope.argtypes = ([vp] * 6 + [ci] * 7
+                                               + [cf, cf, vp])
+            lib.vox_depth_attention.argtypes = ([vp] * 4 + [ci] * 7
+                                                + [cf, vp])
+            lib.vox_depth_silu_mul.argtypes = [vp, vp, ci, ci, ci, vp]
+            for entry in (lib.vox_depth_add_rms_norm, lib.vox_depth_qkv_rope,
+                          lib.vox_depth_attention, lib.vox_depth_silu_mul):
+                entry.restype = ci
             _lib = lib
         return path
 
@@ -942,6 +963,245 @@ w8a16_linear.grouped = 0
 w8a16_linear.split = 0
 
 
+# ---------------------------------------------------------------------------
+# K6: the depth transformer's layer around its four projections
+# ---------------------------------------------------------------------------
+
+#: the head dim K6b and K6c take; the most query heads per KV head, cache
+#: positions and new tokens of one forward (K6c stages a row's cache rows
+#: and queries in shared memory); the widest row K6a takes (one 8-wide
+#: chunk a thread, 1024 threads)
+DEPTH_HEAD_DIM = 128
+DEPTH_MAX_GROUP = 8
+DEPTH_MAX_SEQ = 64
+DEPTH_MAX_NEW = 2
+DEPTH_MAX_WIDTH = 8192
+
+
+def depth_add_rms_norm_plain(h: torch.Tensor, r: Optional[torch.Tensor],
+                             w: torch.Tensor, eps: float = 1e-6
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6a: (h + r, rms_norm(h + r, w)); without r, (h,
+    rms_norm(h, w))."""
+    if r is not None:
+        h = h + r
+    return h, rms_norm(h, w, eps)
+
+
+def depth_qkv_rope_plain(qkv: torch.Tensor, q_norm: Optional[torch.Tensor],
+                         k_norm: Optional[torch.Tensor],
+                         k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         start_pos: int, theta: float, eps: float = 1e-6
+                         ) -> torch.Tensor:
+    """Plain version of K6b. qkv: (B, t, (H + 2 KH) D), the q|k|v product
+    of t new tokens at positions start_pos..; q_norm, k_norm: (D,), or both
+    None; k_cache, v_cache: one layer's (B, S, KH, D), where k (normed,
+    rotated) and v are written in place. Returns q, normed and rotated (B,
+    t, H, D)."""
+    B, t, _ = qkv.shape
+    KH, D = k_cache.shape[2], k_cache.shape[3]
+    H = qkv.shape[-1] // D - 2 * KH
+    q, k, v = torch.split(qkv, [H * D, KH * D, KH * D], dim=-1)
+    q = q.reshape(B, t, H, D)
+    k = k.reshape(B, t, KH, D)
+    v = v.reshape(B, t, KH, D)
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+        k = rms_norm(k, k_norm, eps)
+    inv_freq = rope_frequencies(D, theta, device=qkv.device)
+    positions = torch.arange(start_pos, start_pos + t, device=qkv.device)
+    angles = positions[:, None].float() * inv_freq[None, :]   # (t, D/2)
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+
+    def rot(x):
+        x1, x2 = x[..., :D // 2], x[..., D // 2:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                         dim=-1).to(x.dtype)
+
+    q = rot(q)
+    k = rot(k)
+    k_cache[:, start_pos:start_pos + t] = k.to(k_cache.dtype)
+    v_cache[:, start_pos:start_pos + t] = v.to(v_cache.dtype)
+    return q
+
+
+def depth_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, start_pos: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K6c. q: (B, t, H, D) of the tokens at positions
+    start_pos..; k_cache, v_cache: one layer's (B, S, KH, D). Query i sees
+    cache positions <= start_pos + i; f32 scores, softmax and P.V. Returns
+    (B, t, H D) in q's dtype."""
+    B, t, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    positions = torch.arange(start_pos, start_pos + t, device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= positions[:, None])                                 # (t, S)
+    k_all = k_cache.float()
+    v_all = v_cache.float()
+    qg = q.reshape(B, t, KH, H // KH, D).float() * scale
+    scores = torch.einsum("btkrd,bskd->bkrts", qg, k_all)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bkrts,bskd->btkrd", probs, v_all)
+    return attn.reshape(B, t, H * D).to(q.dtype)
+
+
+def depth_silu_mul_plain(gu: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6d: gu (..., 2 I), gate then up -> silu(g) * u."""
+    g, u = torch.chunk(gu, 2, dim=-1)
+    return F.silu(g) * u
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _no_k6(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"no K6 kernel for device {dev}")
+
+
+def depth_add_rms_norm(h: torch.Tensor, r: Optional[torch.Tensor],
+                       w: torch.Tensor, eps: float = 1e-6
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6a wrapper: (h + r, rms_norm(h + r, w)), r None: (h, rms_norm(h,
+    w)). h, r: (..., C) bf16 contiguous, C a multiple of 8 up to
+    ``DEPTH_MAX_WIDTH``; w: (C,) bf16, on CUDA."""
+    dev = h.device
+    _check("h", h, torch.bfloat16, h.dim(), dev)
+    C = h.shape[-1]
+    if r is not None:
+        _check("r", r, torch.bfloat16, h.dim(), dev)
+        if r.shape != h.shape:
+            raise ValueError(f"r {tuple(r.shape)} does not match h "
+                             f"{tuple(h.shape)}")
+    _check("w", w, torch.bfloat16, 1, dev)
+    if w.shape[0] != C or C % 8 or not 0 < C <= DEPTH_MAX_WIDTH:
+        raise ValueError(f"width {C} (w {tuple(w.shape)}) unsupported: a "
+                         f"multiple of 8 up to {DEPTH_MAX_WIDTH}")
+    _no_k6(dev)
+    out = torch.empty_like(h)
+    h_out = h if r is None else torch.empty_like(h)
+    err = library().vox_depth_add_rms_norm(
+        h.data_ptr(), _ptr(r), w.data_ptr(),
+        None if r is None else h_out.data_ptr(), out.data_ptr(),
+        h.numel() // C, C, float(eps), _stream(dev))
+    _raise_on(err, "depth_add_rms_norm")
+    depth_add_rms_norm.launches += 1
+    return h_out, out
+
+
+depth_add_rms_norm.launches = 0
+
+
+def depth_qkv_rope(qkv: torch.Tensor, q_norm: Optional[torch.Tensor],
+                   k_norm: Optional[torch.Tensor], k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, start_pos: int, theta: float,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """K6b wrapper (``depth_qkv_rope_plain``'s contract): qkv (B, t, (H + 2
+    KH) 128), caches (B, S, KH, 128), all bf16 contiguous, start_pos + t
+    <= S, on CUDA."""
+    dev = qkv.device
+    _check("qkv", qkv, torch.bfloat16, 3, dev)
+    _check("k_cache", k_cache, torch.bfloat16, 4, dev)
+    _check("v_cache", v_cache, torch.bfloat16, 4, dev)
+    B, t, W = qkv.shape
+    _, S, KH, D = k_cache.shape
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != B \
+            or D != DEPTH_HEAD_DIM or W % D or W // D <= 2 * KH:
+        raise ValueError(f"qkv {tuple(qkv.shape)} and caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} "
+                         f"unsupported (head dim {DEPTH_HEAD_DIM})")
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError("q_norm and k_norm come together")
+    for name, nw in (("q_norm", q_norm), ("k_norm", k_norm)):
+        if nw is not None:
+            _check(name, nw, torch.bfloat16, 1, dev)
+            if nw.shape[0] != D:
+                raise ValueError(f"{name} {tuple(nw.shape)}, expected ({D},)")
+    if t < 1 or start_pos < 0 or start_pos + t > S:
+        raise ValueError(f"positions {start_pos}..{start_pos + t - 1} "
+                         f"outside a cache of {S}")
+    _no_k6(dev)
+    H = W // D - 2 * KH
+    q = torch.empty((B, t, H, D), dtype=torch.bfloat16, device=dev)
+    err = library().vox_depth_qkv_rope(
+        qkv.data_ptr(), _ptr(q_norm), _ptr(k_norm), q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), B, t, H, KH, D, S,
+        int(start_pos), float(theta), float(eps), _stream(dev))
+    _raise_on(err, "depth_qkv_rope")
+    depth_qkv_rope.launches += 1
+    return q
+
+
+depth_qkv_rope.launches = 0
+
+
+def depth_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, start_pos: int,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """K6c wrapper (``depth_attention_plain``'s contract): q (B, t, H,
+    128), caches (B, S, KH, 128), all bf16 contiguous, H / KH up to
+    ``DEPTH_MAX_GROUP``, t up to ``DEPTH_MAX_NEW``, S up to
+    ``DEPTH_MAX_SEQ``, on CUDA."""
+    dev = q.device
+    _check("q", q, torch.bfloat16, 4, dev)
+    _check("k_cache", k_cache, torch.bfloat16, 4, dev)
+    _check("v_cache", v_cache, torch.bfloat16, 4, dev)
+    B, t, H, D = q.shape
+    _, S, KH, _ = k_cache.shape
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != B \
+            or k_cache.shape[3] != D or D != DEPTH_HEAD_DIM:
+        raise ValueError(f"q {tuple(q.shape)} and caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} "
+                         f"unsupported (head dim {DEPTH_HEAD_DIM})")
+    _check_heads(H, KH, D, DEPTH_MAX_GROUP)
+    if not 1 <= t <= DEPTH_MAX_NEW or S > DEPTH_MAX_SEQ or start_pos < 0 \
+            or start_pos + t > S:
+        raise ValueError(f"t={t} new tokens at {start_pos} over a cache of "
+                         f"{S} unsupported (t <= {DEPTH_MAX_NEW}, cache <= "
+                         f"{DEPTH_MAX_SEQ})")
+    _no_k6(dev)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty((B, t, H * D), dtype=torch.bfloat16, device=dev)
+    err = library().vox_depth_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        B, t, H, KH, D, S, int(start_pos), float(scale), _stream(dev))
+    _raise_on(err, "depth_attention")
+    depth_attention.launches += 1
+    return out
+
+
+depth_attention.launches = 0
+
+
+def depth_silu_mul(gu: torch.Tensor) -> torch.Tensor:
+    """K6d wrapper: gu (..., 2 I) bf16 contiguous, I a multiple of 8 ->
+    silu(g) * u (..., I), on CUDA."""
+    dev = gu.device
+    _check("gu", gu, torch.bfloat16, gu.dim(), dev)
+    I2 = gu.shape[-1]
+    if I2 % 16 or I2 == 0:
+        raise ValueError(f"gate|up width {I2} unsupported (2 x a multiple "
+                         "of 8)")
+    _no_k6(dev)
+    out = torch.empty(gu.shape[:-1] + (I2 // 2,), dtype=torch.bfloat16,
+                      device=dev)
+    err = library().vox_depth_silu_mul(gu.data_ptr(), out.data_ptr(),
+                                       gu.numel() // I2, I2 // 2,
+                                       _sm_count(dev), _stream(dev))
+    _raise_on(err, "depth_silu_mul")
+    depth_silu_mul.launches += 1
+    return out
+
+
+depth_silu_mul.launches = 0
+
+
 def wrappers() -> dict:
     """Every kernel wrapper of the port, by name."""
     from .resunit import fused_resunit_stack, fused_resunit_stack_bf16
@@ -954,6 +1214,10 @@ def wrappers() -> dict:
         "fused_resunit_stack": fused_resunit_stack,
         "fused_resunit_stack_bf16": fused_resunit_stack_bf16,
         "w8a16_linear": w8a16_linear,
+        "depth_add_rms_norm": depth_add_rms_norm,
+        "depth_qkv_rope": depth_qkv_rope,
+        "depth_attention": depth_attention,
+        "depth_silu_mul": depth_silu_mul,
     }
 
 
