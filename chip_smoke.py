@@ -150,13 +150,15 @@ exits non-zero without printing a result:
    classifier-free guidance on a doubled batch, and streaming HiFT, over
    overlapped 28-token windows every 25 tokens and the 53- and 103-token
    catch-up windows, with the flow cache in the slot; the codec in
-   float32; random weights from the seed) with A's flags and
-   ``--max-tokens 160``: K1 and K3 only, 24 launches per decode step and
-   prefill; each stream's PCM is what the overlap rule gives (24,000
-   samples per 25 tokens, the last window trimmed), at least 4 windows; it
-   prints TTFA, windows/s against real time (1 per stream), the decode
-   and detokenize replay times and the detokenize graphs' capture seconds
-   and pool growth.
+   float32; random weights from the seed) at its H100 profile, as Z
+   serves Qwen3's (below), with ``--max-tokens 160``: K1 and K3 only, 24
+   launches per decode step and prefill; each stream's PCM is what the
+   overlap rule gives (24,000 samples per 25 tokens, the last window
+   trimmed), at least 4 windows; the daemon must report the flow's and
+   HiFT's device time from the events in its detokenize graphs; it prints
+   TTFA, windows/s against real time (1 per stream), the decode and
+   detokenize replay times, the flow's and HiFT's device ms a replay and
+   the detokenize graphs' capture seconds and pool growth.
    Run Q serves ``--model glm`` (GLM-4-Voice-9B: the 40 x 4096 GLM-4
    backbone with ChatGLM's interleaved partial rope, 32 heads over 2 KV
    heads at head dim 128, q/k/v biases, vocab 168,960; detokenize graphs
@@ -255,7 +257,8 @@ exits non-zero without printing a result:
    streams'.
    The launcher fills every serving-profile flag a run leaves unset from
    its model's profile (``vox_serve_tpu_torch/profiles.py``: Qwen3-TTS,
-   CSM-1B and Orpheus-3B have one), so every run above passes
+   CSM-1B, Orpheus-3B and CosyVoice2-0.5B have one), so every run above
+   but O passes
    ``--max-batch-size 4 --max-num-pages 2048`` and each profile flag it
    does not name at the value these runs served before (``PINNED``: page
    16, no pipelines, no ramp, no fused decode, the float32 codec, prefill
@@ -263,7 +266,8 @@ exits non-zero without printing a result:
    Run Z then serves the flagship as its users start it: ``--model
    qwen3-tts`` with no batch, page, lattice, pipeline or codec flag (only
    the port, socket suffix, seed, ``--max-tokens 100`` and the stats
-   file), so its H100 profile applies; the daemon must report the
+   file), so its H100 profile applies (as O's does); the daemon must
+   report the
    profile's batch, pages, page size, decode and prefill buckets,
    pipelines, fused decode and codec dtype; one wave of as many streams
    as the profile's top decode bucket must replay the full-batch decode
@@ -1883,17 +1887,15 @@ CONFIGS.update({
 COSY_LOADED = {"backbone": True, "flow": True, "hift": True, "s3v2": True,
                "campplus": True}
 CONFIGS.update({
-    # CosyVoice2-0.5B (MODEL_OF): the Qwen2 talker with q/k/v biases, G = 7
-    # at D=64 in K1 and K3; detokenize graphs that hold the flow (10 CFG
-    # Euler steps on a doubled batch) and streaming HiFT over overlapped
+    # O (CosyVoice2-0.5B, MODEL_OF: the Qwen2 talker with q/k/v biases, G =
+    # 7 at D=64 in K1 and K3; detokenize graphs that hold the flow, 10 CFG
+    # Euler steps on a doubled batch, and streaming HiFT over overlapped
     # 28-token windows and their catch-up windows, the flow cache in the
-    # slot; A's flags
-    "O": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
-                   "fused_resunit": False, **SINGLE, **ONLINE_F32},
-          {K1, K3}),
-    # O's configuration from the FunAudioLLM/CosyVoice2-0.5B snapshot: two
-    # voice clones (an uploaded WAV + ref_text), a clone without ref_text,
-    # a request without audio; S3 v2 and CAMPPlus on the card
+    # slot) is served at its H100 profile: ``PROFILED_RUNS``
+    # CosyVoice2 at A's flags from the FunAudioLLM/CosyVoice2-0.5B
+    # snapshot: two voice clones (an uploaded WAV + ref_text), a clone
+    # without ref_text, a request without audio; S3 v2 and CAMPPlus on the
+    # card
     "P": ([], {}, {"kv_layout": "combined", "kv_pool_dtype": "bfloat16",
                    "fused_resunit": False, **SINGLE, **ONLINE_F32,
                    "tokenizer_loaded": False, "checkpoint": COSY_LOADED},
@@ -2039,14 +2041,17 @@ def pinned(flags: list) -> list:
 #: page, lattice, pipeline or codec flag (its H100 profile applies); one
 #: wave of as many streams as the profile's top decode bucket
 PROFILE_RUN = "Z"
+#: the runs served at their model's H100 profile, with no batch, page or
+#: profile flag: Z, and O (CosyVoice2-0.5B, its usual wave)
+PROFILED_RUNS = {PROFILE_RUN: "qwen3-tts", "O": "cosyvoice2"}
 
 
-def profile_config() -> tuple:
-    """Run Z's entry of ``CONFIGS``: what the daemon must serve is the
-    profile of ``vox_serve_tpu_torch/profiles.py``."""
+def profile_config(model: str = "qwen3-tts") -> tuple:
+    """A profiled run's entry of ``CONFIGS``: what the daemon must serve is
+    the model's profile of ``vox_serve_tpu_torch/profiles.py``."""
     from vox_serve_tpu_torch.profiles import resolve_profile
 
-    prof = resolve_profile("qwen3-tts")
+    prof = resolve_profile(model)
 
     def buckets(spec):
         return [int(x) for x in spec.split(",")]
@@ -2530,8 +2535,8 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
     stream's TTFA (F), after checking what it served and which kernels and
     graphs ran. ``hub``: the Hugging Face hub cache the daemon resolves
     checkpoints in (``HF_HUB_CACHE``; L, M and N)."""
-    if config == PROFILE_RUN and config not in CONFIGS:
-        CONFIGS[config] = profile_config()
+    if config in PROFILED_RUNS and config not in CONFIGS:
+        CONFIGS[config] = profile_config(PROFILED_RUNS[config])
     flags, env_extra, served, must_run = CONFIGS[config]
     model = MODEL_OF.get(config, "qwen3-tts")
     fam = family(config)
@@ -2543,7 +2548,7 @@ def end_to_end(card: str, config: str, hub: str | None = None) -> dict:
             path.unlink()
     log_path = OUT / f"chip_smoke_server_{config}.log"
     server_log = open(log_path, "w")
-    if config == PROFILE_RUN:  # the profile's batch, pages and lattices
+    if config in PROFILED_RUNS:  # the profile's batch, pages and lattices
         flags = []
         sizes = []
     else:
@@ -3276,6 +3281,15 @@ def check_run(config: str, card: str, stats: dict, out: dict) -> None:
         f"cold starts {steps['cold_starts']}; params LM "
         f"{stats['param_count']['lm'] / 1e9:.3f} B + codec "
         f"{stats['param_count']['codec'] / 1e6:.1f} M")
+    if fam == "cosyvoice2" and config in PROFILED_RUNS:
+        parts = {p: ph.get(f"detok.{p}", (0.0, 0)) for p in ("flow", "hift")}
+        if not all(n for _, n in parts.values()):
+            raise AssertionError(f"[{config}] no device-timed flow or HiFT "
+                                 f"replay in the stats: {parts}")
+        log(f"[{config}] device ms a detokenize replay: " + ", ".join(
+            f"{p} {t / n * 1e3:.2f} (x {n})" for p, (t, n) in parts.items())
+            + f"; {ph['detok.rows'][0]:.0f} bucket rows for {wins:.0f} "
+            "windows")
     log(f"[{config}] graphs: {len(steps['graphs'])} captured in "
         f"{steps['capture_s']:.2f} s, pool {steps['pool_mib']:.1f} MiB; "
         f"replays {replays}; eager calls {steps['eager_calls']}; deepest "

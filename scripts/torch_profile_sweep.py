@@ -5,7 +5,7 @@ from random weights (seed 0), by driving the port's worker and its CUDA
 graphs directly, with no HTTP.
 
     PYTHONPATH=. python3 scripts/torch_profile_sweep.py \
-        [--family qwen3 csm orpheus] [--startup]
+        [--family qwen3 csm orpheus cosyvoice2] [--startup]
 
 Per family it prints one JSON line (``{"family": ..., "profile": {...},
 "rules": {...}, "measured": {...}}``) after these measurements:
@@ -21,7 +21,10 @@ Per family it prints one JSON line (``{"family": ..., "profile": {...},
   the windows B streams make ready in one decode round, which the online
   scheduler detokenizes in one batch, capped at the detokenize bucket
   covering that demand (device ms per replay of padded windows; the
-  codec's cost does not depend on the codes);
+  codec's cost does not depend on the codes). A flow family (``FLOW``)
+  instead at every d up to the top batch (the online scheduler gives each
+  pressing stream at least one window a round, whatever its cap), in
+  float32 only, and at the catch-up window lengths for the record;
 * prefill at T in ``PREFILL_T`` over ``max_prefill_requests`` rows;
 * then, at the lattice the rules give, a worker with a small pool that
   captures every graph: the free memory after the capture gives the pages.
@@ -29,13 +32,16 @@ Per family it prints one JSON line (``{"family": ..., "profile": {...},
 The rules (each printed beside its value under ``rules``):
 
 * ``codec_dtype``: bfloat16 where its detokenize is below 0.9 of
-  float32's at the largest batch measured, else float32 (None);
+  float32's at the largest batch measured, else float32 (None); a flow
+  family's float32, the source's precision;
 * ``max_batch_size``: the largest B whose decode and detokenize device
   time alone give each of B streams at least ``MARGIN`` times its real-time
   rate (``RATE``: frames, or for Orpheus tokens, per second), capped by
   the pages at the family's ``max_tokens``. A round of B streams takes one
   decode step and, B / step times in a round (at most once), one
-  detokenize of ceil(B / step) windows;
+  detokenize of ceil(B / step) windows. A family in ``FIXED_BATCH`` keeps
+  its set batch (the rule's reading printed beside it), and the rules
+  below take that batch;
 * ``decode_buckets``: from the top down, a lower B joins when its step
   costs at most 0.75 of the smallest bucket already in (padding its rows
   up would cost a third more); 1 always;
@@ -51,7 +57,8 @@ The rules (each printed beside its value under ``rules``):
 * ``detok_buckets``: the 0.75 rule over the detokenize times from the
   top batch's demand ceil(B / step) down: the online scheduler caps a
   round's windows at the bucket covering that demand, and the decode
-  lattice (the worker's default) would pad them to a decode bucket;
+  lattice (the worker's default) would pad them to a decode bucket; a
+  flow family's from the batch down (a window of every stream);
 * ``max_num_pages``: 90% of the memory free after every graph of the
   final lattice is captured, over one page's bytes;
 * ``page_size``, ``detok_pipeline_depth``, ``first_chunk_frames``,
@@ -85,10 +92,24 @@ from vox_serve_tpu_torch.requests import Request
 from vox_serve_tpu_torch.utils import cdiv
 from vox_serve_tpu_torch.worker import ModelWorker, WorkerConfig
 
-FAMILIES = {"qwen3": "qwen3-tts", "csm": "csm", "orpheus": "orpheus"}
+FAMILIES = {"qwen3": "qwen3-tts", "csm": "csm", "orpheus": "orpheus",
+            "cosyvoice2": "cosyvoice2"}
 #: what one stream consumes in real time: frames (tokens for Orpheus: 7
-#: SNAC tokens per 2048 samples at 24 kHz) per second
-RATE = {"qwen3": 12.5, "csm": 12.5, "orpheus": 7 * 24000 / 2048}
+#: SNAC tokens per 2048 samples at 24 kHz; CosyVoice2's 25 Hz speech
+#: tokens) per second
+RATE = {"qwen3": 12.5, "csm": 12.5, "orpheus": 7 * 24000 / 2048,
+        "cosyvoice2": 25.0}
+#: families whose detokenizer is a flow-matching decoder (the flow and
+#: HiFT): kept in float32, the source's precision (no bf16 reading), and
+#: timed at every batch up to the top one, since the online scheduler
+#: gives each pressing stream at least one window a round, and at the
+#: catch-up window lengths
+FLOW = ("cosyvoice2",)
+#: families whose batch is set, not the rule's (the rule's reading is still
+#: printed), and the lattices and pages derived there: CosyVoice2 keeps
+#: the generic 8, since the rule's 4 would queue the fifth of the eight
+#: callers its benchmark cell serves
+FIXED_BATCH = {"cosyvoice2": 8}
 #: headroom for prefill and host time
 MARGIN = 1.5
 BATCHES = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128, 144, 192, 256)
@@ -226,7 +247,9 @@ def sweep(fam: str, model, batches: tuple) -> dict:
     W = next(w for w in worker.table_width_buckets
              if w * PAGE >= ctx + FUSED_K)
     # a round's windows: one detokenize batch (within the frame budget)
-    detok_batches = sorted({b for b in (cdiv(B, step) for B in batches)
+    demand = (range(1, FIXED_BATCH.get(fam, top) + 1) if fam in FLOW
+              else (cdiv(B, step) for B in batches))
+    detok_batches = sorted({b for b in demand
                             if b * interval <= cfg.detok_frame_budget} | {1})
     m: dict = {"prompt_tokens": prompt, "context": ctx, "width": W,
                "interval": interval, "step": step,
@@ -234,7 +257,7 @@ def sweep(fam: str, model, batches: tuple) -> dict:
                "decode_ms": {}, "fused_ms": {}, "wall_ms_depth0": {},
                "wall_ms_depth2": {}, "fused_wall_ms_depth2": {},
                "detok_ms_float32": {}, "detok_ms_bfloat16": {},
-               "prefill_ms": {}}
+               "detok_ms_catch_up": {}, "prefill_ms": {}}
     for B in batches:
         reqs = [Request(request_id=f"{fam}{B}_{i}", prompt=PROMPT)
                 for i in range(B)]
@@ -262,7 +285,7 @@ def sweep(fam: str, model, batches: tuple) -> dict:
     # detokenize and prefill over a small pool; the bf16 codec last (the
     # worker casts the model's codec: its float32 one is put back)
     saved = (model.codec_params, model.init_decoder_cache)
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32",) if fam in FLOW else ("float32", "bfloat16"):
         worker = ModelWorker(model, dataclasses.replace(
             cfg, num_pages=64, pipeline_depth=0, fused_decode_steps=0,
             fused_decode_buckets=(1,), kv_reserve_fraction=1.0,
@@ -274,6 +297,16 @@ def sweep(fam: str, model, batches: tuple) -> dict:
         print(f"[{fam}] detokenize {dtype}: " + ", ".join(
             f"B={b} {ms:.3f} ms" for b, ms in m[f"detok_ms_{dtype}"].items()),
             flush=True)
+        if fam in FLOW:  # the catch-up windows, for the record
+            for L in worker._detok_lengths()[1:]:
+                for B in (b for b in batches
+                          if b * L <= cfg.detok_frame_budget):
+                    key = ("detok", B, L)
+                    m["detok_ms_catch_up"][f"{B}x{L}"] = \
+                        worker._steps.probe(key)
+                    drop_graphs(worker, [key])
+            print(f"[{fam}] catch-up windows: {m['detok_ms_catch_up']}",
+                  flush=True)
         if dtype == "float32":
             for T in PREFILL_T:
                 key = ("prefill", T, cfg.max_prefill_requests)
@@ -312,11 +345,15 @@ def derive(fam: str, m: dict) -> tuple[dict, dict, int, bool]:
     rules: dict = {}
     f32, b16 = m["detok_ms_float32"], m["detok_ms_bfloat16"]
     dtop = max(f32)
-    bf16 = b16[dtop] < 0.9 * f32[dtop]
+    if fam in FLOW:
+        bf16 = False
+        rules["codec_dtype"] = "float32: the source's flow and HiFT"
+    else:
+        bf16 = b16[dtop] < 0.9 * f32[dtop]
+        rules["codec_dtype"] = (
+            f"detok B={dtop}: bf16 {b16[dtop]:.3f} vs f32 {f32[dtop]:.3f} "
+            "ms (bf16 if < 0.9x)")
     codec = "bfloat16" if bf16 else None
-    rules["codec_dtype"] = (
-        f"detok B={dtop}: bf16 {b16[dtop]:.3f} vs f32 {f32[dtop]:.3f} ms "
-        "(bf16 if < 0.9x)")
     det = b16 if bf16 else f32
     need = MARGIN * RATE[fam]
     # per frame: one decode step + the share of the windows that decode
@@ -330,6 +367,9 @@ def derive(fam: str, m: dict) -> tuple[dict, dict, int, bool]:
         f"min(1, B/{step})) >= {MARGIN} x {RATE[fam]:.2f}/s: {B_time}; "
         "per-stream rate " + ", ".join(f"{B}:{v:.1f}"
                                        for B, v in cover.items()))
+    if fam in FIXED_BATCH:
+        B_time = FIXED_BATCH[fam]
+        rules["max_batch_size"] += f"; set to {B_time} (FIXED_BATCH)"
     rules["detok_buckets"] = "0.75 rule over " + ", ".join(
         f"{b}:{ms:.3f}" for b, ms in det.items())
     fused_gain = (m["fused_wall_ms_depth2"][B_time]
@@ -366,7 +406,8 @@ def finish_profile(fam: str, m: dict, prof: dict, rules: dict, B: int,
         f"B={b}:{m['decode_ms'][b]:.3f}" for b in m["decode_ms"] if b <= B)
     det = m["detok_ms_bfloat16" if prof["codec_dtype"]
             else "detok_ms_float32"]
-    d = min(b for b in det if b >= cdiv(B, m["step"]))
+    d = (B if fam in FLOW
+         else min(b for b in det if b >= cdiv(B, m["step"])))
     prof["detok_buckets"] = ",".join(map(str, lattice(det, d)))
     if fused:
         prof["fused_decode_steps"] = FUSED_K

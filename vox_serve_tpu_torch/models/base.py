@@ -251,6 +251,19 @@ class BaseLM(abc.ABC):
         return {"sampled": torch.cat([ids, pad], dim=1)}
 
     # ---- detokenizer ---------------------------------------------------------
+    #: parts of ``detokenize`` that the worker times on the card: it gives
+    #: each captured detokenize graph a (start, end) event pair per part in
+    #: ``detok_marks`` (part -> pair; None outside those graphs and off the
+    #: card), and the model records them around each part (``mark_detok``)
+    detok_spans: tuple[str, ...] = ()
+    detok_marks: dict | None = None
+
+    def mark_detok(self, part: str, end: bool) -> None:
+        """Record the start (or end) event of ``part`` where the worker
+        gave this call its events."""
+        if self.detok_marks is not None:
+            self.detok_marks[part][int(end)].record()
+
     @abc.abstractmethod
     def detokenize(self, codec_params: dict, token_ids: torch.Tensor,
                    cache: Any | None) -> tuple[torch.Tensor, Any | None]:

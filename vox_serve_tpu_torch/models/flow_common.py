@@ -63,6 +63,9 @@ class CosyFlowDecodeMixin:
     FLOW_CTX_TOKENS = 25
     #: static prompt-feat rows per slot (the cond anchor of a voice clone)
     FLOW_PROMPT_FRAMES = 300
+    #: the flow (encoder and the guided Euler solver) and HiFT, each timed
+    #: on the card inside the detokenize graphs (``BaseLM.detok_spans``)
+    detok_spans = ("flow", "hift")
 
     _flow_noise: dict
 
@@ -79,6 +82,7 @@ class CosyFlowDecodeMixin:
 
     def detokenize(self, codec_params, token_ids, cache):
         cfg: CosyFlowConfig = self._flow_cfg
+        self.mark_detok("flow", end=False)
         tokens = self._flow_token_column(token_ids)              # (B, W)
         B, W = tokens.shape
         K = self.FLOW_CTX_TOKENS
@@ -108,8 +112,11 @@ class CosyFlowDecodeMixin:
                                 noise=self.flow_noise(W), streaming=True)
         # the window's first `step` tokens, after the K context tokens
         mel = mel[:, :, K * r: K * r + step * r]
+        self.mark_detok("flow", end=True)
+        self.mark_detok("hift", end=False)
         wav, new_hift = hift_decode_chunk(codec_params["hift"],
                                           self._hift_cfg, mel, cache["hift"])
+        self.mark_detok("hift", end=True)
 
         new_cache = dict(cache)
         new_cache["ctx_tokens"] = torch.cat(

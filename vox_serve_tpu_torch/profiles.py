@@ -113,6 +113,41 @@ SERVING_PROFILES: dict[str, dict[str, Any]] = {
         "fused_decode_steps": 0,
         "prefill_buckets": "64,128,512,1024",
     },
+    # CosyVoice2-0.5B (its flow + HiFT detokenize of one 28-token window
+    # 120.8 ms at B=1 .. 215.9 at B=8, float32; decode 4.0-4.4 ms at B 1-8
+    # over 2,102 tokens of context). Where a rule's value made the
+    # closed-8 cell's TTFA p50 worse than the generic value's (parent and
+    # change on the same seeds, PERF.md §6), the generic value stays:
+    # - batch 8 (generic): the 1.5x-real-time rule (25 tokens/s a stream)
+    #   reads 4 (per-stream 42.7 tokens/s; 8: 23.2), which would queue the
+    #   fifth of a closed loop of eight callers;
+    # - pages: 90% of the 80.48 GB free once the lattice's 28 graphs are
+    #   captured (fused ones included), over 196,608 bytes a page;
+    # - decode and fused buckets: the 0.75 rule keeps 1 and 8 (B=2: 3.94
+    #   ms, 4: 4.11 against 8's 4.42);
+    # - fused decode k=4: 3.61 ms a frame at B=8 against single steps' 3.99
+    #   (below 0.95 of it; an earlier sweep read 3.93 against 3.97); in the
+    #   cell TTFA p50 940 and 993 ms against 1,220 and 1,238;
+    # - detokenize buckets 1, 2, 4, 8 (the generic lattice at batch 8): the
+    #   0.75 rule from the batch down reads 1, 4, 8 (4: 151.6 ms against
+    #   8's 215.9; 2: 129.6, above 0.75 of 151.6), which pads a round's two
+    #   windows to four rows;
+    # - pipeline depth 0 (generic): the rule reads 2 (3.99 ms a frame at
+    #   B=8 against depth 0's 4.67);
+    # - flow and HiFT in float32 with TF32 off (the source's precision,
+    #   which the reference and the benchmark's limits hold);
+    # - prefill buckets by the 0.75 rule over 3.75 (T=64) ... 5.78 ms
+    #   (T=1024): 64, 128, 1024.
+    "cosyvoice2": {
+        "max_batch_size": 8,
+        "max_num_pages": 368464,
+        "decode_buckets": "1,8",
+        "detok_buckets": "1,2,4,8",
+        "pipeline_depth": 0,
+        "fused_decode_steps": 4,
+        "fused_decode_buckets": "1,8",
+        "prefill_buckets": "64,128,1024",
+    },
     # the CPU model of the tests: small everything (not measured)
     "dummy": {
         "max_batch_size": 8,

@@ -58,7 +58,11 @@ the decode batch's and the largest prefill bucket's rows) there as JSON (rank r 
 HTTP learns which kernels the served requests ran, and that no option fell
 back silently. Its ``phase_stats`` hold ``round`` (wall seconds and count
 of the scheduler rounds that did work) and ``round.wait`` (the seconds and
-count of the blocking waits on the card inside them). With
+count of the blocking waits on the card inside them), ``detok.windows``
+and ``detok.rows`` (the windows and the bucket rows of each detokenize
+replay) and, for a flow model on the card, ``detok.flow`` and
+``detok.hift`` (device seconds of those parts, from events captured in the
+detokenize graphs, and the replays read). With
 ``--enable-profiling`` the daemon also writes its span recorder
 (``worker/spans.py``: each such round, each step dispatch inside it, each
 blocking wait) to ``PATH.spans.json`` as Chrome trace events on the epoch

@@ -302,11 +302,12 @@ class _PendingDetok:
     """A detokenize batch awaiting readback: its PCM (pinned host copy on
     the card), the event after the copy, the windows' (request, start,
     valid frames, window length) and the requests to test for completion
-    once it resolves."""
+    once it resolves, and the key of the graph that decoded it."""
     audio: torch.Tensor
     event: Optional[torch.cuda.Event]
     mapping: list
     finish_check: list
+    key: tuple
 
 
 def _locked(fn):
@@ -357,8 +358,13 @@ class ModelWorker:
         self.lm_device = dev
         self.detokenizer_device = detok = detokenizer_device_of(
             dev, cfg.detokenizer_device_index)
-        #: cumulative wall time per phase: name -> (total_s, calls)
+        #: cumulative wall time per phase: name -> (total_s, calls); also
+        #: "detok.<part>", device seconds of each timed part of the model's
+        #: detokenize (``BaseLM.detok_spans``) over the replays read
         self.phase_stats: dict[str, tuple[float, int]] = {}
+        #: ("detok", B, L) -> the model's parts -> the (start, end) events
+        #: captured in that graph (card only)
+        self._detok_marks: dict[tuple, dict] = {}
         #: seconds blocked on the card (``_wait``) and the waits, since start
         self.wait_s = 0.0
         self.waits = 0
@@ -776,8 +782,12 @@ class ModelWorker:
         return max(self.config.prefill_token_buckets)
 
     def _stat(self, name: str, t0: float) -> None:
+        self._count(name, time.perf_counter() - t0)
+
+    def _count(self, name: str, amount: float) -> None:
+        """Add ``amount`` and one call to ``phase_stats[name]``."""
         tot, n = self.phase_stats.get(name, (0.0, 0))
-        self.phase_stats[name] = (tot + (time.perf_counter() - t0), n + 1)
+        self.phase_stats[name] = (tot + amount, n + 1)
 
     # ------------------------------------------------------------------
     # admission / release
@@ -1149,11 +1159,24 @@ class ModelWorker:
             return body, (np.concatenate([ppack, dpack]), *planes)
         if kind == "detok":
             _, B, L = key
+            marks = None
+            if self.detokenizer_device.type == "cuda" and model.detok_spans:
+                # external: recorded as event nodes of the graph, so each
+                # replay stamps them (timing events capture as such)
+                marks = {part: tuple(torch.cuda.Event(enable_timing=True,
+                                                      external=True)
+                                     for _ in range(2))
+                         for part in model.detok_spans}
+                self._detok_marks[key] = marks
 
             def body(pack):
                 self._count_eager(kind)
                 token_ids, slot_ids = self._detok_pack_views(pack, B, L, C)
-                return self._detok_rows(token_ids, slot_ids.long())
+                model.detok_marks = marks
+                try:
+                    return self._detok_rows(token_ids, slot_ids.long())
+                finally:
+                    model.detok_marks = None
             pack = np.zeros((B * L * C + B,), np.int32)
             self._detok_pack_views(pack, B, L, C)[1][:] = cfg.max_batch_size
             return body, (pack,)
@@ -2093,11 +2116,12 @@ class ModelWorker:
         for m in mapping:
             m[0].lifecycle.setdefault("first_detok", now)
         t0 = time.perf_counter()
+        key = ("detok", B, length)
         with self._trace(f"detokenize_b{B}_l{length}"):
-            pcm = self._steps.run(("detok", B, length), pack)
+            pcm = self._steps.run(key, pack)
         self._pending_detok.append(_PendingDetok(
             self._to_host(pcm), self._event(self.detokenizer_device), mapping,
-            finish_check))
+            finish_check, key))
         self.max_pending_detok = max(self.max_pending_detok,
                                      len(self._pending_detok))
         self._stat("detok.dispatch", t0)
@@ -2120,8 +2144,9 @@ class ModelWorker:
                 resolved += self._issue_detok(windows[s:s + cap],
                                               mapping[s:s + cap], length, fc)
             return resolved
-        tot, cnt = self.phase_stats.get("detok.windows", (0.0, 0))
-        self.phase_stats["detok.windows"] = (tot + len(windows), cnt + 1)
+        self._count("detok.windows", len(windows))
+        # the bucket rows the replay runs, padded rows included
+        self._count("detok.rows", self._detok_bucket(len(windows), length))
         return self._dispatch_detok(windows, [m[0].slot for m in mapping],
                                     length, mapping, finish_check)
 
@@ -2168,6 +2193,11 @@ class ModelWorker:
             self._wait(e.event)
         audio = e.audio.numpy()  # (B, channels, samples) int16
         self._stat("detok.audio_get", t0)
+        # a later replay of the same graph still in flight re-records its
+        # events: that replay is read instead
+        if not any(p.key == e.key for p in self._pending_detok):
+            for part, ms in self.detok_part_ms(e.key).items():
+                self._count(f"detok.{part}", ms / 1e3)
         touched: list[Request] = []
         for i, (req, _start, last_len, window_len) in enumerate(e.mapping):
             pcm = audio[i]
@@ -2185,6 +2215,14 @@ class ModelWorker:
             if r not in touched:
                 touched.append(r)
         return touched
+
+    def detok_part_ms(self, key: tuple) -> dict[str, float]:
+        """Device ms of each timed part of the model's detokenize in the
+        last replay of graph ``key``, which must have completed (empty off
+        the card and for a model that times no part)."""
+        return {part: start.elapsed_time(end)
+                for part, (start, end) in self._detok_marks.get(key,
+                                                                {}).items()}
 
     @_locked
     def flush_detokenize(self) -> list[Request]:
